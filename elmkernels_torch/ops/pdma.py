@@ -15,6 +15,18 @@ import torch
 from elmkernels_torch.ops import build
 
 ROWS, BANDS = 21, 5
+# the kernel moves whole tiles of columns by bulk copy, which needs
+# 16-byte aligned addresses
+ALIGN = 16
+
+
+def _aligned(t):
+    """``t`` contiguous at a 16-byte aligned address.  A contiguous view
+    with a storage offset (e.g. ``big[1:]``) may start off alignment; it is
+    copied into a fresh tensor, which the allocator aligns to 256 bytes.
+    The main path passes fresh tensors, which need no copy."""
+    t = t.contiguous()
+    return t if t.data_ptr() % ALIGN == 0 else t.clone()
 
 
 def pdma_solve(lhs, rhs):
@@ -29,7 +41,7 @@ def pdma_solve(lhs, rhs):
     if lhs.shape != (ncol, ROWS, BANDS) or rhs.shape != (ncol, ROWS):
         raise ValueError(f"pdma_solve: lhs {tuple(lhs.shape)} / rhs "
                          f"{tuple(rhs.shape)} are not [n, 21, 5] / [n, 21]")
-    lhs, rhs = lhs.contiguous(), rhs.contiguous()
+    lhs, rhs = _aligned(lhs), _aligned(rhs)
     x = torch.empty_like(rhs)
     fn = build.load("pdma_solve").pdma_solve_f64
     fn.argtypes = [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
@@ -43,3 +55,18 @@ def pdma_solve(lhs, rhs):
 
 
 pdma_solve.launches = 0
+
+
+def layout() -> dict:
+    """What the kernel's launch chooses on the current card: columns per
+    tile, pipeline stages, dynamic shared memory per block, resident
+    blocks per SM and SMs (so the grid is their product, capped at the
+    number of tiles)."""
+    fn = build.load("pdma_solve").pdma_solve_layout
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    build.check(fn(out), "pdma_solve_layout")
+    keys = ("tile_columns", "stages", "smem_bytes_per_block",
+            "blocks_per_sm", "sms")
+    return dict(zip(keys, out))

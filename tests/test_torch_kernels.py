@@ -41,11 +41,23 @@ def test_ci_kernel_matches_plain(card, mode, dtype):
         torch.testing.assert_close(a, b, rtol=1e-12, atol=0, equal_nan=True)
 
 
+# odd and even counts below, at and past the kernel's 32-column tile, the
+# winter path's and the main path's widths; an offset of 1 makes lhs and rhs
+# views one column into their storage, off 16-byte alignment
+PDMA_CASES = [(n, 0) for n in (1, 2, 3, 63, 64, 65, 8192, 8193, 262144,
+                               262145)] + [(65, 1), (262144, 1)]
+
+
 @pytest.mark.cuda
-def test_pdma_kernel_matches_plain(card):
+@pytest.mark.parametrize("ncol,offset", PDMA_CASES)
+def test_pdma_kernel_matches_plain(card, ncol, offset):
+    """Bit for bit: the kernel runs the plain version's operations in its
+    order, without contracted multiply-adds."""
     from elmkernels_torch.ops.pdma import pdma_solve
-    lhs, rhs = testing.pdma_problem(N, 5)
+    lhs, rhs = testing.pdma_problem(ncol + offset, 5)
     lhs, rhs = torch.tensor(lhs, device=card), torch.tensor(rhs, device=card)
+    lhs, rhs = lhs[offset:], rhs[offset:]
+    assert (lhs.data_ptr() % 16 != 0) == bool(offset)
     torch.testing.assert_close(pdma_solve(lhs, rhs),
-                               tst.pdma_solve_plain(lhs, rhs), rtol=1e-12,
+                               tst.pdma_solve_plain(lhs, rhs), rtol=0,
                                atol=0)

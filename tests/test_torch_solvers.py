@@ -108,3 +108,35 @@ def test_pdma_plain_matches_jax():
                 dense[:, r, r + off] = lhs[:, r, band]
     np.testing.assert_allclose(np.einsum("nij,nj->ni", dense, tx), rhs,
                                rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_pdma_plain_matches_jax_odd_ncol_and_offset_view(offset):
+    """An odd column count (the kernel's last tile then holds an odd count)
+    and views one column into their storage (840 B and 168 B, off 16-byte
+    alignment), the layouts the card compares the kernel on."""
+    ncol = 65
+    lhs, rhs = testing.pdma_problem(ncol + offset, 9)
+    with jax.default_device(jax.devices("cpu")[0]):
+        jx = np.asarray(jst.pdma_solve(jnp.asarray(lhs[offset:]),
+                                       jnp.asarray(rhs[offset:])))
+    tl, tr = torch.tensor(lhs)[offset:], torch.tensor(rhs)[offset:]
+    assert tl.storage_offset() == offset * 105
+    assert tr.storage_offset() == offset * 21
+    tx = tst.pdma_solve_plain(tl, tr).numpy()
+    assert tx.shape == (ncol, 21)
+    np.testing.assert_allclose(tx, jx, rtol=1e-12, atol=0)
+
+
+def test_pdma_wrapper_realigns_offset_views():
+    """The kernel's wrapper hands it 16-byte aligned storage: an offset
+    view is copied, an aligned contiguous tensor passes as it is."""
+    from elmkernels_torch.ops.pdma import ALIGN, _aligned
+    lhs, _ = testing.pdma_problem(9, 3)
+    full = torch.tensor(lhs)
+    assert _aligned(full).data_ptr() == full.data_ptr()
+    view = full[1:]
+    assert view.data_ptr() % ALIGN != 0
+    fixed = _aligned(view)
+    assert fixed.data_ptr() % ALIGN == 0 and fixed.is_contiguous()
+    assert torch.equal(fixed, view)
