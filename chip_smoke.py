@@ -10,30 +10,47 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    per source, all at once), prints ``ptxas``'s report (and fails if
    ``pdma_kernel`` spills) and the tile and stages K4's launch chose;
 3. holds ``ci_hybrid_solve`` against its plain PyTorch version at
-   2 x 262,144 leaves (float64 and float32; c4 and mixed in float64), and
-   times the float32 case, the main path's type, on that test problem;
+   2 x 262,144 leaves (c3 and mixed in float64 and float32, c4 in
+   float64; mixed with traits that differ per leaf), and times the c3
+   float32 case, the main path's mode and type, on that test problem;
 4. holds ``pdma_solve`` against its plain version bit for bit at ten
    column counts from 1 to 262,145 and on views off 16-byte alignment,
    and times both and ``torch.linalg.solve`` at [262144, 21, 5];
 5. drives the main path: ``Model(ncol=262144)`` with the production flags
-   through one summer day (48 steps), checks the state and the
-   conservation contracts, counts each kernel's launches, and times each
-   launch with CUDA events on the main path's own inputs
-   (:class:`MainPathTimes`);
+   through one summer day (48 steps) with no timer installed, for ms/step,
+   columns/s, the conservation contracts and each kernel's launches; then
+   12 steps around noon again with each launch timed by CUDA events on the
+   main path's own inputs (:class:`MainPathTimes`);
 6. drives ``Model(ncol=8192)`` through 700 January steps, long enough for
    the synthetic forcing to build snow layers (they form after ~550);
-7. prints the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
-   per launch on the main path; ``test_ms`` and ``plain_ms`` on the test
-   problems of 3 and 4), the card line, and ``{"ok": true, ...}`` last.
+7. loops, bit for bit: the heterogeneous global grid at 8,192 columns
+   (``Model.from_surfdata`` with month-per-file NetCDF forcing, phenology
+   and aerosol deposition, all written by ``elmkernels_torch.data.
+   synthetic``), 48 steps from one cold start by ``run``, ``run_scan``,
+   ``run_scan_series`` and ``run_windows(series=True, window=24)``: every
+   state field equal at atol 0, each loop's per-step diagnostics equal to
+   the reductions of ``run``'s, and the ci solve run only in "mixed" mode;
+8. the production loop at full width: ``Model.from_surfdata`` on the
+   262,144-cell global grid with the synthetic forcing, ``run_windows(
+   nsteps=96, window=48, series=True)`` with no timer installed (ms/step,
+   columns/s, contracts, launches), the same 96 steps by ``run`` from a
+   fresh model (the same state bit for bit, and its ms/step in the same
+   call), then one 12-step window around noon under
+   :class:`MainPathTimes`, whose first 16 ci solves (float32, "mixed",
+   per-leaf traits) are then held against the plain version on the same
+   inputs;
+9. prints the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
+   per launch on the main path, ``prod_*`` the same on the production
+   loop, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4),
+   the card line, and ``{"ok": true, ...}`` last.
 
 Any failed check raises and the script exits non-zero.  Synthetic
-parameter files and the kernel builds go under ``build/`` in the checkout.
+input files and the kernel builds go under ``build/`` in the checkout.
 """
 
 from __future__ import annotations
 
 import json
-import math
 import pathlib
 import re
 import subprocess
@@ -91,14 +108,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def errsol_bound(ncol: int, nsteps: int, base: float = 2.5e-5) -> float:
-    """Shortwave-closure contract of the mixed-radiation production flags,
-    scaled with the number of column-steps (the JAX package's
-    ``utils/guard.py:errsol_bound``)."""
-    n = ncol * nsteps / (8192.0 * 48.0)
-    return base * math.sqrt(1.0 + max(0.0, math.log2(n)) / 2.0)
-
-
 def ci_bound(x0, enabled, iters):
     """(bytes ms, operations ms) of one ci solve: bytes are the 20 inputs
     and ``enabled`` read, the 7 outputs and the iterations written;
@@ -133,13 +142,17 @@ class MainPathTimes:
     so that the host has queued the kernel before the start event is
     reached: the pair then times the card's work, not the host's Python
     between the events.  A call whose host side outlasted the guard is
-    ``late`` and left out of the times."""
+    ``late`` and left out of the times.  The inputs and results of the
+    first ``keep`` calls are kept (copies), for holding the kernel against
+    its plain version on the path's own inputs afterwards."""
 
-    def __init__(self, module, attr: str, bound, prepare=lambda args: args):
+    def __init__(self, module, attr: str, bound, prepare=lambda args: args,
+                 keep: int = 0):
         self.module, self.attr = module, attr
         self.bound, self.prepare = bound, prepare
         self.orig = getattr(module, attr)
         self.calls = []
+        self.keep, self.kept = keep, []
 
     @property
     def launches(self) -> int:
@@ -161,6 +174,8 @@ class MainPathTimes:
         stop.record()
         host_s = time.perf_counter() - h0
         self.calls.append((start, stop, host_s, self.bound(args, out)))
+        if len(self.kept) < self.keep:
+            self.kept.append((clone(args), clone(out)))
         return out
 
     def __enter__(self):
@@ -231,6 +246,53 @@ def check_ci(n: int, mode: str, dtype, tol: float, time_it: bool):
     return res
 
 
+def clone(tree):
+    """A copy of every tensor of a (nested) tuple; other leaves pass."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple):
+        vals = [clone(v) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    return tree
+
+
+def check_ci_on_path(kept, tol: float, label: str) -> dict:
+    """ci_hybrid_solve's results on a path's own inputs (the calls a
+    MainPathTimes kept) against hybrid_solve_plain on the same inputs."""
+    import torch
+    from elmkernels_torch.physics import photosynthesis as psn
+    worst, worst_abs, eq, n, modes = 0.0, 0.0, 1.0, 0, {}
+    same_nan = True
+    for (x0, env, mode, en), (ci_k, out_k, it_k) in kept:
+        ci_p, out_p, it_p = psn.hybrid_solve_plain(x0, env, mode, en)
+        key = f"{mode} {str(x0.dtype).replace('torch.', '')}"
+        modes[key] = modes.get(key, 0) + 1
+        for a, b in zip((ci_k, *out_k), (ci_p, *out_p)):
+            same_nan &= bool(torch.equal(torch.isnan(a), torch.isnan(b)))
+            fin = torch.isfinite(b)
+            diff = (a - b).abs()[fin]
+            if diff.numel():
+                worst_abs = max(worst_abs, diff.max().item())
+                worst = max(worst, (diff / b.abs()[fin].clamp_min(1e-30))
+                            .max().item())
+        eq = min(eq, (it_k == it_p).double().mean().item())
+        n += en.shape[0]
+    # the trait fields (CiEnv's last four) that differ between leaves
+    env = kept[0][0][1] if kept else None
+    varying = [k for k in (env._fields[-4:] if env else ())
+               if bool((getattr(env, k) != getattr(env, k)[0]).any())]
+    res = dict(label=label, calls=len(kept), leaves=n, modes=modes,
+               traits_varying_per_leaf=varying, max_rel=worst,
+               max_abs=worst_abs, equal_iters=eq, same_nan=same_nan)
+    phase("K1 ci_hybrid_solve vs plain on the path's inputs: "
+          + json.dumps(res))
+    if not (varying and same_nan and worst <= tol and eq >= 0.999):
+        raise AssertionError(f"ci_hybrid_solve disagrees with its plain "
+                             f"version on the {label}: {res}")
+    return res
+
+
 def pdma_bound(ncol: int):
     """(bytes ms, operations ms) of one pentadiagonal solve of ``ncol``
     columns: 105 + 21 doubles read and 21 written per column, against
@@ -294,15 +356,78 @@ def check_pdma(ncol: int):
     return res
 
 
+class ModeSpy:
+    """Counts the photosynthesis modes ``ci_hybrid_solve`` is called with
+    while installed in its module's place (``with``); ``launches`` passes
+    through to the wrapper."""
+
+    def __init__(self, module):
+        self.module = module
+        self.orig = module.ci_hybrid_solve
+        self.modes = {}
+
+    @property
+    def launches(self) -> int:
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.orig.launches = n
+
+    def __call__(self, x0, env, mode, enabled):
+        self.modes[mode] = self.modes.get(mode, 0) + 1
+        return self.orig(x0, env, mode, enabled)
+
+    def __enter__(self):
+        self.module.ci_hybrid_solve = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.ci_hybrid_solve = self.orig
+
+
+def reset(kernels: dict) -> None:
+    for fn in kernels.values():
+        fn.launches = 0
+
+
+def counts(kernels: dict, label: str) -> dict:
+    """Each kernel's launches since ``reset``; fails if one of them was
+    not launched."""
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"{label}")
+    return launches
+
+
+def check_contracts(label: str, res: dict, led_bound: float = 1e-9) -> None:
+    bad = [k for k, lim in (("errh2o_led", led_bound), ("errlon", 1e-8),
+                            ("errsol", res["errsol_bound"]))
+           if not res[k] < lim]
+    if not res["finite"]:
+        bad.append("non-finite state")
+    if bad:
+        raise AssertionError(f"{label} broke {bad}: {res}")
+
+
+def finite(state) -> bool:
+    import torch
+    return all(bool(torch.isfinite(v).all()) for v in state
+               if v.is_floating_point())
+
+
 def drive(ncol: int, month: int, nsteps: int, files, label: str,
-          kernels: dict):
-    """Run Model(ncol) with the production flags for nsteps from the first
-    of ``month``; returns the run summary and the launches of each kernel
-    wrapper in ``kernels`` ({name: wrapper}), counted from 0 over the
-    run."""
+          kernels: dict, start_step: int = 0):
+    """Run Model(ncol) with the production flags for nsteps from step
+    ``start_step`` of the first of ``month``; returns the run summary and
+    the launches of each kernel wrapper in ``kernels`` ({name: wrapper}),
+    counted from 0 over the run."""
     import torch
     from elmkernels_torch.driver.model import Model
     from elmkernels_torch.utils.dates import Date
+    from elmkernels_torch.utils.guard import errsol_bound
     model = Model(ncol=ncol, pft_path=str(files[0]),
                   snicar_path=str(files[1]))
     worst = {"errh2o_led": 0.0, "errlon": 0.0, "errsol": 0.0,
@@ -315,42 +440,251 @@ def drive(ncol: int, month: int, nsteps: int, files, label: str,
         iters.append(int(d.niters_canopy.max().item()))
         stamps.append(time.perf_counter())  # .item() has synchronized
 
-    for fn in kernels.values():
-        fn.launches = 0
+    start = Date.from_ymd(1985, month, 1)
+    start.increment_seconds(start_step * int(model.dtime))
+    reset(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.run(Date.from_ymd(1985, month, 1), nsteps, cb)
+    model.run(start, nsteps, cb)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
+    launches = counts(kernels, label)
     st = model.state
-    finite = all(bool(torch.isfinite(v).all()) for v in st
-                 if v.is_floating_point())
     snl_max = int(st.snl.max().item())
     # steady rate: steps after the first (which loads the kernels)
     steady = (stamps[-1] - stamps[0]) / (nsteps - 1)
     res = dict(label=label, ncol=ncol, steps=nsteps, wall_s=wall,
                first_step_ms=(stamps[0] - t0) * 1e3,
                ms_per_step=steady * 1e3, columns_per_s=ncol / steady,
-               finite=finite,
+               finite=finite(st),
                snl_max=snl_max, columns_with_snow_layers=int(
                    (st.snl > 0).sum().item()),
                max_canopy_iters=max(iters), canopy_iters_total=sum(iters),
                launches=launches, **worst,
                errsol_bound=errsol_bound(ncol, nsteps))
     phase(f"{label}: " + json.dumps(res))
-    bad = []
-    if not finite:
-        bad.append("non-finite state")
-    if not worst["errh2o_led"] < 1e-9:
-        bad.append("errh2o_led")
-    if not worst["errlon"] < 1e-8:
-        bad.append("errlon")
-    if not worst["errsol"] < res["errsol_bound"]:
-        bad.append("errsol")
-    if bad:
-        raise AssertionError(f"{label} broke {bad}: {res}")
+    check_contracts(label, res)
     return res, launches
+
+
+def timed_summaries(t1, t4, launches: dict, label: str) -> dict:
+    """Per-launch times of a timed run; every launch must have been
+    timed."""
+    on_path = {"ci_hybrid_solve": t1.summary(), "pdma_solve": t4.summary()}
+    phase(f"kernels on the {label}: " + json.dumps(on_path))
+    for name, count in launches.items():
+        if count != on_path[name]["calls"]:
+            raise AssertionError(f"{name}: {count} launches but "
+                                 f"{on_path[name]['calls']} timed calls")
+    return on_path
+
+
+def timers(keep: int = 0):
+    """MainPathTimes of K1 and K4, for ``with``; K1's keeps the inputs and
+    results of its first ``keep`` calls."""
+    from elmkernels_torch.ops import ci_solver, pdma
+
+    # the canopy loop may hand the ci solve constant CiEnv fields as
+    # expanded scalars, which its wrapper would copy inside the event pair
+    def ci_layout(args):
+        x0, env, mode, enabled = args
+        return (x0.contiguous(), type(env)(*(t.contiguous() for t in env)),
+                mode, enabled.contiguous())
+
+    return (MainPathTimes(ci_solver, "ci_hybrid_solve",
+                          lambda a, out: ci_bound(a[0], a[3], out[2]),
+                          ci_layout, keep=keep),
+            MainPathTimes(pdma, "pdma_solve",
+                          lambda a, out: pdma_bound(a[0].shape[0])))
+
+
+LOOPS_NCOL = 8192
+LOOPS_GRID = (64, 128)       # the NetCDF forcing's (lat, lon) grid
+LOOPS_STEPS, LOOPS_WINDOW = 48, 24
+# the closed water ledger on the global grid: f64 rounding of the rain
+# terms reaches ~8e-9 mm on rainy columns, in the JAX package's step as
+# in the port's (tests/test_torch_scan.py::test_water_ledger_residual_is_
+# the_jax_packages).  These phases read 7.58e-9 (loops) and 7.32e-9
+# (production loop) in every run on the card, deterministic on their
+# inputs; the bound leaves 2.6 times the larger
+GLOBAL_LEDGER_BOUND = 2e-8
+PROD_NCOL = 262144
+PROD_STEPS, PROD_WINDOW = 96, 48
+# K1 is held against its plain version on the production loop's own
+# inputs of this many calls (the first step's canopy iterations)
+PROD_CI_KEPT = 16
+
+
+def check_loops(files, kernels: dict) -> dict:
+    """Phase 7: the four time loops on the heterogeneous grid, bit for
+    bit, from one cold start."""
+    import torch
+    from elmkernels_torch.data import synthetic
+    from elmkernels_torch.driver.model import Model, reduce_diags
+    from elmkernels_torch.ops import ci_solver
+    from elmkernels_torch.utils.dates import Date
+    from elmkernels_torch.utils.guard import errsol_bound
+    t0 = time.perf_counter()
+    inputs = synthetic.write_global_inputs(
+        REPO / "build" / "global", LOOPS_NCOL, forcing_grid=LOOPS_GRID)
+    write_s = time.perf_counter() - t0
+    surfdata = inputs.pop("surfdata")
+
+    def model():
+        return Model.from_surfdata(surfdata, LOOPS_NCOL,
+                                   pft_path=str(files[0]),
+                                   snicar_path=str(files[1]), **inputs)
+
+    start = Date.from_ymd(1985, 7, 1)
+    loops = {
+        "run_scan": lambda m: m.run_scan(start, LOOPS_STEPS),
+        "run_scan_series": lambda m: m.run_scan_series(start, LOOPS_STEPS),
+        f"run_windows(series=True, window={LOOPS_WINDOW})":
+            lambda m: m.run_windows(start, LOOPS_STEPS, window=LOOPS_WINDOW,
+                                    series=True)}
+    res = dict(ncol=LOOPS_NCOL, steps=LOOPS_STEPS,
+               forcing_grid=list(LOOPS_GRID), write_inputs_s=write_s,
+               loops={})
+    with ModeSpy(ci_solver) as spy:
+        m = model()
+        res["psn_mode"] = m.psn_mode
+        per_step = []
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run(start, LOOPS_STEPS,
+              lambda date, state, d: per_step.append(reduce_diags(d)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ref_state = m.state
+        ref = type(per_step[0])(*(torch.cat(v) for v in zip(*per_step)))
+        res["loops"]["run"] = dict(ms_per_step=wall / LOOPS_STEPS * 1e3,
+                                   launches=counts(kernels, "loops, run"))
+        for name, fn in loops.items():
+            m = model()
+            reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = fn(m)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            state_diff = [k for k in ref_state._fields if not torch.equal(
+                getattr(ref_state, k), getattr(m.state, k))]
+            diag_diff = [k for k in ref._fields if not torch.equal(
+                getattr(ref, k), getattr(d, k))]
+            res["loops"][name] = dict(
+                ms_per_step=wall / LOOPS_STEPS * 1e3,
+                launches=counts(kernels, f"loops, {name}"),
+                state_fields_differing=state_diff,
+                diagnostics_differing=diag_diff)
+            if state_diff or diag_diff:
+                raise AssertionError(f"{name} differs from run: state "
+                                     f"{state_diff}, diagnostics "
+                                     f"{diag_diff}")
+    res.update(ci_modes=spy.modes, finite=finite(ref_state),
+               errh2o_led=ref.errh2o_led_max.max().item(),
+               errlon=ref.errlon_max.max().item(),
+               errsol=ref.errsol_max.max().item(),
+               errsol_bound=errsol_bound(LOOPS_NCOL, LOOPS_STEPS))
+    phase("loops, bit for bit: " + json.dumps(res))
+    if res["psn_mode"] != "mixed" or set(spy.modes) != {"mixed"}:
+        raise AssertionError(f"the ci solve ran in modes {spy.modes}, "
+                             f"not only 'mixed'")
+    check_contracts("loops", res, led_bound=GLOBAL_LEDGER_BOUND)
+    return res
+
+
+def production_loop(files, kernels: dict):
+    """Phase 8: ``run_windows`` over the 262,144-column global grid, with
+    no timer installed, then one 12-step window under the timers."""
+    import torch
+    from elmkernels_torch.data import synthetic
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.utils.dates import Date
+    from elmkernels_torch.utils.guard import errsol_bound
+    t0 = time.perf_counter()
+    inputs = synthetic.write_global_inputs(REPO / "build" / "global",
+                                           PROD_NCOL)
+    write_s = time.perf_counter() - t0
+    surfdata = inputs.pop("surfdata")
+
+    def model():
+        return Model.from_surfdata(surfdata, PROD_NCOL,
+                                   pft_path=str(files[0]),
+                                   snicar_path=str(files[1]), **inputs)
+
+    t0 = time.perf_counter()
+    m = model()
+    build_s = time.perf_counter() - t0
+    stamps = []
+
+    def window_done(date, state, d):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = m.run_windows(Date.from_ymd(1985, 7, 1), PROD_STEPS,
+                      window=PROD_WINDOW, series=True, callback=window_done)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels, "production loop")
+    steady = (stamps[1] - stamps[0]) / PROD_WINDOW
+    res = dict(label="production loop", ncol=PROD_NCOL, steps=PROD_STEPS,
+               window=PROD_WINDOW, loop="run_windows(series=True)",
+               psn_mode=m.psn_mode, write_inputs_s=write_s,
+               model_build_s=build_s, wall_s=wall,
+               ms_per_step=wall / PROD_STEPS * 1e3,
+               columns_per_s=PROD_NCOL * PROD_STEPS / wall,
+               second_window_ms_per_step=steady * 1e3,
+               second_window_columns_per_s=PROD_NCOL / steady,
+               finite=finite(m.state), launches=launches,
+               errh2o_led=d.errh2o_led_max.max().item(),
+               errlon=d.errlon_max.max().item(),
+               errsol=d.errsol_max.max().item(),
+               errsol_bound=errsol_bound(PROD_NCOL, PROD_STEPS),
+               max_canopy_iters=int(d.niters_canopy_max.max().item()),
+               canopy_iters_total=int(d.niters_canopy_max.sum().item()))
+    phase("production loop: " + json.dumps(res))
+    check_contracts("production loop", res, led_bound=GLOBAL_LEDGER_BOUND)
+    if m.psn_mode != "mixed":
+        raise AssertionError(f"production grid ran {m.psn_mode!r}")
+
+    # the same 96 steps by run, the per-step loop, from a fresh model: the
+    # same state bit for bit at full width, and its ms/step in this call
+    m_run = model()
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_run.run(Date.from_ymd(1985, 7, 1), PROD_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_run = dict(label="production grid by run", ncol=PROD_NCOL,
+                  steps=PROD_STEPS, wall_s=wall,
+                  ms_per_step=wall / PROD_STEPS * 1e3,
+                  columns_per_s=PROD_NCOL * PROD_STEPS / wall,
+                  launches=counts(kernels, "production grid by run"),
+                  state_fields_differing=[
+                      k for k in m.state._fields if not torch.equal(
+                          getattr(m.state, k), getattr(m_run.state, k))])
+    phase("production grid by run: " + json.dumps(by_run))
+    if by_run["state_fields_differing"]:
+        raise AssertionError("run and run_windows differ at full width: "
+                             f"{by_run['state_fields_differing']}")
+    del m_run
+
+    # one 12-step window around noon of the third day, each launch timed
+    noon = Date.from_ymd(1985, 7, 3)
+    noon.increment_seconds(18 * int(m.dtime))
+    t1, t4 = timers(keep=PROD_CI_KEPT)
+    with t1, t4:
+        reset(kernels)
+        m.run_windows(noon, 12, window=12, series=True)
+        timed = counts(kernels, "production loop, timed")
+    on_prod = timed_summaries(t1, t4, timed, "production loop")
+    check_ci_on_path(t1.kept, 1e-5, "production loop")
+    return res, launches, on_prod
 
 
 def main() -> int:
@@ -366,6 +700,7 @@ def main() -> int:
     from elmkernels_torch.data import synthetic
     from elmkernels_torch.ops import build, ci_solver, pdma
 
+    t_script = time.perf_counter()
     card = card_line()
     phase(f"device: {torch.cuda.get_device_name(0)} "
           f"(torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -392,6 +727,8 @@ def main() -> int:
     k1 = check_ci(n_leaves, "c3", torch.float32, 1e-5, time_it=True)
     check_ci(n_leaves, "c4", torch.float64, 1e-12, time_it=False)
     check_ci(n_leaves, "mixed", torch.float64, 1e-12, time_it=False)
+    # the production loop's type and mode: float32, "mixed", per-leaf traits
+    check_ci(n_leaves, "mixed", torch.float32, 1e-5, time_it=False)
     k4 = check_pdma(262144)
 
     files_dir = REPO / "build" / "synthetic"
@@ -402,54 +739,45 @@ def main() -> int:
 
     wrappers = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                 "pdma_solve": pdma.pdma_solve}
-    # the canopy loop hands the ci solve four constant CiEnv fields as
-    # expanded scalars, which its wrapper would copy inside the event pair
-    def ci_layout(args):
-        x0, env, mode, enabled = args
-        return (x0.contiguous(), type(env)(*(t.contiguous() for t in env)),
-                mode, enabled.contiguous())
-
-    with MainPathTimes(ci_solver, "ci_hybrid_solve",
-                       lambda a, out: ci_bound(a[0], a[3], out[2]),
-                       ci_layout) as t1, \
-            MainPathTimes(pdma, "pdma_solve",
-                          lambda a, out: pdma_bound(a[0].shape[0])) as t4:
-        main_run, launches = drive(262144, 7, 48, files, "main path",
-                                   wrappers)
-    on_path = {"ci_hybrid_solve": t1.summary(), "pdma_solve": t4.summary()}
-    phase("kernels on the main path: " + json.dumps(on_path))
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the "
-                                 f"main path")
-        if count != on_path[name]["calls"]:
-            raise AssertionError(f"{name}: {count} launches but "
-                                 f"{on_path[name]['calls']} timed calls")
+    # end-to-end numbers from a run with no timer installed; the kernels'
+    # times per launch from 12 steps around noon under the timers
+    main_run, launches = drive(262144, 7, 48, files, "main path", wrappers)
+    t1, t4 = timers()
+    with t1, t4:
+        _, timed = drive(262144, 7, 12, files, "main path, timed",
+                         wrappers, start_step=18)
+    on_path = timed_summaries(t1, t4, timed, "main path")
     winter, _ = drive(8192, 1, 700, files, "winter path", wrappers)
     if winter["snl_max"] == 0:
         raise AssertionError("winter path made no snow layers")
+    check_loops(files, wrappers)
+    _, prod_launches, on_prod = production_loop(files, wrappers)
 
-    def on_main_path(name, test):
-        m = on_path[name]
+    def numbers(name, test):
+        m, p = on_path[name], on_prod[name]
         return dict(launches=launches[name], ms=m["ms"],
                     bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     share_of_bound=m["share_of_bound"],
                     plain_ms=test["plain_ms"], test_ms=test["test_ms"],
                     test_bound_ms=test["test_bound_ms"],
-                    test_share_of_bound=test["test_share_of_bound"])
+                    test_share_of_bound=test["test_share_of_bound"],
+                    prod_launches=prod_launches[name], prod_ms=p["ms"],
+                    prod_bound_ms=p["bound_ms"],
+                    prod_share_of_bound=p["share_of_bound"])
 
     kernels = [
         dict(name="ci_hybrid_solve", route="cuda",
              source="elmkernels_torch/csrc/ci_hybrid_solve.cu",
              replaces="elmkernels_tpu/physics/photosynthesis.py:238",
              max_abs_err=k1["max_abs_ci"], library_ms=None,
-             **on_main_path("ci_hybrid_solve", k1)),
+             **numbers("ci_hybrid_solve", k1)),
         dict(name="pdma_solve", route="cuda",
              source="elmkernels_torch/csrc/pdma_solve.cu",
              replaces="elmkernels_tpu/physics/soil_temperature.py:282",
              max_abs_err=k4["max_abs_x"], library_ms=k4["library_ms"],
-             **on_main_path("pdma_solve", k4)),
+             **numbers("pdma_solve", k4)),
     ]
+    phase(f"script: {time.perf_counter() - t_script:.1f} s after start")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -54,10 +54,14 @@ def snicar_from_numpy(d: dict, dtype=torch.float64,
 
 def alb_from_numpy(d: dict, dtype=torch.float64,
                    device=None) -> PFTAlbParams:
-    """The per-band optics ([numrad] arrays) become tuples of 0-d tensors,
-    the port's homogeneous-domain form."""
+    """The per-band optics: [numrad] arrays become tuples of 0-d tensors,
+    the port's homogeneous-domain form; per-column [ncol, numrad] arrays
+    stay [ncol, numrad] tensors."""
     def bands(v):
-        return tuple(_tensor(x, dtype, device) for x in np.asarray(v))
+        v = np.asarray(v)
+        if v.ndim == 2:
+            return _tensor(v, dtype, device)
+        return tuple(_tensor(x, dtype, device) for x in v)
     return PFTAlbParams(rhol=bands(d["rhol"]), rhos=bands(d["rhos"]),
                         taul=bands(d["taul"]), taus=bands(d["taus"]),
                         xl=_tensor(d["xl"], dtype, device))

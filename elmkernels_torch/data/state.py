@@ -141,6 +141,9 @@ class StepForcing(NamedTuple):
     fsds: object                # [ncol] (piecewise constant)
     prec: object                # [ncol]
     decday: object              # scalar decimal day-of-year (1-based)
+    # monthly-interpolated aerosol deposition rates, [11, ncol] stacked in
+    # AERO_DEP_KEYS order; None keeps the static ModelParams.aero_* rates
+    aero: object = None
 
 
 class StepPhenology(NamedTuple):

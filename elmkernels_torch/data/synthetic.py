@@ -1,6 +1,8 @@
-"""Synthetic parameter files: a ``clm_params``-style PFT trait NetCDF and a
-SNICAR optics NetCDF, written from closed-form, physically plausible
-values so that a model can be built without the reference's data files.
+"""Synthetic input files: a ``clm_params``-style PFT trait NetCDF, a
+SNICAR optics NetCDF, and a heterogeneous global grid with its
+month-per-file forcing, phenology and aerosol-deposition NetCDFs, written
+from closed-form, physically plausible values so that a model can be
+built without the reference's data files.
 
 Imports numpy and scipy only.  Both the JAX package's ``Model`` and the
 port's read these files through their own readers.
@@ -15,13 +17,24 @@ port's read these files through their own readers.
   ``elmkernels_tpu/data/snicar_data.py:78`` reads: Mie tables
   ``[5, 1471]`` over snow radius 30..1500 um, BC/OC/dust tables and
   ``bcint_enh_mam [8, 10, 5]``.
+- :func:`write_global_surfdata`, :func:`write_forcing_months`,
+  :func:`write_phenology` and :func:`write_aerosol_deposition` write the
+  inputs of ``Model.from_surfdata`` with ``forcing_basename``,
+  ``phenology_path`` and ``aerosol_path``: a land-weighted global grid
+  whose latitude-zoned PFT mix keeps every batch mixed C3/C4, analytic
+  3-hourly forcing in float32 on a (lat, lon) grid, a seasonal phenology
+  per PFT and a monthly deposition climatology.  The grid and forcing
+  arithmetic is that of the JAX package's ``tools/make_global_surfdata.py``
+  and ``tools/make_forcing_files.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from elmkernels_torch import constants as c
 from elmkernels_torch.data.netcdf import write_nc
+from elmkernels_torch.utils.dates import DAYS_PER_MONTH, Date
 
 NUMPFT = 25
 NBND = 5
@@ -117,3 +130,202 @@ def write_snicar_optics(path) -> None:
     write_nc(path, {"band": NBND, "mie": NMIE, "nclrds": 10, "icerds": 8},
              {name: (dims_of(arr), np.asarray(arr, np.float64))
               for name, arr in snicar_tables().items()})
+
+
+# ---------------------------------------------------------------------------
+# a heterogeneous global grid and its month-per-file inputs
+# ---------------------------------------------------------------------------
+
+# approximate fraction of Earth's land area by latitude band
+LAND_BANDS = ((-55.0, -30.0, 0.06), (-30.0, -10.0, 0.11),
+              (-10.0, 10.0, 0.15), (10.0, 30.0, 0.21),
+              (30.0, 50.0, 0.21), (50.0, 70.0, 0.21),
+              (70.0, 84.0, 0.05))
+
+# latitude-zoned dominant PFTs, two alternating per zone, so that every
+# batch of columns mixes C3 and C4 (PFT 14, the C4 grass)
+PFT_ZONES = ((-90.0, -30.0, (c.NBRDLF_EVR_TMP_TREE, c.NC3_NONARCTIC_GRASS)),
+             (-30.0, -10.0, (c.NC4_GRASS, c.NBRDLF_DCD_TRP_TREE)),
+             (-10.0, 10.0, (c.NBRDLF_EVR_TRP_TREE, c.NC4_GRASS)),
+             (10.0, 30.0, (c.NC4_GRASS, c.NBRDLF_EVR_SHRUB)),
+             (30.0, 50.0, (c.NBRDLF_DCD_TMP_TREE, c.NSOYBEAN)),
+             (50.0, 70.0, (c.NDLLF_EVR_BRL_TREE, c.NDLLF_DCD_BRL_TREE)),
+             (70.0, 90.0, (c.NC3_ARCTIC_GRASS, c.NC3_ARCTIC_GRASS)))
+
+
+def land_latitudes(ncell: int) -> np.ndarray:
+    """Land-area-weighted cell latitudes, south to north."""
+    counts = [int(round(w * ncell)) for _, _, w in LAND_BANDS]
+    counts[-1] += ncell - sum(counts)
+    return np.concatenate([np.linspace(lo, hi, n, endpoint=False)
+                           for (lo, hi, _), n in zip(LAND_BANDS, counts)])
+
+
+def global_grid_fields(ncell: int) -> dict:
+    """The global surfdata's per-cell fields: land-weighted latitudes,
+    longitudes, the 20 soil colors, texture and organic gradients, the
+    zoned PFT mix (80 % dominant, 20 % subdominant) and topography."""
+    i = np.arange(ncell)
+    lat = land_latitudes(ncell)
+    lon = (i * 360.0 / 1024.0) % 360.0
+    npft = c.MXPFT
+    vtype = np.zeros(ncell, np.int64)
+    for lo, hi, pfts in PFT_ZONES:
+        zone = (lat >= lo) & (lat < hi)
+        vtype[zone] = np.where((i[zone] % 2) == 0, pfts[0], pfts[1])
+    pct_pft = np.zeros((npft, ncell), np.float32)
+    pct_pft[vtype, i] = 80.0
+    pct_pft[(vtype + 1) % npft, i] = 20.0
+    lev = np.arange(c.NLEVSOI, dtype=np.float64)[:, None]
+    sand = 20.0 + (i % 7) * 8.0 + 2.0 * lev
+    clay = 10.0 + (i % 5) * 6.0 + 1.5 * lev
+    organic = np.maximum(0.0, (2.0 + (i % 11) * 8.0) * (1.0 - 0.12 * lev))
+    return {
+        "LATIXY": lat, "LONGXY": lon,
+        "SOIL_COLOR": ((i % 20) + 1).astype(np.int32),
+        "PCT_NAT_PFT": pct_pft,
+        "PCT_SAND": sand.astype(np.float32),
+        "PCT_CLAY": clay.astype(np.float32),
+        "ORGANIC": organic.astype(np.float32),
+        "SLOPE": 0.01 + 0.3 * (i % 97) / 97.0,
+        "STD_ELEV": 1.0 + 80.0 * (i % 89) / 89.0,
+    }
+
+
+def write_global_surfdata(path, ncell: int) -> None:
+    """Write the ``ncell``-cell global surfdata NetCDF that
+    ``Model.from_surfdata`` reads."""
+    f = global_grid_fields(ncell)
+    lev = ("nlevsoi", "gridcell")
+    write_nc(path, {"gridcell": ncell, "nlevsoi": c.NLEVSOI,
+                    "natpft": c.MXPFT, "scalar": 1}, {
+        "LATIXY": (("gridcell",), f["LATIXY"]),
+        "LONGXY": (("gridcell",), f["LONGXY"]),
+        "SOIL_COLOR": (("gridcell",), f["SOIL_COLOR"]),
+        "mxsoil_color": (("scalar",), np.array([20], np.int32)),
+        "PCT_NAT_PFT": (("natpft", "gridcell"), f["PCT_NAT_PFT"]),
+        "PCT_SAND": (lev, f["PCT_SAND"]),
+        "PCT_CLAY": (lev, f["PCT_CLAY"]),
+        "ORGANIC": (lev, f["ORGANIC"]),
+        "SLOPE": (("gridcell",), f["SLOPE"]),
+        "STD_ELEV": (("gridcell",), f["STD_ELEV"])})
+
+
+def forcing_month_fields(year: int, month: int, nlat: int, nlon: int,
+                         dt_hours: float = 3.0) -> dict:
+    """Analytic forcing of one month, (nt, nlat, nlon) each: seasonal and
+    diurnal cycles with per-cell phase offsets.  Global time enters
+    through the month's first day of year, so months join continuously."""
+    ndays = DAYS_PER_MONTH[month - 1]
+    nt = int(round(ndays * 24.0 / dt_hours))
+    dtime = np.arange(nt, dtype=np.float64) * (dt_hours / 24.0)
+    doy = Date.from_ymd(year, month, 1).doy + dtime[:, None, None]
+    hour = (doy * 24.0) % 24.0
+    cell = np.arange(nlat * nlon, dtype=np.float64).reshape(1, nlat, nlon)
+    phase = 2.0 * np.pi * cell / max(1.0, nlat * nlon)
+    seasonal = -12.0 * np.cos(2.0 * np.pi * doy / 365.0 + 0.3 * phase)
+    diurnal = 6.0 * np.sin(2.0 * np.pi * (hour - 9.0) / 24.0)
+    sun = np.maximum(0.0, np.sin(np.pi * (hour - 6.0) / 12.0))
+    wet = (np.floor(doy * 3.0 + cell) % 7.0) < 2.0
+    return {
+        "DTIME": dtime,
+        "TBOT": 278.0 + seasonal + diurnal,
+        "PBOT": 98000.0 + 500.0 * np.sin(2.0 * np.pi * doy / 29.0 + phase),
+        "QBOT": np.maximum(1.0e-4, 0.004 + 0.003 * np.sin(
+            2.0 * np.pi * doy / 365.0 + 0.1 * phase)),
+        "FLDS": 220.0 + 60.0 * np.cos(2.0 * np.pi * (doy - 200.0) / 365.0
+                                      + 0.2 * phase),
+        "FSDS": 600.0 * sun * (0.6 + 0.4 * np.sin(2.0 * np.pi * doy
+                                                  / 365.0)),
+        "PRECTmms": np.where(wet, 2.5e-5, 0.0),
+        "WIND": 3.0 + 2.0 * np.sin(2.0 * np.pi * doy / 13.0 + phase)}
+
+
+FORCING_VARS = ("TBOT", "PBOT", "QBOT", "FLDS", "FSDS", "PRECTmms", "WIND")
+
+
+def write_forcing_months(basename: str, year: int, month: int,
+                         nmonths: int, nlat: int, nlon: int,
+                         dt_hours: float = 3.0) -> list[str]:
+    """Write ``nmonths`` month files ``<basename>YYYY-MM.nc`` from
+    (year, month) on: DTIME in days since the month's start and the seven
+    forcing variables on (DTIME, lat, lon) in float32 (the usual forcing
+    file precision).  Returns the paths."""
+    paths = []
+    y, m = year, month
+    for _ in range(nmonths):
+        f = forcing_month_fields(y, m, nlat, nlon, dt_hours)
+        path = f"{basename}{y:04d}-{m:02d}.nc"
+        variables = {"DTIME": (("DTIME",), f["DTIME"])}
+        for k in FORCING_VARS:
+            variables[k] = (("DTIME", "lat", "lon"), f[k].astype(np.float32))
+        write_nc(path, {"DTIME": None, "lat": nlat, "lon": nlon}, variables)
+        paths.append(path)
+        y, m = (y, m + 1) if m < 12 else (y + 1, 1)
+    return paths
+
+
+def write_aerosol_deposition(path, ncell: int) -> None:
+    """A monthly deposition climatology (12, gridcell) of the eleven
+    species of ``AerosolDataManager``: species i in month m and cell j
+    deposits (i + 1) 1e-12 (1 + m) + 1e-14 j kg/m2/s."""
+    from elmkernels_torch.data.aerosol_data import DEP_VARS
+    months = np.arange(12, dtype=np.float64)[:, None]
+    cell = np.arange(ncell, dtype=np.float64)[None, :]
+    write_nc(path, {"time": 12, "gridcell": ncell}, {
+        vname: (("time", "gridcell"),
+                (i + 1) * 1e-12 * (1.0 + months) + 1e-14 * cell)
+        for i, vname in enumerate(DEP_VARS.values())})
+
+
+def write_phenology(path, ncell: int) -> None:
+    """A monthly phenology file, MONTHLY_LAI/SAI/HEIGHT_TOP/HEIGHT_BOT over
+    (12, pft, gridcell) in float32, for the cells of the global grid of
+    ``ncell`` cells: leaf area peaks in July north of the equator and in
+    January south of it; trees (PFTs 1-8) are tall, shrubs (9-11) short,
+    grasses and crops low; bare ground (PFT 0) has none."""
+    lat = land_latitudes(ncell)
+    m = np.arange(12, dtype=np.float64)[:, None, None]
+    peak = np.where(lat >= 0.0, 6.0, 0.0)[None, None, :]
+    green = 0.5 * (1.0 + np.cos(2.0 * np.pi * (m - peak) / 12.0))
+    pft = np.arange(c.MXPFT)
+    tree = ((pft >= 1) & (pft <= 8))[None, :, None]
+    shrub = ((pft >= 9) & (pft <= 11))[None, :, None]
+    veg = (pft != c.NOVEG)[None, :, None]
+    lai = np.where(tree, 2.0 + 3.0 * green, 0.5 + 2.5 * green)
+    sai = np.where(tree, 0.8 + 0.4 * green, 0.2 + 0.3 * green)
+    htop = np.where(tree, 17.0, np.where(shrub, 1.5, 0.5)) + 0.0 * green
+    hbot = np.where(tree, 8.5, np.where(shrub, 0.1, 0.01)) + 0.0 * green
+    dims = ("time", "natpft", "gridcell")
+    write_nc(path, {"time": 12, "natpft": c.MXPFT, "gridcell": ncell}, {
+        name: (dims, np.where(veg, v, 0.0).astype(np.float32))
+        for name, v in (("MONTHLY_LAI", lai), ("MONTHLY_SAI", sai),
+                        ("MONTHLY_HEIGHT_TOP", htop),
+                        ("MONTHLY_HEIGHT_BOT", hbot))})
+
+
+def write_global_inputs(directory, ncell: int, forcing_grid=None,
+                        year: int = 1985, month: int = 7,
+                        nmonths: int = 2) -> dict:
+    """Write the ``ncell``-cell global surfdata, its phenology and aerosol
+    deposition files into ``directory``, and with ``forcing_grid`` =
+    (nlat, nlon), nlat * nlon >= ncell, ``nmonths`` forcing month files
+    from (year, month) on.  Returns ``surfdata`` (the path) and the
+    ``Model.from_surfdata`` keywords of the files."""
+    import pathlib
+    d = pathlib.Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    out = dict(surfdata=str(d / f"surfdata_{ncell}.nc"),
+               phenology_path=str(d / f"phenology_{ncell}.nc"),
+               aerosol_path=str(d / f"aerosoldep_{ncell}.nc"))
+    write_global_surfdata(out["surfdata"], ncell)
+    write_phenology(out["phenology_path"], ncell)
+    write_aerosol_deposition(out["aerosol_path"], ncell)
+    if forcing_grid is not None:
+        nlat, nlon = forcing_grid
+        if nlat * nlon < ncell:
+            raise ValueError(f"forcing grid {nlat}x{nlon} < {ncell} cells")
+        out["forcing_basename"] = str(d / f"forcing_{nlat}x{nlon}_")
+        write_forcing_months(out["forcing_basename"], year, month, nmonths,
+                             nlat, nlon)
+    return out

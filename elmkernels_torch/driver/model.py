@@ -1,15 +1,33 @@
-"""Host-side model API: setup, the step, and the time loop.
+"""Host-side model API: setup, the step, and the time loops.
 
-Counterpart of ``elmkernels_tpu/driver/model.py`` (``Model.__init__`` for
-a homogeneous domain, ``advance`` and ``run``).  The model runs on the
+Counterpart of ``elmkernels_tpu/driver/model.py``.  The model runs on the
 first CUDA device unless the caller passes ``device="cpu"``; with no card
 and no explicit ``"cpu"`` it raises rather than falling back.
+
+Four loops drive the step over time, with the same results:
+
+- :meth:`Model.run` builds each step's inputs on the host and copies them
+  to the device step by step (the reference's own loop).
+- :meth:`Model.run_scan` ships per-step stacks of the inputs of ``nsteps``
+  steps to the device in one set of copies, then runs the steps from it.
+- :meth:`Model.run_scan_series` ships the forcing *series* (the samples on
+  the forcing-time grid) and the monthly phenology/aerosol bracket pairs
+  once; each step gathers its brackets on the device, by host-side
+  integer indices, with no host wait.
+- :meth:`Model.run_windows` runs ``nsteps`` as windows of either layout,
+  assembling the next window on a host thread and copying it on a side
+  stream while the current one computes.
+
+The three device loops copy from pinned memory when the model is on a
+card, and reduce each step's diagnostics on the device
+(:class:`ScanDiagnostics`).
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import dataclasses
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -17,11 +35,12 @@ import torch
 from elmkernels_torch import constants as c
 from elmkernels_torch.data import forcing as forcing_mod
 from elmkernels_torch.data import params as params_mod
-from elmkernels_torch.data.state import (ModelState, StepForcing,
-                                         StepPhenology, cold_start)
+from elmkernels_torch.data.state import (AERO_DEP_KEYS, ModelState,
+                                         StepForcing, StepPhenology,
+                                         cold_start)
 from elmkernels_torch.driver import step as step_mod
 from elmkernels_torch.physics.photosynthesis import psn_mode_of
-from elmkernels_torch.utils.dates import Date
+from elmkernels_torch.utils.dates import Date, month_indices
 
 
 def resolve_device(device) -> torch.device:
@@ -36,29 +55,95 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
+class ScanDiagnostics(NamedTuple):
+    """Per-step domain reductions of a device loop ([nsteps] each): the
+    reference's ``min_max_sum`` diagnostics (``utils.hh:45-103``),
+    computed on the device."""
+    errh2o_max: torch.Tensor
+    errh2o_led_max: torch.Tensor
+    errh2osno_max: torch.Tensor
+    errh2osno_steady_max: torch.Tensor
+    errsol_max: torch.Tensor
+    errlon_max: torch.Tensor
+    errseb_max: torch.Tensor
+    eflx_sh_mean: torch.Tensor
+    eflx_lh_mean: torch.Tensor
+    fsa_mean: torch.Tensor
+    t_ref2m_mean: torch.Tensor
+    niters_canopy_max: torch.Tensor
+    niters_canopy_mean: torch.Tensor
+    niters_ci_mean: torch.Tensor
+
+
+def _reduce_diags(d: step_mod.StepDiagnostics) -> tuple:
+    """One step's ScanDiagnostics fields, as 0-d tensors on the device."""
+    wdt = d.fsa.dtype
+    return (d.errh2o.abs().max(), d.errh2o_led.abs().max(),
+            d.errh2osno.abs().max(), d.errh2osno_steady.abs().max(),
+            d.errsol.abs().max(), d.errlon.abs().max(),
+            d.errseb.abs().max(), d.eflx_sh_tot.mean(),
+            d.eflx_lh_tot.mean(), d.fsa.mean(), d.t_ref2m.mean(),
+            d.niters_canopy.max(), d.niters_canopy.to(wdt).mean(),
+            d.niters_ci.to(wdt).mean())
+
+
+def reduce_diags(d: step_mod.StepDiagnostics) -> ScanDiagnostics:
+    """One step's diagnostics reduced as a device loop reduces them
+    ([1] each)."""
+    return ScanDiagnostics(*(v.reshape(1) for v in _reduce_diags(d)))
+
+
+def _stack_diags(per_step: list) -> ScanDiagnostics:
+    return ScanDiagnostics(*(torch.stack(v) for v in zip(*per_step)))
+
+
+def _stack_host(items: list):
+    """A list of NamedTuples of numpy arrays/floats (or None fields)
+    stacked field by field along a new leading axis."""
+    cls = type(items[0])
+    return cls(*(None if vals[0] is None else
+                 np.stack([np.asarray(v) for v in vals])
+                 for vals in zip(*items)))
+
+
 @dataclasses.dataclass
 class Model:
-    """A homogeneous batch of independent land columns and the step.
+    """A batch of independent land columns and the step.
 
     ``pft_path`` is a clm_params NetCDF and ``snicar_path`` a
     snicar_optics_5bnd NetCDF (``elmkernels_torch.data.synthetic`` writes
-    synthetic ones).  The flags default to the JAX ``Model``'s production
-    defaults."""
+    synthetic ones).  ``vtype`` is one PFT for every column or an [ncol]
+    sequence: per-column traits are gathered from the clm_params trait
+    matrix, and the photosynthesis runs ``"mixed"`` when C3 and C4 PFTs
+    meet (reference ``initialize_elm_kokkos.cc:374-431``).  The site
+    fields take a scalar or an [ncol] array (texture: also [ncol,
+    nlevsoi]); :meth:`from_surfdata` fills them from a surfdata file.
+    The flags default to the JAX ``Model``'s production defaults."""
     ncol: int
     dtime: float = 1800.0
-    vtype: int = 12
+    vtype: int | list | tuple = 12
     pft_path: str | None = None
     snicar_path: str | None = None
-    lat_deg: float = 71.323
-    lon_deg: float = 203.3886
+    lat_deg: float | np.ndarray = 71.323
+    lon_deg: float | np.ndarray = 203.3886
     ltype: int = 1
-    soil_color: int = 15
+    soil_color: int | np.ndarray = 15
     mxsoil_color: int = 20
-    pct_sand: float = 40.0
-    pct_clay: float = 20.0
-    organic: float = 10.0
-    topo_slope_raw: float = 0.070044865858546
-    topo_std: float = 3.96141847422387
+    pct_sand: float | np.ndarray = 40.0
+    pct_clay: float | np.ndarray = 20.0
+    organic: float | np.ndarray = 10.0
+    topo_slope_raw: float | np.ndarray = 0.070044865858546
+    topo_std: float | np.ndarray = 3.96141847422387
+    # month-per-file NetCDF forcing basename ("<basename>YYYY-MM.nc");
+    # None selects the synthetic forcing
+    forcing_basename: str | None = None
+    # surfdata NetCDF with MONTHLY_LAI/SAI/HEIGHT_* (12, pft, cells);
+    # None selects the synthetic phenology climatology
+    phenology_path: str | None = None
+    # aerosoldep_monthly*.nc deposition climatology (12, cells); None
+    # keeps the static ModelParams.aero_* rates
+    aerosol_path: str | None = None
+    col0: int = 0  # global column offset of this host's shard
     mixed_radiation: bool = True
     elm_correct_seb: bool = False
     warm_start: bool = True
@@ -73,16 +158,25 @@ class Model:
                              "(elmkernels_torch.data.synthetic writes "
                              "synthetic ones)")
         dev, dt = self.device, self.dtype
+        vt = np.asarray(self.vtype, np.int64)
+        if vt.ndim == 0:
+            self.psnveg = params_mod.load_pft_psn(self.pft_path, int(vt),
+                                                  dt, dev)
+            self.albveg = params_mod.load_pft_alb(self.pft_path, int(vt),
+                                                  dt, dev)
+        else:
+            if vt.shape != (self.ncol,):
+                raise ValueError(
+                    f"vtype shape {vt.shape} != ({self.ncol},)")
+            table = params_mod.load_pft_table(self.pft_path)
+            self.psnveg = params_mod.gather_pft_psn(table, vt, dt, dev)
+            self.albveg = params_mod.gather_pft_alb(table, vt, dt, dev)
         self.land = c.LandType(ltype=int(self.ltype), ctype=1,
-                               vtype=int(self.vtype))
-        self.psnveg = params_mod.load_pft_psn(self.pft_path, self.vtype,
-                                              dt, dev)
-        self.albveg = params_mod.load_pft_alb(self.pft_path, self.vtype,
-                                              dt, dev)
+                               vtype=int(vt.flat[0]))
         self.psn_mode = psn_mode_of(self.psnveg)
         self.snicar = params_mod.read_snicar_data(self.snicar_path, dt, dev)
         self.params = params_mod.default_params(
-            self.ncol, self.pft_path, self.vtype, self.lat_deg, self.lon_deg,
+            self.ncol, self.pft_path, vt, self.lat_deg, self.lon_deg,
             soil_color=self.soil_color, pct_sand=self.pct_sand,
             pct_clay=self.pct_clay, organic=self.organic,
             mxsoil_color=self.mxsoil_color, ltype=self.ltype,
@@ -91,10 +185,54 @@ class Model:
         self.state = cold_start(self.ncol, dt, dev)
         if self.land.ltype not in (c.ISTSOIL, c.ISTCROP):
             self.state = self._ltype_cold_start(self.state)
-        self.forcing = forcing_mod.SyntheticForcing(
-            self.ncol, self.params.lat_r.cpu().numpy(),
-            self.params.lon_r.cpu().numpy())
-        self.phenology = forcing_mod.SyntheticPhenology(self.ncol)
+        lat_r = self.params.lat_r.cpu().numpy()
+        lon_r = self.params.lon_r.cpu().numpy()
+        if self.forcing_basename is not None:
+            self.forcing = forcing_mod.NetCDFForcing(
+                self.forcing_basename, self.ncol, lat_r, lon_r,
+                col0=self.col0)
+        else:
+            self.forcing = forcing_mod.SyntheticForcing(self.ncol, lat_r,
+                                                        lon_r)
+        if self.phenology_path is not None:
+            from elmkernels_torch.data.phenology_data import \
+                PhenologyDataManager
+            self.phenology = PhenologyDataManager(
+                self.phenology_path, self.ncol,
+                np.broadcast_to(vt, (self.ncol,)).astype(np.int32),
+                col0=self.col0)
+        else:
+            self.phenology = forcing_mod.SyntheticPhenology(self.ncol)
+        if self.aerosol_path is not None:
+            from elmkernels_torch.data.aerosol_data import AerosolDataManager
+            self.aerosol = AerosolDataManager(self.aerosol_path, self.ncol,
+                                              col0=self.col0)
+        else:
+            self.aerosol = None
+
+    @classmethod
+    def from_surfdata(cls, surfdata_path: str, ncol: int, col0: int = 0,
+                      **kw) -> "Model":
+        """A heterogeneous-grid Model from one surfdata-style NetCDF:
+        per-column lat/lon, soil color, soil texture profiles, topography
+        and (from PCT_NAT_PFT or PFT) the dominant PFT of each column
+        (reference ``initialize_elm_kokkos.cc:267-340``,
+        ``utils.cc:46-69``).  ``col0``/``ncol`` select this host's shard
+        of the flattened cell axis; any other Model field passes through
+        ``**kw``, and an explicit ``vtype`` overrides the file's PFTs."""
+        from elmkernels_torch.data.surfdata import read_surfdata
+        sd = read_surfdata(surfdata_path, ncol, col0)
+        if "vtype" not in kw:
+            kw["vtype"] = (sd.vtype.tolist() if sd.vtype is not None
+                           else cls.vtype)
+        for field, val in (("topo_slope_raw", sd.topo_slope),
+                           ("topo_std", sd.topo_std)):
+            if val is not None and field not in kw:
+                kw[field] = val
+        return cls(ncol=ncol, col0=col0, lat_deg=sd.lat_deg,
+                   lon_deg=sd.lon_deg, soil_color=sd.soil_color,
+                   mxsoil_color=sd.mxsoil_color, pct_sand=sd.pct_sand,
+                   pct_clay=sd.pct_clay, organic=sd.organic, **kw)
 
     def _ltype_cold_start(self, state: ModelState) -> ModelState:
         """Ice/wet landunits start from the reference's init kernels
@@ -109,28 +247,44 @@ class Model:
         return state._replace(t_soisno=t, t_grnd=t_grnd, h2osoi_vol=vol,
                               h2osoi_liq=liq, h2osoi_ice=ice)
 
+    # ---- one step --------------------------------------------------------
+
+    def _step(self, forc: StepForcing, phen: StepPhenology):
+        """Advance self.state by one dt from device inputs."""
+        self.state, diags = step_mod.advance(
+            self.land, self.psnveg, self.albveg, self.snicar, self.params,
+            self.state, forc, phen, self.dtime, psn_mode=self.psn_mode,
+            qbot_is_rh=getattr(self.forcing, "qbot_is_rh", False),
+            mixed_radiation=self.mixed_radiation,
+            elm_correct_seb=self.elm_correct_seb,
+            warm_start=self.warm_start, mixed_canopy=self.mixed_canopy)
+        return diags
+
+    def _attach_aero(self, forc: StepForcing, date: Date) -> StepForcing:
+        if self.aerosol is None:
+            return forc
+        rates = self.aerosol.rates(date)
+        return forc._replace(aero=np.stack([rates[k]
+                                            for k in AERO_DEP_KEYS]))
+
     def _to_device(self, nt):
         """A host-side StepForcing/StepPhenology as device tensors."""
-        return type(nt)(*(torch.as_tensor(np.asarray(v, np.float64),
+        return type(nt)(*(None if v is None else
+                          torch.as_tensor(np.asarray(v, np.float64),
                                           dtype=self.dtype,
                                           device=self.device) for v in nt))
 
     def step_inputs(self, date: Date) -> tuple[StepForcing, StepPhenology]:
         """The forcing and phenology of the step starting at ``date``, on
-        the device."""
-        return (self._to_device(self.forcing.window(date, self.dtime)),
+        the device, copied there now."""
+        forc = self._attach_aero(self.forcing.window(date, self.dtime),
+                                 date)
+        return (self._to_device(forc),
                 self._to_device(self.phenology.window(date)))
 
     def advance(self, date: Date) -> step_mod.StepDiagnostics:
         """One dt starting at ``date``; replaces self.state."""
-        forc, phen = self.step_inputs(date)
-        self.state, diags = step_mod.advance(
-            self.land, self.psnveg, self.albveg, self.snicar, self.params,
-            self.state, forc, phen, self.dtime, psn_mode=self.psn_mode,
-            mixed_radiation=self.mixed_radiation,
-            elm_correct_seb=self.elm_correct_seb,
-            warm_start=self.warm_start, mixed_canopy=self.mixed_canopy)
-        return diags
+        return self._step(*self.step_inputs(date))
 
     def run(self, start: Date, nsteps: int,
             callback: Callable | None = None):
@@ -143,3 +297,256 @@ class Model:
                 callback(date, self.state, last)
             date.increment_seconds(int(self.dtime))
         return last
+
+    # ---- device loops ----------------------------------------------------
+
+    def _promote(self, t: torch.Tensor) -> torch.Tensor:
+        """A floating input in the model's dtype.  Series variables may
+        arrive at their on-disk float32; promoting the gathered rows
+        reproduces the host's float64 read bit for bit."""
+        return t.to(self.dtype) if t.is_floating_point() else t
+
+    def _pin(self, tree):
+        """Every numpy array of a (nested) tuple as a CPU tensor, pinned
+        when the model is on a card.  Host work only, so it may run on a
+        prefetch thread."""
+        cuda = self.device.type == "cuda"
+
+        def pin(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            return t.pin_memory() if cuda else t
+        return _map(tree, np.ndarray, pin)
+
+    def _put(self, tree):
+        """The pinned tensors of ``tree`` copied to the device, without
+        waiting: one copy each, issued on the current stream."""
+        return _map(tree, torch.Tensor,
+                    lambda t: t.to(self.device, non_blocking=True))
+
+    def host_windows(self, start: Date, nsteps: int):
+        """[nsteps]-stacked StepForcing and StepPhenology as numpy arrays:
+        host work only, safe on a prefetch thread."""
+        date = start.copy()
+        forcs, phens = [], []
+        for _ in range(nsteps):
+            forcs.append(self._attach_aero(
+                self.forcing.window(date, self.dtime), date))
+            phens.append(self.phenology.window(date))
+            date.increment_seconds(int(self.dtime))
+        return _stack_host(forcs), _stack_host(phens)
+
+    def stack_windows(self, start: Date, nsteps: int):
+        """:meth:`host_windows` on the device, in one set of copies."""
+        return self._put(self._pin(self.host_windows(start, nsteps)))
+
+    def _scan(self, payload, poll=None) -> ScanDiagnostics:
+        """The steps of a per-step stack payload, sliced on the device;
+        ``poll()`` runs after each step."""
+        forc, phen = payload
+        out = []
+        for k in range(forc.tbot.shape[0]):
+            f = StepForcing(*(None if v is None else self._promote(v[k])
+                              for v in forc))
+            p = StepPhenology(*(self._promote(v[k]) for v in phen))
+            out.append(_reduce_diags(self._step(f, p)))
+            if poll is not None:
+                poll()
+        return _stack_diags(out)
+
+    def run_scan(self, start: Date, nsteps: int) -> ScanDiagnostics:
+        """Advance ``nsteps`` from inputs copied to the device once;
+        replaces self.state.  Returns [nsteps]-shaped domain-reduced
+        diagnostics."""
+        return self._scan(self.stack_windows(start, nsteps))
+
+    def _host_series(self, start: Date, nsteps: int):
+        """The forcing-series payload, on the host: the forcing samples on
+        the forcing-time grid, per-step bracket indices and weights, and
+        the monthly phenology/aerosol bracket pairs, once per month pair
+        (works for both forcing providers)."""
+        ser, steps = self.forcing.series(start, nsteps, self.dtime)
+        # pad nt to the worst-case span, so every window has one shape
+        ntfix = int(np.ceil(nsteps * self.dtime
+                            / self.forcing.dt_forcing)) + 2
+        pad = ntfix - ser.tbot.shape[0]
+        if pad > 0:
+            ser = type(ser)(*(np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+                              for a in ser))
+        # monthly streams: the bracket pair is the same for every step of
+        # a window but across a month rollover (<= 2 unique pairs), so the
+        # unique pairs ship once with per-step indices and weights; the
+        # device interpolates with the host path's float64 arithmetic
+        date = start.copy()
+        mkeys, uniq, uniq_aero, idxs, wt1s, wt2s = [], [], [], [], [], []
+        for _ in range(nsteps):
+            key = month_indices(date)
+            ph = self.phenology.window(date)
+            if key not in mkeys:
+                mkeys.append(key)
+                uniq.append(ph)
+                if self.aerosol is not None:
+                    uniq_aero.append(self.aerosol.bracket(date))
+            idxs.append(mkeys.index(key))
+            wt1s.append(ph.wt1)
+            wt2s.append(ph.wt2)
+            date.increment_seconds(int(self.dtime))
+        # pad to >= 2 unique pairs, so windows share one shape
+        while len(uniq) < 2:
+            uniq.append(uniq[-1])
+            if self.aerosol is not None:
+                uniq_aero.append(uniq_aero[-1])
+        phen_uniq = _stack_host(uniq)
+        phen_steps = (np.asarray(idxs, np.int32), np.asarray(wt1s),
+                      np.asarray(wt2s))
+        aero_uniq = (np.stack(uniq_aero) if self.aerosol is not None
+                     else None)
+        return ser, steps, (phen_uniq, phen_steps), aero_uniq
+
+    def _pin_series(self, host):
+        """A :meth:`_host_series` payload pinned, its bracket indices kept
+        on the host as ints (the steps slice by them with no host wait)."""
+        ser, steps, (phen_uniq, phen_steps), aero_uniq = host
+        idx1 = [int(i) for i in steps.idx1]
+        pidx = [int(i) for i in phen_steps[0]]
+        pinned = self._pin((ser, steps._replace(idx1=None),
+                            phen_uniq._replace(wt1=None, wt2=None),
+                            phen_steps[1:], aero_uniq))
+        return idx1, pidx, pinned
+
+    def _scan_series(self, idx1, pidx, payload,
+                     poll=None) -> ScanDiagnostics:
+        """The steps of a series payload: each gathers its bracket rows on
+        the device and promotes them after the gather; ``poll()`` runs
+        after each step."""
+        ser, steps, phen_uniq, (pwt1, pwt2), aero_uniq = payload
+
+        def row(a, i):
+            return self._promote(a[i])
+
+        def pair(a, i):
+            return self._promote(a[i:i + 2])
+
+        out = []
+        for k, (i, j) in enumerate(zip(idx1, pidx)):
+            aero = None
+            if aero_uniq is not None:
+                ab = row(aero_uniq, j)      # [2, 11, ncol]
+                aero = pwt1[k] * ab[0] + pwt2[k] * ab[1]
+            forc = StepForcing(
+                wt1=steps.wt1[k], wt2=steps.wt2[k], tbot=pair(ser.tbot, i),
+                pbot=pair(ser.pbot, i), qbot=pair(ser.qbot, i),
+                flds=pair(ser.flds, i), wind=pair(ser.wind, i),
+                fsds=row(ser.fsds, i), prec=row(ser.prec, i),
+                decday=steps.decday[k], aero=aero)
+            phen = StepPhenology(
+                wt1=pwt1[k], wt2=pwt2[k], mlai=row(phen_uniq.mlai, j),
+                msai=row(phen_uniq.msai, j), mhtop=row(phen_uniq.mhtop, j),
+                mhbot=row(phen_uniq.mhbot, j))
+            out.append(_reduce_diags(self._step(forc, phen)))
+            if poll is not None:
+                poll()
+        return _stack_diags(out)
+
+    def run_scan_series(self, start: Date, nsteps: int) -> ScanDiagnostics:
+        """:meth:`run_scan` over the series layout: the same trajectory
+        from far fewer bytes shipped; replaces self.state."""
+        idx1, pidx, pinned = self._pin_series(
+            self._host_series(start, nsteps))
+        return self._scan_series(idx1, pidx, self._put(pinned))
+
+    def run_windows(self, start: Date, nsteps: int, window: int = 48,
+                    callback: Callable | None = None,
+                    series: bool = False) -> ScanDiagnostics:
+        """Advance ``nsteps`` as ``nsteps // window`` windows.  A host
+        thread assembles and pins the NEXT window while the CURRENT one
+        runs; on a card its copy is issued on a side stream as soon as it
+        is ready (polled between steps), and the compute stream waits for
+        that copy only where the window starts.  At most two windows'
+        payloads are alive at once.  ``callback(date, state, diags)`` fires
+        per window with the window's diagnostics.  ``series=True`` ships
+        each window in the forcing-series layout."""
+        if nsteps % window:
+            raise ValueError(f"nsteps={nsteps} not a multiple of "
+                             f"window={window} (one payload shape)")
+        ex = cf.ThreadPoolExecutor(max_workers=1)
+        # one copy stream for the whole call: the caching allocator reuses
+        # a freed payload's memory only for allocations on the stream that
+        # made it, so window i+2's payload takes window i's blocks
+        side = (torch.cuda.Stream(self.device)
+                if self.device.type == "cuda" else None)
+        try:
+            date = start.copy()
+            nxt = _NextWindow(self, ex, side, date, window, series)
+            diags_all = []
+            for i in range(nsteps // window):
+                host, payload = nxt.take()
+                date.increment_seconds(int(self.dtime) * window)
+                more = (i + 1) * window < nsteps
+                nxt = (_NextWindow(self, ex, side, date, window, series)
+                       if more else None)
+                poll = nxt.poll if more else None
+                d = (self._scan_series(host[0], host[1], payload, poll)
+                     if series else self._scan(payload, poll))
+                diags_all.append(d)
+                if callback is not None:
+                    callback(date, self.state, d)
+        finally:
+            ex.shutdown(wait=True, cancel_futures=True)
+        return ScanDiagnostics(*(torch.cat(v) for v in zip(*diags_all)))
+
+
+class _NextWindow:
+    """One window's payload of :meth:`Model.run_windows`: assembled and
+    pinned on the host thread, then copied to the device, on a card on the
+    call's side stream ``side``, as soon as it is ready."""
+
+    def __init__(self, model: Model, ex, side, date: Date, window: int,
+                 series: bool):
+        self.model, self.side, self.series = model, side, series
+        self.host = self.payload = self.copied = None
+        prepare = ((lambda d: model._pin_series(
+            model._host_series(d, window))) if series
+            else (lambda d: model._pin(model.host_windows(d, window))))
+        self.fut = ex.submit(prepare, date.copy())
+
+    def poll(self) -> None:
+        """Issue the copy if the host part is ready (no wait)."""
+        if self.payload is None and self.fut.done():
+            self._copy()
+
+    def _copy(self) -> None:
+        m = self.model
+        self.host = self.fut.result()
+        pinned = self.host[2] if self.series else self.host
+        if self.side is None:
+            self.payload = m._put(pinned)
+            return
+        with torch.cuda.stream(self.side):
+            self.payload = m._put(pinned)
+            self.copied = torch.cuda.Event()
+            self.copied.record(self.side)
+
+    def take(self):
+        """(host part, device payload), ready for the compute stream."""
+        if self.payload is None:
+            self._copy()
+        if self.copied is not None:
+            compute = torch.cuda.current_stream(self.model.device)
+            compute.wait_event(self.copied)
+            # the payload was allocated on the side stream: keep its
+            # memory from reuse until the compute stream is done with it
+            _map(self.payload, torch.Tensor,
+                 lambda t: t.record_stream(compute))
+        return self.host, self.payload
+
+
+def _map(tree, leaf_type, fn):
+    """``fn`` applied to every ``leaf_type`` leaf of a nested tuple (or
+    NamedTuple); other leaves pass through."""
+    if isinstance(tree, leaf_type):
+        return fn(tree)
+    if isinstance(tree, tuple):
+        vals = [_map(v, leaf_type, fn) for v in tree]
+        return type(tree)(*vals) if hasattr(tree, "_fields") \
+            else tuple(vals)
+    return tree

@@ -17,7 +17,8 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
-from elmkernels_torch.data.state import (ModelParams, ModelState, StepForcing,
+from elmkernels_torch.data.state import (AERO_DEP_KEYS, ModelParams,
+                                         ModelState, StepForcing,
                                          StepPhenology)
 from elmkernels_torch.physics import (atm_physics as ap, bareground_fluxes as
                                       bg, canopy_fluxes as cfx,
@@ -174,7 +175,7 @@ def advance(land: c.LandType, psnveg: psn.PFTPsnParams,
     fl = flux_phase(land, psnveg, params, state, sfo, dtime,
                     psn_mode=psn_mode, warm_start=warm_start,
                     mixed_canopy=mixed_canopy)
-    return column_phase(land, params, state, sfo, fl, dtime,
+    return column_phase(land, params, state, forcing, sfo, fl, dtime,
                         elm_correct_seb=elm_correct_seb)
 
 
@@ -491,11 +492,12 @@ def flux_phase(land: c.LandType, psnveg: psn.PFTPsnParams,
 
 
 def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
-                 sfo: _SurfaceOut, fl: _FluxOut, dtime: float,
-                 elm_correct_seb: bool = False
+                 forcing: StepForcing, sfo: _SurfaceOut, fl: _FluxOut,
+                 dtime: float, elm_correct_seb: bool = False
                  ) -> tuple[ModelState, StepDiagnostics]:
     """Soil/snow temperature solve + phase change, snow hydrology, surface
-    flux finalization, conservation diagnostics, state assembly."""
+    flux finalization, conservation diagnostics, state assembly.  Of
+    ``forcing`` it reads only ``aero``, the monthly deposition rates."""
     s = state
     p = params
     snl, dz, z, zi = sfo.snl, sfo.dz, sfo.z, sfo.zi
@@ -573,7 +575,13 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
                        s.qflx_dew_grnd, gf.qflx_rain_grnd, pc2.qflx_snomelt,
                        pc2.qflx_snow_melt, int_snow, frac_sno, h2osoi_liq,
                        h2osoi_ice, s.mss, dz)
-    mss = sh.compute_aerosol_deposition(dtime, snl, p.aero_in, sw.mss)
+    # deposition rates: monthly-interpolated (StepForcing.aero) when a
+    # deposition climatology is wired, else the static params
+    if forcing.aero is None:
+        aero_in = p.aero_in
+    else:
+        aero_in = {k: forcing.aero[i] for i, k in enumerate(AERO_DEP_KEYS)}
+    mss = sh.compute_aerosol_deposition(dtime, snl, aero_in, sw.mss)
     bcphi, bcpho = sh.aerosol_phase_change(snl, dtime, s.qflx_sub_snow,
                                            sw.h2osoi_liq, sw.h2osoi_ice,
                                            mss["bcphi"], mss["bcpho"])

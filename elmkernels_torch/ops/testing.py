@@ -46,8 +46,11 @@ def ci_problem(n: int, seed: int, mode: str = "c3", dry_share=0.25):
         env.update(theta_cj=np.full(n, 0.8), mbbopt=np.full(n, 4.0),
                    c3frac=np.zeros(n))
     elif mode == "mixed":
+        # per-leaf traits, as per-column vegetation gives them: every
+        # trait field differs between leaves
         c3 = u(0, 1, n) < 0.5
-        env.update(theta_cj=np.where(c3, 0.98, 0.8),
+        env.update(qe=np.where(c3, 0.05, u(0.04, 0.06, n)),
+                   theta_cj=np.where(c3, 0.98, 0.8),
                    mbbopt=np.where(c3, 9.0, 4.0), c3frac=c3 * 1.0)
     isc3 = env["c3frac"] >= 0.5
     x0 = np.where(isc3, 0.7, 0.4) * env["cair"]

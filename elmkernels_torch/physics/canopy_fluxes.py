@@ -178,6 +178,8 @@ def stability_iteration(land: c.LandType, p: psn.PFTPsnParams, dtime, snl,
     t_top_sno = take_layer(t_soisno, c.NLEVSNO - snl)
     t_top_soil = t_soisno[:, c.NLEVSNO]
     ncol = t_grnd.shape[0]
+    # stack sun+shade: per-column traits are tiled to [2*ncol]
+    p2 = psn.tile_traits(p, 2)
 
     def _chain1(um_e, obu_e, taf_e):
         """Aerodynamic-resistance chain from iteration-entry (um, obu,
@@ -338,7 +340,7 @@ def stability_iteration(land: c.LandType, p: psn.PFTPsnParams, dtime, snl,
         btran_sun, btran_sha = _boost(s_btran)
         btran_i = btran_sha
         psn_both = psn.photosynthesis(
-            p, cat2(nrad), cat2(forc_pbot), cat2(s_t_veg), cat2(t10),
+            p2, cat2(nrad), cat2(forc_pbot), cat2(s_t_veg), cat2(t10),
             cat2(svpts), cat2(eah), cat2(forc_po2), cat2(forc_pco2),
             cat2(rb), torch.cat([btran_sun, btran_sha]), cat2(dayl_factor),
             cat2(thm), cat2(tlai_z), torch.cat([vcmaxcintsun, vcmaxcintsha]),

@@ -11,6 +11,24 @@ from __future__ import annotations
 import torch
 
 
+_CONSTANTS: dict = {}
+
+
+def const(values, like, dtype=None):
+    """A constant (a number or a table) as a tensor on ``like``'s device,
+    ``like``'s dtype unless ``dtype`` is given.  It is made once per
+    (values, dtype, device) and kept, so a step that needs it makes no
+    host-to-device copy, and so no host wait, after the first.  Callers
+    must not write into it."""
+    dtype = like.dtype if dtype is None else dtype
+    key = (values, dtype, like.device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = _CONSTANTS[key] = torch.tensor(values, dtype=dtype,
+                                           device=like.device)
+    return t
+
+
 def rdiv(num: float, den):
     """``num / den`` for a Python number over a tensor, divided as IEEE
     division.  PyTorch evaluates ``number / tensor`` as

@@ -37,7 +37,8 @@ BRENT_EPS, BRENT_ITMAX = 1.0e-2, 20
 
 class PFTPsnParams(NamedTuple):
     """Photosynthesis PFT traits (reference ``PFTDataPSN``).  Each field is
-    a 0-d tensor for a homogeneous (single-PFT) domain."""
+    a 0-d tensor for a homogeneous (single-PFT) domain, an [ncol] tensor
+    for per-column vegetation."""
     fnr: torch.Tensor
     act25: torch.Tensor
     kcha: torch.Tensor
@@ -102,9 +103,17 @@ def psn_mode_of(p: PFTPsnParams) -> str:
     return "mixed"
 
 
+def tile_traits(p: PFTPsnParams, reps: int) -> PFTPsnParams:
+    """Per-column traits repeated ``reps`` times along the column axis
+    (for the stacked sun+shade batch); 0-d traits pass through."""
+    return PFTPsnParams(*(v.repeat(reps) if v.ndim >= 1 else v for v in p))
+
+
 class CiEnv(NamedTuple):
     """Per-leaf environment of the ci residual function ([n] each).  The
-    trailing four fields carry PFT traits broadcast per leaf."""
+    trailing four fields carry PFT traits per leaf: expanded scalars for a
+    homogeneous domain, each leaf's own column's trait for per-column
+    vegetation."""
     gb_mol: torch.Tensor
     je: torch.Tensor
     cair: torch.Tensor

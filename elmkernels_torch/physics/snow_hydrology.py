@@ -24,8 +24,9 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
-from elmkernels_torch.physics.math_utils import (gather_layers, levels,
-                                                 rdiv, safe_div, take_layer)
+from elmkernels_torch.physics.math_utils import (const, gather_layers,
+                                                 levels, rdiv, safe_div,
+                                                 take_layer)
 
 _NSNO = c.NLEVSNO
 _SCAVENGING = dict(bcphi=0.20, bcpho=0.03, dst1=0.02, dst2=0.02, dst3=0.01,
@@ -81,7 +82,7 @@ def snow_water(land: c.LandType, do_capsnow, snl, dtime, frac_sno_eff,
     mflx_neg_snow = torch.zeros_like(h2osno)
     liq = liq.clone()
     for i in range(_NSNO + 1):
-        w = liq[:, i]
+        w = liq[:, i].clone()  # read before the row is zeroed in place
         below = i >= top
         hit = running & below & (w < 0.0)
         liq[:, i] = torch.where(hit, 0.0, w)
@@ -340,8 +341,7 @@ def combine_layers(land: c.LandType, dtime, st: SnowState, h2osno,
     """Remove near-zero-ice layers, dissolve too-shallow packs, and merge
     below-minimum-thickness layers with neighbors
     (``snow_hydrology_impl.hh:648-897``)."""
-    dzmin = torch.tensor([0.010, 0.015, 0.025, 0.055, 0.115],
-                         dtype=h2osno.dtype, device=h2osno.device)
+    dzmin = const((0.010, 0.015, 0.025, 0.055, 0.115), h2osno)
     soil_like = (c.ltype_mask(land, c.ISTSOIL, c.ISTCROP) or land.urbpoi)
 
     snl = st.snl

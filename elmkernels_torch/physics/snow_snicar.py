@@ -18,7 +18,8 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
-from elmkernels_torch.physics.math_utils import levels, safe_div, take_layer
+from elmkernels_torch.physics.math_utils import (const, levels, safe_div,
+                                                 take_layer)
 
 MIN_SNW = 1.0e-30        # minimum snow mass for RT calculation [kg/m^2]
 IDX_BC_NCLRDS_MAX = 9
@@ -322,7 +323,7 @@ def _radiation_factor(flg_is_direct: bool, albout_lcl, flx_abs_lcl, mu_not,
     dtype = coszen.dtype
     wgt = _FLX_WGT_DRC if flg_is_direct else _FLX_WGT_DFS
     wgt_sum = sum(wgt[1:5])
-    w = torch.tensor(wgt[1:5], dtype=torch.float64, device=coszen.device)
+    w = const(tuple(wgt[1:5]), coszen, torch.float64)
 
     alb_vis = albout_lcl[0]
     alb_nir = torch.sum(w[:, None] * albout_lcl[1:5], dim=0) / wgt_sum

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from elmkernels_torch import constants as c
+from elmkernels_torch.physics.math_utils import const
 
 _TWO_PI = 2.0 * c.ELM_PI
 _PI = c.ELM_PI
@@ -107,7 +108,8 @@ def daylength(lat, decl, elm_clamp_quirk: bool = False):
     sign = 1.0 if elm_clamp_quirk else -1.0
     my_lat = torch.clamp(torch.clamp(lat, min=sign * offset_pole),
                          max=offset_pole)
-    decl = torch.as_tensor(decl, dtype=lat.dtype, device=lat.device)
+    if not isinstance(decl, torch.Tensor):
+        decl = const(float(decl), lat)
     temp = torch.clamp(-(torch.sin(my_lat) * torch.sin(decl))
                        / (torch.cos(my_lat) * torch.cos(decl)), -1.0, 1.0)
     return 2.0 * secs_per_radian * torch.acos(temp)

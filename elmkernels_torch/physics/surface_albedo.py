@@ -14,7 +14,7 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
-from elmkernels_torch.physics.math_utils import rdiv, safe_div
+from elmkernels_torch.physics.math_utils import const, rdiv, safe_div
 
 _MPE = 1.e-6   # detail::mpe (surface_albedo.h)
 _EXTKN = 0.3   # detail::extkn — nitrogen allocation extinction coefficient
@@ -22,12 +22,20 @@ _EXTKN = 0.3   # detail::extkn — nitrogen allocation extinction coefficient
 
 class PFTAlbParams(NamedTuple):
     """Leaf/stem optical properties (reference ``PFTDataAlb``): rhol/rhos/
-    taul/taus per band (tuples of 0-d tensors) + leaf angle xl (0-d)."""
-    rhol: tuple
-    rhos: tuple
-    taul: tuple
-    taus: tuple
+    taul/taus per band + leaf angle xl.  A homogeneous domain holds tuples
+    of 0-d tensors and a 0-d xl; a per-column one [ncol, numrad] tensors
+    and an [ncol] xl."""
+    rhol: tuple | torch.Tensor
+    rhos: tuple | torch.Tensor
+    taul: tuple | torch.Tensor
+    taus: tuple | torch.Tensor
     xl: torch.Tensor
+
+
+def _band(v, ib: int):
+    """Band ``ib`` of an optics trait: a tuple's entry, or column ``ib`` of
+    an [ncol, numrad] tensor."""
+    return v[ib] if isinstance(v, (tuple, list)) else v[:, ib]
 
 
 class InitTimestepOut(NamedTuple):
@@ -63,11 +71,10 @@ def soil_albedo(land: c.LandType, snl, t_grnd, coszen, h2osoi_vol, albsat,
     """Direct/diffuse soil (or ice/lake) albedo by band
     (``surface_albedo_impl.hh:689-754``)."""
     def k(v):
-        return torch.tensor(v, dtype=albsat.dtype,
-                            device=albsat.device).expand_as(albsat)
-    albice = k([0.8, 0.55])
-    alblak = k([0.60, 0.40])
-    alblakwi = k([0.10, 0.10])
+        return const(v, albsat).expand_as(albsat)
+    albice = k((0.8, 0.55))
+    alblak = k((0.60, 0.40))
+    alblakwi = k((0.10, 0.10))
     calb = 95.6
 
     lit = (coszen > 0.0)[:, None]
@@ -231,10 +238,10 @@ def two_stream_solver(land: c.LandType, nrad, coszen, t_veg, fwet, elai,
     per_layer = {}
 
     for ib in range(c.NUMRAD):
-        rho = torch.clamp(alb_pft.rhol[ib] * wl + alb_pft.rhos[ib] * ws,
-                          min=_MPE)
-        tau = torch.clamp(alb_pft.taul[ib] * wl + alb_pft.taus[ib] * ws,
-                          min=_MPE)
+        rho = torch.clamp(_band(alb_pft.rhol, ib) * wl
+                          + _band(alb_pft.rhos, ib) * ws, min=_MPE)
+        tau = torch.clamp(_band(alb_pft.taul, ib) * wl
+                          + _band(alb_pft.taus, ib) * ws, min=_MPE)
 
         omegal = rho + tau
         asu = 0.5 * omegal * gdir / temp0 * temp2

@@ -1,12 +1,23 @@
 """Where the time of one step of the port goes on the card.
 
     python -m elmkernels_torch.tools.profile_step [--ncol 262144] [--steps 4]
+        [--loop {run,series,windows}] [--window 4] [--grid {uniform,global}]
         [--out profile.json]
 
-Builds ``Model(ncol)`` with the production flags from synthetic parameter
-files (written under ``build/synthetic``), runs two warm-up summer steps,
-then ``--steps`` steps under ``torch.profiler`` (CPU and CUDA activities).
-Prints one JSON line, and writes it to ``--out`` when given:
+Builds a model with the production flags from synthetic input files
+(written under ``build/``): ``--grid uniform`` is ``Model(ncol)``, one PFT
+at one site; ``--grid global`` is ``Model.from_surfdata`` on the
+ncol-cell global grid (per-column PFTs, phenology and aerosol-deposition
+files, synthetic forcing).  It runs two warm-up summer steps, then
+``--steps`` steps from noon of July 1 under ``torch.profiler`` (CPU and
+CUDA activities): ``--loop run`` through ``Model.advance`` (each step's
+inputs built on the host and copied), ``--loop series`` through
+``Model.run_scan_series`` (one window payload assembled, pinned and copied
+once, the steps sliced from it on the card), ``--loop windows`` through
+``Model.run_windows(series=True, window=--window)`` (``--steps`` a multiple
+of the window: each next window assembled on a host thread and copied on a
+side stream while the current one runs).  Prints one JSON line, and
+writes it to ``--out`` when given:
 
 - ``ms_per_step``: host clock over the window, ending in a synchronize;
 - ``device_busy_share``: the union of the kernels' and copies' device
@@ -20,11 +31,20 @@ Prints one JSON line, and writes it to ``--out`` when given:
 - ``canopy_iters_per_step``: the canopy loop's iterations, each ending in
   one ``.any()`` test on the host;
 - ``phases``: host and device milliseconds per step of the step's inputs
-  (forcing, phenology and their copies to the card) and of its three
-  phases, each wrapped here in a ``record_function`` range (a kernel counts
-  for the range whose device span it starts in);
+  (``run``: forcing, phenology and their copies to the card; ``series``:
+  the window's host assembly and pinning, and its copy to the card) and
+  of the step's three phases, each wrapped here in a ``record_function``
+  range (a kernel or copy counts for the range whose device span it starts
+  in);
+- ``copies_h2d_outside_window_copy_per_step``: host-to-device copies that
+  did not start inside the window's copy (``series``: the steps' own);
 - ``port_kernels``: device milliseconds and launches per step of the
-  port's own CUDA kernels.
+  port's own CUDA kernels;
+- ``windows`` (``--loop windows``): per window, the device milliseconds of
+  its payload's copies and the share of them that ran while a kernel ran
+  (the overlap with the previous window's steps), and the caching
+  allocator's device allocations (``num_device_alloc``) and reserved bytes
+  after the window's steps were issued.
 
 Needs a CUDA card; it does not fall back to the CPU.
 """
@@ -32,6 +52,7 @@ Needs a CUDA card; it does not fall back to the CPU.
 from __future__ import annotations
 
 import argparse
+import bisect
 import collections
 import json
 import pathlib
@@ -41,7 +62,10 @@ import time
 
 _SYNCS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
           "cudaEventSynchronize")
-_PHASES = ("step_inputs", "surface_phase", "flux_phase", "column_phase")
+_STEP_PHASES = ("surface_phase", "flux_phase", "column_phase")
+_INPUTS = {"run": ("step_inputs",),
+           "series": ("window_assembly", "window_copy"),
+           "windows": ("window_assembly", "window_copy")}
 _PORT_KERNELS = ("ci_hybrid_kernel", "pdma_kernel")
 
 
@@ -58,13 +82,28 @@ def _ranged(fn, name):
     return wrapped
 
 
-def _union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
+def _merged(intervals) -> list:
+    """The union of ``intervals`` as sorted disjoint intervals."""
+    out = []
     for a, b in sorted(intervals):
-        if b <= end:
-            continue
-        total += b - max(a, end)
-        end = b
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _union_us(intervals) -> float:
+    return sum(b - a for a, b in _merged(intervals))
+
+
+def _overlap_us(a, b, merged, starts) -> float:
+    """How much of [a, b) the disjoint sorted ``merged`` covers."""
+    i = max(bisect.bisect_right(starts, a) - 1, 0)
+    total = 0.0
+    while i < len(merged) and merged[i][0] < b:
+        total += max(0.0, min(b, merged[i][1]) - max(a, merged[i][0]))
+        i += 1
     return total
 
 
@@ -72,6 +111,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ncol", type=int, default=262144)
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--loop", choices=("run", "series", "windows"),
+                    default="run")
+    ap.add_argument("--window", type=int, default=4)
+    ap.add_argument("--grid", choices=("uniform", "global"),
+                    default="uniform")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
 
@@ -87,9 +131,13 @@ def main(argv=None) -> int:
     from elmkernels_torch.driver.model import Model
     from elmkernels_torch.utils.dates import Date
 
-    for name in _PHASES[1:]:
+    phase_names = _INPUTS[args.loop] + _STEP_PHASES
+    for name in _STEP_PHASES:
         setattr(step_mod, name, _ranged(getattr(step_mod, name), name))
     Model.step_inputs = _ranged(Model.step_inputs, "step_inputs")
+    Model._host_series = _ranged(Model._host_series, "window_assembly")
+    Model._pin_series = _ranged(Model._pin_series, "window_assembly")
+    Model._put = _ranged(Model._put, "window_copy")
 
     repo = pathlib.Path(__file__).resolve().parents[2]
     files = repo / "build" / "synthetic"
@@ -102,7 +150,15 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
 
-    model = Model(ncol=args.ncol, pft_path=str(pft), snicar_path=str(snicar))
+    if args.grid == "global":
+        inputs = synthetic.write_global_inputs(repo / "build" / "global",
+                                               args.ncol)
+        model = Model.from_surfdata(inputs.pop("surfdata"), args.ncol,
+                                    pft_path=str(pft),
+                                    snicar_path=str(snicar), **inputs)
+    else:
+        model = Model(ncol=args.ncol, pft_path=str(pft),
+                      snicar_path=str(snicar))
     # noon of July 1 (step 24), after two warm-up steps
     date = Date.from_ymd(1985, 7, 1)
     date.increment_seconds(22 * 1800)
@@ -111,24 +167,38 @@ def main(argv=None) -> int:
         date.increment_seconds(1800)
     torch.cuda.synchronize()
 
-    iters = []
+    iters, alloc = [], []
+
+    def window_done(date, state, d):
+        stats = torch.cuda.memory_stats()
+        alloc.append(dict(num_device_alloc=stats["num_device_alloc"],
+                          reserved_bytes=stats["reserved_bytes.all.current"]))
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(args.steps):
-            d = model.advance(date)
-            iters.append(d.niters_canopy)
-            date.increment_seconds(1800)
+        if args.loop == "windows":
+            d = model.run_windows(date, args.steps, window=args.window,
+                                  series=True, callback=window_done)
+            iters = list(d.niters_canopy_max)
+        elif args.loop == "series":
+            d = model.run_scan_series(date, args.steps)
+            iters = list(d.niters_canopy_max)
+        else:
+            for _ in range(args.steps):
+                d = model.advance(date)
+                iters.append(d.niters_canopy.max())
+                date.increment_seconds(1800)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = args.steps
 
     dev_ms = collections.Counter()
     launches = collections.Counter()
-    intervals = []
-    syncs = h2d = 0
+    intervals, h2d, copies, kernels = [], [], [], []
+    syncs = 0
     phases = {k: dict(host_ms_per_step=0.0, device_ms_per_step=0.0)
-              for k in _PHASES}
+              for k in phase_names}
     # a range shows twice: on the host, and as an annotation spanning its
     # kernels on the device timeline, which is not device work itself
     spans = []
@@ -143,7 +213,11 @@ def main(argv=None) -> int:
             dev_ms[e.name] += (e.time_range.end - e.time_range.start) / 1e3
             launches[e.name] += 1
             intervals.append((e.time_range.start, e.time_range.end))
-            h2d += "HtoD" in e.name
+            if "HtoD" in e.name:
+                h2d.append(e.time_range.start)
+                copies.append((e.time_range.start, e.time_range.end))
+            elif "Memcpy" not in e.name and "Memset" not in e.name:
+                kernels.append((e.time_range.start, e.time_range.end))
         elif e.name in _SYNCS:
             syncs += 1
     for a, b in intervals:
@@ -151,18 +225,40 @@ def main(argv=None) -> int:
             if lo <= a < hi:
                 phases[name]["device_ms_per_step"] += (b - a) / 1e3 / n
                 break
+    in_copy = sum(1 for a in h2d
+                  if any(lo <= a < hi for lo, hi, name in spans
+                         if name == "window_copy"))
     busy_us = _union_us(intervals)
+    windows = None
+    if args.loop == "windows":
+        # each window_copy range on the host issues one payload's copies
+        ranges = sorted((lo, hi) for lo, hi, name in spans
+                        if name == "window_copy")
+        busy = _merged(kernels)
+        starts = [a for a, _ in busy]
+        windows = []
+        for k, (lo, hi) in enumerate(ranges):
+            mine = [(a, b) for a, b in copies if lo <= a < hi]
+            ms = sum(b - a for a, b in mine) / 1e3
+            over = sum(_overlap_us(a, b, busy, starts)
+                       for a, b in mine) / 1e3
+            windows.append(dict(window=k, copies=len(mine), copy_ms=ms,
+                                copy_ms_under_kernels=over,
+                                **(alloc[k] if k < len(alloc) else {})))
     top = sorted(dev_ms, key=dev_ms.get, reverse=True)[:20]
     res = dict(
         device=torch.cuda.get_device_name(0), card=card, ncol=args.ncol,
-        steps=n, ms_per_step=wall / n * 1e3,
+        steps=n, loop=args.loop, grid=args.grid, psn_mode=model.psn_mode,
+        ms_per_step=wall / n * 1e3,
         columns_per_s=args.ncol * n / wall,
         device_busy_share=busy_us / (wall * 1e6),
         device_ms_per_step=sum(dev_ms.values()) / n,
         launches_per_step=sum(launches.values()) / n,
-        syncs_per_step=syncs / n, copies_h2d_per_step=h2d / n,
-        canopy_iters_per_step=[int(i.max().item()) for i in iters],
-        phases=phases,
+        syncs_per_step=syncs / n, copies_h2d_per_step=len(h2d) / n,
+        copies_h2d_in_window_copy=in_copy,
+        copies_h2d_outside_window_copy_per_step=(len(h2d) - in_copy) / n,
+        canopy_iters_per_step=[int(i.item()) for i in iters],
+        phases=phases, windows=windows,
         port_kernels={k: dict(device_ms_per_step=dev_ms[k] / n,
                               launches_per_step=launches[k] / n)
                       for k in dev_ms if any(p in k for p in _PORT_KERNELS)},

@@ -163,3 +163,9 @@ def monthly_data_weights(t: Date) -> tuple[float, float]:
     t1 = 0 if frac < 0.5 else 1
     wt1 = (t1 + 0.5) - frac
     return wt1, 1.0 - wt1
+
+
+def triple_month_indices(t: Date) -> tuple[int, int, int]:
+    m1, m2 = month_indices(t)
+    m3 = m2 + 1
+    return m1, m2, 0 if m3 > 11 else m3

@@ -29,7 +29,8 @@ def card():
 @pytest.mark.parametrize("mode,dtype", [("c3", torch.float64),
                                         ("c4", torch.float64),
                                         ("mixed", torch.float64),
-                                        ("c3", torch.float32)])
+                                        ("c3", torch.float32),
+                                        ("mixed", torch.float32)])
 def test_ci_kernel_matches_plain(card, mode, dtype):
     from elmkernels_torch.ops.ci_solver import ci_hybrid_solve
     x0, env, en = testing.ci_problem_tensors(N, 11, mode, dtype, card)

@@ -146,7 +146,8 @@ class _Recorder:
     """Wraps every function defined in the JAX modules of ``MODULES``,
     wherever it is bound, and records calls while ``on``."""
 
-    def __init__(self):
+    def __init__(self, max_calls=RECORDED_CALLS):
+        self.max_calls = max_calls
         self.on = False
         self.calls = {}
         self._patched = []
@@ -177,7 +178,7 @@ class _Recorder:
         def wrapped(*args, **kwargs):
             out = f(*args, **kwargs)
             calls = self.calls.setdefault(key, [])
-            if self.on and len(calls) < RECORDED_CALLS:
+            if self.on and len(calls) < self.max_calls:
                 calls.append((_to_numpy(args), _to_numpy(kwargs),
                               _to_numpy(out)))
             return out
@@ -275,10 +276,14 @@ def _port_arguments(jax_fn, port_fn, args, kwargs, where):
             {k: v for k, v in kept.items() if k in kwargs})
 
 
-def _port_value(x, floats_as_tensors):
-    """A recorded JAX argument as the port takes it."""
+def _port_value(x, floats_as_tensors, keep_dtypes=False):
+    """A recorded JAX argument as the port takes it: floating arrays in
+    float64, or in their recorded type with ``keep_dtypes`` (the
+    production flags' float32 interiors)."""
     def conv(v):
         if isinstance(v, (np.ndarray, np.generic)):
+            if keep_dtypes and np.asarray(v).dtype == np.float32:
+                return torch.as_tensor(np.array(v))
             return tp.to_torch(v)
         if isinstance(v, np.dtype) or (isinstance(v, type)
                                        and issubclass(v, np.generic)):
@@ -290,8 +295,13 @@ def _port_value(x, floats_as_tensors):
         if isinstance(v, tuple) and hasattr(v, "_fields"):
             name = type(v).__name__
             if name in _CONVERTERS:
-                return _CONVERTERS[name]({k: np.asarray(f) for k, f
-                                          in v._asdict().items()})
+                fields = {k: np.asarray(f) for k, f in v._asdict().items()}
+                kinds = {f.dtype for f in fields.values()
+                         if f.dtype.kind == "f"}
+                dtype = (torch.float32 if keep_dtypes
+                         and kinds == {np.dtype(np.float32)}
+                         else torch.float64)
+                return _CONVERTERS[name](fields, dtype=dtype)
             cls = _port_class(type(v))
             return cls(**{k: conv(f) for k, f in _ported(
                 v._asdict(), cls._fields, name).items()})
@@ -320,3 +330,37 @@ def test_port_function_matches_jax(recorded, module, name):
         got = port_fn(*_port_value(args, as_tensors),
                       **_port_value(kwargs, as_tensors))
         tp.assert_close(out, got, path=where)
+
+
+def test_snow_water_negative_liquid_walk_matches_jax():
+    """A ground-evaporation debit larger than the top layer's liquid: the
+    walk zeroes the negative liquid and exports it as ``mflx_neg_snow``,
+    which the water ledger re-charges.  The recorded runs never reach it;
+    a global grid's cold July columns do (the port once read the zeroed
+    row back and exported nothing)."""
+    from elmkernels_torch.data.state import cold_start
+    from elmkernels_torch.physics import snow_hydrology as tsh
+    from elmkernels_tpu import constants as jc
+    from elmkernels_tpu.physics import snow_hydrology as jsh
+    ncol, dtime = 4, 1800.0
+    st = {k: v.numpy() for k, v in cold_start(ncol)._asdict().items()}
+    liq = st["h2osoi_liq"].copy()
+    liq[:, tc.NLEVSNO] = 0.5
+    z = np.zeros(ncol)
+    args = dict(
+        do_capsnow=np.zeros(ncol, np.int32), snl=np.zeros(ncol, np.int32),
+        dtime=dtime, frac_sno_eff=np.array([1.0, 0.5, 0.2, 0.0]),
+        h2osno=np.array([0.03, 0.02, 0.01, 0.0]), qflx_sub_snow=z,
+        qflx_evap_grnd=np.array([1e-3, 1e-3, 1e-4, 1e-3]),
+        qflx_dew_snow=z, qflx_dew_grnd=z, qflx_rain_grnd=z,
+        qflx_snomelt=z, qflx_snow_melt=z, int_snow=z,
+        frac_sno=np.array([1.0, 0.5, 0.2, 0.0]), h2osoi_liq=liq,
+        h2osoi_ice=st["h2osoi_ice"],
+        mss={k: st["mss_" + k] for k in ("bcphi", "bcpho", "dst1", "dst2",
+                                         "dst3", "dst4")},
+        dz=st["dz"])
+    land = dict(ltype=1, ctype=1, vtype=12)
+    want = jsh.snow_water(jc.LandType(**land), **args)
+    got = tsh.snow_water(tc.LandType(**land), **_port_value(args, False))
+    assert float(np.abs(np.asarray(want.mflx_neg_snow)).max()) > 0.0
+    tp.assert_close(want, got, path="snow_water")
