@@ -22,7 +22,11 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    12 steps around noon again with each launch timed by CUDA events on the
    main path's own inputs (:class:`MainPathTimes`);
 6. drives ``Model(ncol=8192)`` through 700 January steps, long enough for
-   the synthetic forcing to build snow layers (they form after ~550);
+   the synthetic forcing to build snow layers (they form after ~550), then
+   48 steps further twice from that state: as before (the reference's
+   pinned grain radius) and in a ``Model(elm_correct_snow_aging=True)``
+   given a copy of the state, whose layered columns' radii must age
+   within [SNW_RDS_MIN, SNW_RDS_MAX];
 7. loops, bit for bit: the heterogeneous global grid at 8,192 columns
    (``Model.from_surfdata`` with month-per-file NetCDF forcing, phenology
    and aerosol deposition, all written by ``elmkernels_torch.data.
@@ -37,12 +41,23 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    fresh model (the same state bit for bit, and its ms/step in the same
    call), then one 12-step window around noon under
    :class:`MainPathTimes`, whose first 16 ci solves (float32, "mixed",
-   per-leaf traits) are then held against the plain version on the same
-   inputs;
-9. prints the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
+   per-leaf traits) and first pentadiagonal solves are then held against
+   their plain versions on the same inputs (K4's also on the main path's
+   timed steps);
+9. landunits: the production loop's grid and flags with per-column land
+   types (``synthetic.landunit_map``: ~84 % soil, 10 % crop, 5 % wetland,
+   the 1 % highest-latitude columns ice sheet, half of them with
+   elevation classes; ice and wetland unvegetated) and live snow aging on
+   synthetic ``snicar_drdt`` tables, ``run_windows(series=True,
+   window=48)``, 96 steps from 1985-01-01 (ms/step, columns/s, contracts,
+   columns and mean ``t_grnd`` per class, snow layers and aged radii,
+   launches), then one timed 12-step window whose kept K1 and K4 calls
+   are held against their plain versions;
+10. prints the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
    per launch on the main path, ``prod_*`` the same on the production
-   loop, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4),
-   the card line, and ``{"ok": true, ...}`` last.
+   loop, ``land_*`` on the landunits phase, ``test_ms`` and ``plain_ms``
+   on the test problems of 3 and 4), the card line, and
+   ``{"ok": true, ...}`` last.
 
 Any failed check raises and the script exits non-zero.  Synthetic
 input files and the kernel builds go under ``build/`` in the checkout.
@@ -293,6 +308,27 @@ def check_ci_on_path(kept, tol: float, label: str) -> dict:
     return res
 
 
+def check_pdma_on_path(kept, label: str) -> dict:
+    """pdma_solve's results on a path's own inputs (the calls a
+    MainPathTimes kept) against pdma_solve_plain on the same inputs, bit
+    for bit."""
+    import torch
+    from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
+    worst, n, equal = 0.0, 0, True
+    for (lhs, rhs), x in kept:
+        xp = pdma_solve_plain(lhs, rhs)
+        equal &= bool(torch.equal(x, xp))
+        worst = max(worst, (x - xp).abs().max().item())
+        n += lhs.shape[0]
+    res = dict(label=label, calls=len(kept), columns=n, max_abs_x=worst,
+               equal=equal)
+    phase("K4 pdma_solve vs plain on the path's inputs: " + json.dumps(res))
+    if not (kept and equal):
+        raise AssertionError(f"pdma_solve differs from its plain version "
+                             f"on the {label}: {res}")
+    return res
+
+
 def pdma_bound(ncol: int):
     """(bytes ms, operations ms) of one pentadiagonal solve of ``ncol``
     columns: 105 + 21 doubles read and 21 written per column, against
@@ -421,15 +457,27 @@ def finite(state) -> bool:
 def drive(ncol: int, month: int, nsteps: int, files, label: str,
           kernels: dict, start_step: int = 0):
     """Run Model(ncol) with the production flags for nsteps from step
-    ``start_step`` of the first of ``month``; returns the run summary and
-    the launches of each kernel wrapper in ``kernels`` ({name: wrapper}),
-    counted from 0 over the run."""
-    import torch
+    ``start_step`` of the first of ``month``; returns the run summary, the
+    launches of each kernel wrapper in ``kernels`` ({name: wrapper}),
+    counted from 0 over the run, and the model."""
     from elmkernels_torch.driver.model import Model
     from elmkernels_torch.utils.dates import Date
-    from elmkernels_torch.utils.guard import errsol_bound
     model = Model(ncol=ncol, pft_path=str(files[0]),
                   snicar_path=str(files[1]))
+    start = Date.from_ymd(1985, month, 1)
+    start.increment_seconds(start_step * int(model.dtime))
+    res, launches = run_checked(model, start, nsteps, label, kernels)
+    return res, launches, model
+
+
+def run_checked(model, start, nsteps: int, label: str, kernels: dict,
+                require_launches: bool = True):
+    """``model.run(start, nsteps)``: ms/step, columns/s, the contracts of
+    every step and the kernels' launches over the run (each must have been
+    launched when ``require_launches``)."""
+    import torch
+    from elmkernels_torch.utils.guard import errsol_bound
+    ncol = model.ncol
     worst = {"errh2o_led": 0.0, "errlon": 0.0, "errsol": 0.0,
              "errh2osno_steady": 0.0}
     iters, stamps = [], []
@@ -440,15 +488,14 @@ def drive(ncol: int, month: int, nsteps: int, files, label: str,
         iters.append(int(d.niters_canopy.max().item()))
         stamps.append(time.perf_counter())  # .item() has synchronized
 
-    start = Date.from_ymd(1985, month, 1)
-    start.increment_seconds(start_step * int(model.dtime))
     reset(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model.run(start, nsteps, cb)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts(kernels, label)
+    launches = (counts(kernels, label) if require_launches else
+                {name: fn.launches for name, fn in kernels.items()})
     st = model.state
     snl_max = int(st.snl.max().item())
     # steady rate: steps after the first (which loads the kernels)
@@ -479,9 +526,9 @@ def timed_summaries(t1, t4, launches: dict, label: str) -> dict:
     return on_path
 
 
-def timers(keep: int = 0):
-    """MainPathTimes of K1 and K4, for ``with``; K1's keeps the inputs and
-    results of its first ``keep`` calls."""
+def timers(keep: int = 0, keep_pdma: int = 0):
+    """MainPathTimes of K1 and K4, for ``with``; they keep the inputs and
+    results of their first ``keep`` and ``keep_pdma`` calls."""
     from elmkernels_torch.ops import ci_solver, pdma
 
     # the canopy loop may hand the ci solve constant CiEnv fields as
@@ -495,7 +542,8 @@ def timers(keep: int = 0):
                           lambda a, out: ci_bound(a[0], a[3], out[2]),
                           ci_layout, keep=keep),
             MainPathTimes(pdma, "pdma_solve",
-                          lambda a, out: pdma_bound(a[0].shape[0])))
+                          lambda a, out: pdma_bound(a[0].shape[0]),
+                          keep=keep_pdma))
 
 
 LOOPS_NCOL = 8192
@@ -511,8 +559,16 @@ GLOBAL_LEDGER_BOUND = 2e-8
 PROD_NCOL = 262144
 PROD_STEPS, PROD_WINDOW = 96, 48
 # K1 is held against its plain version on the production loop's own
-# inputs of this many calls (the first step's canopy iterations)
+# inputs of this many calls (the first step's canopy iterations), K4 of
+# this many (a step's each)
 PROD_CI_KEPT = 16
+PDMA_KEPT = 2
+# the winter path runs this many steps further, pinned and aging
+WINTER_STEPS, WINTER_MORE = 700, 48
+# the landunits phase: the landunit map's seed, and the production loop's
+# steps and window from 1985-01-01
+LAND_SEED = 0
+LAND_STEPS, LAND_WINDOW = 96, 48
 
 
 def check_loops(files, kernels: dict) -> dict:
@@ -594,18 +650,16 @@ def check_loops(files, kernels: dict) -> dict:
     return res
 
 
-def production_loop(files, kernels: dict):
+def production_loop(files, inputs: dict, kernels: dict):
     """Phase 8: ``run_windows`` over the 262,144-column global grid, with
-    no timer installed, then one 12-step window under the timers."""
+    no timer installed, then one 12-step window under the timers.
+    ``inputs`` are :func:`global_inputs`."""
     import torch
-    from elmkernels_torch.data import synthetic
     from elmkernels_torch.driver.model import Model
     from elmkernels_torch.utils.dates import Date
     from elmkernels_torch.utils.guard import errsol_bound
-    t0 = time.perf_counter()
-    inputs = synthetic.write_global_inputs(REPO / "build" / "global",
-                                           PROD_NCOL)
-    write_s = time.perf_counter() - t0
+    inputs = dict(inputs)
+    write_s = inputs.pop("write_s")
     surfdata = inputs.pop("surfdata")
 
     def model():
@@ -677,14 +731,202 @@ def production_loop(files, kernels: dict):
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 7, 3)
     noon.increment_seconds(18 * int(m.dtime))
-    t1, t4 = timers(keep=PROD_CI_KEPT)
+    t1, t4 = timers(keep=PROD_CI_KEPT, keep_pdma=PDMA_KEPT)
     with t1, t4:
         reset(kernels)
         m.run_windows(noon, 12, window=12, series=True)
         timed = counts(kernels, "production loop, timed")
     on_prod = timed_summaries(t1, t4, timed, "production loop")
     check_ci_on_path(t1.kept, 1e-5, "production loop")
+    check_pdma_on_path(t4.kept, "production loop")
     return res, launches, on_prod
+
+
+def global_inputs() -> dict:
+    """The 262,144-cell global grid's surfdata, phenology and deposition
+    files, written once for the production and landunits phases: their
+    ``Model.from_surfdata`` keywords, ``surfdata`` and ``write_s``."""
+    from elmkernels_torch.data import synthetic
+    t0 = time.perf_counter()
+    inputs = synthetic.write_global_inputs(REPO / "build" / "global",
+                                           PROD_NCOL)
+    inputs["write_s"] = time.perf_counter() - t0
+    return inputs
+
+
+def winter_aging(model, files, kernels: dict) -> dict:
+    """The winter path's model 48 steps further as it is (the reference's
+    pinned radius), and a copy of its state as far in a model with live
+    snow aging: contracts in both; on the aging run's layered columns the
+    radii lie in [SNW_RDS_MIN, SNW_RDS_MAX] and differ from the pinned
+    run's."""
+    import torch
+    from elmkernels_torch import constants as c
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.utils.dates import Date
+    aged = Model(ncol=model.ncol, pft_path=str(files[0]),
+                 snicar_path=str(files[1]), elm_correct_snow_aging=True,
+                 snow_aging_path=str(files[2]))
+    aged.state = clone(model.state)
+    start = Date.from_ymd(1985, 1, 1)
+    start.increment_seconds(WINTER_STEPS * int(model.dtime))
+    pinned, _ = run_checked(model, start.copy(), WINTER_MORE,
+                            "winter path, pinned radius", kernels,
+                            require_launches=False)
+    live, _ = run_checked(aged, start.copy(), WINTER_MORE,
+                          "winter path, snow aging", kernels,
+                          require_launches=False)
+    snl = aged.state.snl
+    lev = torch.arange(c.NLEVSNO, device=snl.device)[None, :]
+    active = (lev >= c.NLEVSNO - snl[:, None]) & (snl[:, None] > 0)
+    rds = aged.state.snw_rds[active]
+    differs = ((aged.state.snw_rds != model.state.snw_rds) & active).any(1)
+    layered = snl > 0
+    res = dict(layered_columns=int(layered.sum().item()),
+               layered_columns_aged=int((differs & layered).sum().item()),
+               active_layers=int(active.sum().item()),
+               snw_rds_min=rds.min().item(), snw_rds_max=rds.max().item(),
+               snw_rds_mean=rds.mean().item(),
+               pinned_ms_per_step=pinned["ms_per_step"],
+               aging_ms_per_step=live["ms_per_step"])
+    phase("winter path, aging against pinned: " + json.dumps(res))
+    share = res["layered_columns_aged"] / max(res["layered_columns"], 1)
+    if not (res["layered_columns"] and share >= 0.9
+            and c.SNW_RDS_MIN <= res["snw_rds_min"]
+            and res["snw_rds_max"] <= c.SNW_RDS_MAX
+            and res["snw_rds_max"] > c.SNW_RDS_MIN):
+        raise AssertionError(f"the snow grains did not age as they "
+                             f"should: {res}")
+    return res
+
+
+class ColumnLedger:
+    """Each column's largest |errh2o_led| over a run, kept on the card by
+    wrapping ``model._step`` while installed (``with``): two launches a
+    step and no host wait.  The device loops reduce their diagnostics
+    over the columns; this keeps them apart by land class."""
+
+    def __init__(self, model):
+        import torch
+        self.model, self.orig = model, model._step
+        self.worst = torch.zeros(model.ncol, dtype=model.dtype,
+                                 device=model.device)
+
+    def __call__(self, forc, phen):
+        import torch
+        d = self.orig(forc, phen)
+        torch.maximum(self.worst, d.errh2o_led.abs(), out=self.worst)
+        return d
+
+    def __enter__(self):
+        self.model._step = self
+        return self
+
+    def __exit__(self, *exc):
+        del self.model._step
+
+
+def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
+    """Phase 9: the production loop's grid with per-column land types and
+    live snow aging, 96 steps from 1985-01-01 with no timer installed,
+    then one 12-step window under the timers, whose kept K1 and K4 calls
+    are held against their plain versions."""
+    import torch
+    from elmkernels_torch import constants as c
+    from elmkernels_torch.data import synthetic
+    from elmkernels_torch.data.surfdata import read_surfdata
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.utils.dates import Date
+    from elmkernels_torch.utils.guard import errsol_bound
+    inputs = dict(inputs)
+    inputs.pop("write_s")
+    surfdata = inputs.pop("surfdata")
+    sd = read_surfdata(surfdata, PROD_NCOL)
+    ltype = synthetic.landunit_map(sd.lat_deg, LAND_SEED)
+    vtype = synthetic.landunit_vtypes(sd.vtype, ltype)
+    t0 = time.perf_counter()
+    m = Model.from_surfdata(surfdata, PROD_NCOL, pft_path=str(files[0]),
+                            snicar_path=str(files[1]), ltype=ltype,
+                            vtype=vtype.tolist(), elm_correct_snow_aging=True,
+                            snow_aging_path=str(files[2]), **inputs)
+    build_s = time.perf_counter() - t0
+    stamps = []
+
+    def window_done(date, state, d):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with ColumnLedger(m) as ledger:
+        d = m.run_windows(Date.from_ymd(1985, 1, 1), LAND_STEPS,
+                          window=LAND_WINDOW, series=True,
+                          callback=window_done)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels, "landunits")
+    st = m.state
+    lt = m.params.ltype
+    classes = {}
+    for name, code in (("soil", c.ISTSOIL), ("crop", c.ISTCROP),
+                       ("ice", c.ISTICE), ("ice_mec", c.ISTICE_MEC),
+                       ("wetland", c.ISTWET)):
+        sel = lt == code
+        classes[name] = dict(columns=int(sel.sum().item()),
+                             t_grnd_mean=st.t_grnd[sel].mean().item(),
+                             errh2o_led=ledger.worst[sel].max().item())
+    # the reference deletes the snow that falls on a wetland whose ground
+    # is above freezing (canopy_hydrology.snow_init), a sink the closed
+    # ledger does not carry: wetland columns read the deleted snowfall, as
+    # in the JAX package (tests/test_torch_landunits.py), and the ledger
+    # contract holds on the other classes
+    wet = lt == c.ISTWET
+    lev = torch.arange(c.NLEVSNO, device=lt.device)[None, :]
+    active = (lev >= c.NLEVSNO - st.snl[:, None]) & (st.snl[:, None] > 0)
+    steady = (stamps[1] - stamps[0]) / LAND_WINDOW
+    res = dict(label="landunits", ncol=PROD_NCOL, steps=LAND_STEPS,
+               window=LAND_WINDOW, loop="run_windows(series=True)",
+               psn_mode=m.psn_mode, model_build_s=build_s, wall_s=wall,
+               ms_per_step=wall / LAND_STEPS * 1e3,
+               columns_per_s=PROD_NCOL * LAND_STEPS / wall,
+               second_window_ms_per_step=steady * 1e3,
+               second_window_columns_per_s=PROD_NCOL / steady,
+               ms_per_step_over_production_loop=wall / LAND_STEPS * 1e3
+               / prod_ms,
+               classes=classes,
+               columns_with_snow_layers=int((st.snl > 0).sum().item()),
+               columns_with_aged_radius=int(
+                   ((st.snw_rds > c.SNW_RDS_MIN) & active).any(1).sum()
+                   .item()),
+               finite=finite(st), launches=launches,
+               errh2o_led=ledger.worst[~wet].max().item(),
+               errh2o_led_wetland=ledger.worst[wet].max().item(),
+               errh2o_led_all_columns=d.errh2o_led_max.max().item(),
+               errlon=d.errlon_max.max().item(),
+               errsol=d.errsol_max.max().item(),
+               errsol_bound=errsol_bound(PROD_NCOL, LAND_STEPS),
+               max_canopy_iters=int(d.niters_canopy_max.max().item()),
+               canopy_iters_total=int(d.niters_canopy_max.sum().item()))
+    phase("landunits: " + json.dumps(res))
+    check_contracts("landunits", res, led_bound=GLOBAL_LEDGER_BOUND)
+    if not all(v["columns"] for v in classes.values()):
+        raise AssertionError(f"a land class has no column: {classes}")
+    if not classes["ice"]["t_grnd_mean"] < classes["soil"]["t_grnd_mean"]:
+        raise AssertionError(f"ice columns not colder than soil: {classes}")
+
+    # one 12-step window around noon of the third day, each launch timed
+    noon = Date.from_ymd(1985, 1, 3)
+    noon.increment_seconds(18 * int(m.dtime))
+    t1, t4 = timers(keep=PROD_CI_KEPT, keep_pdma=PDMA_KEPT)
+    with t1, t4:
+        reset(kernels)
+        m.run_windows(noon, 12, window=12, series=True)
+        timed = counts(kernels, "landunits, timed")
+    on_land = timed_summaries(t1, t4, timed, "landunits")
+    check_ci_on_path(t1.kept, 1e-5, "landunits")
+    check_pdma_on_path(t4.kept, "landunits")
+    return res, launches, on_land
 
 
 def main() -> int:
@@ -733,28 +975,39 @@ def main() -> int:
 
     files_dir = REPO / "build" / "synthetic"
     files_dir.mkdir(parents=True, exist_ok=True)
-    files = (files_dir / "clm_params.nc", files_dir / "snicar_optics.nc")
+    files = (files_dir / "clm_params.nc", files_dir / "snicar_optics.nc",
+             files_dir / "snicar_drdt.nc")
     synthetic.write_clm_params(files[0])
     synthetic.write_snicar_optics(files[1])
+    synthetic.write_snow_aging_tables(files[2])
 
     wrappers = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                 "pdma_solve": pdma.pdma_solve}
     # end-to-end numbers from a run with no timer installed; the kernels'
     # times per launch from 12 steps around noon under the timers
-    main_run, launches = drive(262144, 7, 48, files, "main path", wrappers)
-    t1, t4 = timers()
+    main_run, launches, _ = drive(262144, 7, 48, files, "main path",
+                                  wrappers)
+    t1, t4 = timers(keep_pdma=PDMA_KEPT)
     with t1, t4:
-        _, timed = drive(262144, 7, 12, files, "main path, timed",
-                         wrappers, start_step=18)
+        _, timed, _ = drive(262144, 7, 12, files, "main path, timed",
+                            wrappers, start_step=18)
     on_path = timed_summaries(t1, t4, timed, "main path")
-    winter, _ = drive(8192, 1, 700, files, "winter path", wrappers)
+    k4_path = check_pdma_on_path(t4.kept, "main path")
+    del t1, t4
+    winter, _, winter_model = drive(8192, 1, WINTER_STEPS, files,
+                                    "winter path", wrappers)
     if winter["snl_max"] == 0:
         raise AssertionError("winter path made no snow layers")
+    winter_aging(winter_model, files, wrappers)
+    del winter_model
     check_loops(files, wrappers)
-    _, prod_launches, on_prod = production_loop(files, wrappers)
+    inputs = global_inputs()
+    prod, prod_launches, on_prod = production_loop(files, inputs, wrappers)
+    _, land_launches, on_land = landunits(files, inputs, wrappers,
+                                          prod["ms_per_step"])
 
     def numbers(name, test):
-        m, p = on_path[name], on_prod[name]
+        m, p, g = on_path[name], on_prod[name], on_land[name]
         return dict(launches=launches[name], ms=m["ms"],
                     bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     share_of_bound=m["share_of_bound"],
@@ -763,7 +1016,10 @@ def main() -> int:
                     test_share_of_bound=test["test_share_of_bound"],
                     prod_launches=prod_launches[name], prod_ms=p["ms"],
                     prod_bound_ms=p["bound_ms"],
-                    prod_share_of_bound=p["share_of_bound"])
+                    prod_share_of_bound=p["share_of_bound"],
+                    land_launches=land_launches[name], land_ms=g["ms"],
+                    land_bound_ms=g["bound_ms"],
+                    land_share_of_bound=g["share_of_bound"])
 
     kernels = [
         dict(name="ci_hybrid_solve", route="cuda",
@@ -774,7 +1030,8 @@ def main() -> int:
         dict(name="pdma_solve", route="cuda",
              source="elmkernels_torch/csrc/pdma_solve.cu",
              replaces="elmkernels_tpu/physics/soil_temperature.py:282",
-             max_abs_err=k4["max_abs_x"], library_ms=k4["library_ms"],
+             max_abs_err=max(k4["max_abs_x"], k4_path["max_abs_x"]),
+             library_ms=k4["library_ms"],
              **numbers("pdma_solve", k4)),
     ]
     phase(f"script: {time.perf_counter() - t_script:.1f} s after start")

@@ -4,8 +4,10 @@ The JAX package's ``ModelParams``, ``ModelState``, ``PFTPsnParams``,
 ``PFTAlbParams`` and ``SnicarTables`` come in as dicts of numpy arrays or
 floats (``{k: np.asarray(v) for k, v in nt._asdict().items()}``); nothing
 of JAX is imported here.  Float fields become tensors of the given dtype on
-the given device, integer fields int64 (``snl`` is int32 in the JAX
-package).  :func:`to_numpy` is the inverse, for tests.
+the given device, integer fields int64 (``snl`` and the per-column
+landunit type ``ModelParams.ltype`` are int32 in the JAX package; the
+snow-aging tables are float fields like the others).  :func:`to_numpy`
+is the inverse, for tests.
 """
 
 from __future__ import annotations

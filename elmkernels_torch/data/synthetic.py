@@ -26,6 +26,12 @@ port's read these files through their own readers.
   per PFT and a monthly deposition climatology.  The grid and forcing
   arithmetic is that of the JAX package's ``tools/make_global_surfdata.py``
   and ``tools/make_forcing_files.py``.
+- :func:`write_snow_aging_tables` writes a ``snicar_drdt_bst`` NetCDF, the
+  [11, 31, 8] aging tables ``tau``/``kappa``/``drdsdt0`` over (T, dT/dz,
+  rho) bins, with which grains grow by microns an hour, as in ELM.
+- :func:`landunit_map` gives a global grid's columns their landunit types
+  (soil, crop, wetland and ice sheet, from the latitudes and a seed), and
+  :func:`landunit_vtypes` leaves ice and wetland columns unvegetated.
 """
 
 from __future__ import annotations
@@ -329,3 +335,71 @@ def write_global_inputs(directory, ncell: int, forcing_grid=None,
         write_forcing_months(out["forcing_basename"], year, month, nmonths,
                              nlat, nlon)
     return out
+
+
+# ---------------------------------------------------------------------------
+# snow-aging tables and a landunit map
+# ---------------------------------------------------------------------------
+
+def snow_aging_tables() -> dict:
+    """Synthetic ``snicar_drdt_bst`` tables, [11, 31, 8] over (T from 223 K
+    in 5 K bins, dT/dz in 10 K/m bins, rho from 50 kg/m3 in 50 kg/m3
+    bins): ``drdsdt0`` [um/h] grows with temperature and gradient and falls
+    with density (0.06-4.3 um/h), ``tau`` [um] and ``kappa`` set how fast
+    the growth slows as the radius departs from fresh snow."""
+    i = np.arange(11, dtype=np.float64)[:, None, None]
+    j = np.arange(31, dtype=np.float64)[None, :, None]
+    k = np.arange(8, dtype=np.float64)[None, None, :]
+    drdsdt0 = (0.1 + 0.3 * i + 0.04 * j) / (1.0 + 0.1 * k)
+    tau = 20.0 + 10.0 * k + 2.0 * j + 0.0 * i
+    kappa = 1.5 + 0.2 * i + 0.05 * j + 0.0 * k
+    return {name: np.broadcast_to(v, (11, 31, 8)).copy()
+            for name, v in (("tau", tau), ("kappa", kappa),
+                            ("drdsdt0", drdsdt0))}
+
+
+def write_snow_aging_tables(path) -> None:
+    """Write the synthetic ``snicar_drdt_bst`` NetCDF to ``path``."""
+    dims = ("nbr_temperature", "nbr_tgrad", "nbr_rho")
+    write_nc(path, dict(zip(dims, (11, 31, 8))),
+             {name: (dims, v) for name, v in snow_aging_tables().items()})
+
+
+# landunit shares of the landunit map: ice sheet (the highest latitudes),
+# then crop and wetland drawn at random among the rest; soil takes what is
+# left (~84 %).  Lakes stay out: the reference carries them as a
+# placeholder class only.
+ICE_SHARE, CROP_SHARE, WET_SHARE = 0.01, 0.10, 0.05
+# share of the ice-sheet columns that are multiple elevation classes
+ICE_MEC_SHARE = 0.5
+
+
+def landunit_map(lat_deg, seed: int = 0) -> np.ndarray:
+    """Landunit type of each column of a grid with latitudes ``lat_deg``:
+    the ICE_SHARE highest-latitude columns are ice sheet (ISTICE_MEC on a
+    seeded ICE_MEC_SHARE of them), CROP_SHARE and WET_SHARE of all columns
+    are crop and wetland, drawn from ``seed`` among the others, the rest
+    soil."""
+    lat = np.asarray(lat_deg, np.float64)
+    n = lat.shape[0]
+    rng = np.random.default_rng(seed)
+    lt = np.full(n, c.ISTSOIL, np.int64)
+    nice = int(round(ICE_SHARE * n))
+    ice = np.argsort(-lat, kind="stable")[:nice]
+    lt[ice] = np.where(rng.random(nice) < ICE_MEC_SHARE, c.ISTICE_MEC,
+                       c.ISTICE)
+    u = rng.random(n)
+    rest = lt == c.ISTSOIL
+    scale = 1.0 - ICE_SHARE
+    lt[rest & (u < CROP_SHARE / scale)] = c.ISTCROP
+    lt[rest & (u >= CROP_SHARE / scale)
+       & (u < (CROP_SHARE + WET_SHARE) / scale)] = c.ISTWET
+    return lt
+
+
+def landunit_vtypes(vtype, ltype) -> np.ndarray:
+    """``vtype`` with ice-sheet and wetland columns unvegetated (PFT 0);
+    soil and crop columns keep theirs."""
+    lt = np.asarray(ltype)
+    bare = np.isin(lt, (c.ISTICE, c.ISTICE_MEC, c.ISTWET))
+    return np.where(bare, c.NOVEG, np.asarray(vtype)).astype(np.int64)

@@ -118,6 +118,11 @@ class Model:
     meet (reference ``initialize_elm_kokkos.cc:374-431``).  The site
     fields take a scalar or an [ncol] array (texture: also [ncol,
     nlevsoi]); :meth:`from_surfdata` fills them from a surfdata file.
+    ``ltype`` is one landunit type for the domain or an [ncol] sequence
+    (mixed soil/crop/ice/wetland batches: each landunit branch then
+    selects per column, and non-soil columns cold-start from the
+    reference's init kernels).  ``elm_correct_snow_aging=True`` ages the
+    snow grains from the ``snicar_drdt`` tables at ``snow_aging_path``.
     The flags default to the JAX ``Model``'s production defaults."""
     ncol: int
     dtime: float = 1800.0
@@ -126,7 +131,7 @@ class Model:
     snicar_path: str | None = None
     lat_deg: float | np.ndarray = 71.323
     lon_deg: float | np.ndarray = 203.3886
-    ltype: int = 1
+    ltype: int | np.ndarray = 1
     soil_color: int | np.ndarray = 15
     mxsoil_color: int = 20
     pct_sand: float | np.ndarray = 40.0
@@ -144,6 +149,12 @@ class Model:
     # keeps the static ModelParams.aero_* rates
     aerosol_path: str | None = None
     col0: int = 0  # global column offset of this host's shard
+    # snicar_drdt_bst*.nc snow-aging tables; needed by
+    # elm_correct_snow_aging=True, inert otherwise
+    snow_aging_path: str | None = None
+    # ELM's snow grain aging (the reference clamps the radius to
+    # SNW_RDS_MIN from both sides); default False is reference-exact
+    elm_correct_snow_aging: bool = False
     mixed_radiation: bool = True
     elm_correct_seb: bool = False
     warm_start: bool = True
@@ -159,6 +170,20 @@ class Model:
                              "synthetic ones)")
         dev, dt = self.device, self.dtype
         vt = np.asarray(self.vtype, np.int64)
+        lt = np.asarray(self.ltype, np.int64)
+        self.het_ltype = lt.ndim > 0
+        if self.het_ltype and lt.shape != (self.ncol,):
+            raise ValueError(f"ltype shape {lt.shape} != ({self.ncol},)")
+        snowage_tables = None
+        if self.snow_aging_path is not None:
+            snowage_tables = params_mod.read_snowrds_data(
+                self.snow_aging_path)
+        elif self.elm_correct_snow_aging:
+            raise ValueError(
+                "elm_correct_snow_aging=True ages the snow grains from "
+                "snicar_drdt tables: pass snow_aging_path=... (the "
+                "placeholder tables are inert only under the reference's "
+                "double clamp)")
         if vt.ndim == 0:
             self.psnveg = params_mod.load_pft_psn(self.pft_path, int(vt),
                                                   dt, dev)
@@ -171,19 +196,22 @@ class Model:
             table = params_mod.load_pft_table(self.pft_path)
             self.psnveg = params_mod.gather_pft_psn(table, vt, dt, dev)
             self.albveg = params_mod.gather_pft_alb(table, vt, dt, dev)
-        self.land = c.LandType(ltype=int(self.ltype), ctype=1,
-                               vtype=int(vt.flat[0]))
+        # the domain's LandType keeps an int; a per-column ltype rides in
+        # params.ltype and replaces it inside the step (het_ltype)
+        self.land = c.LandType(ltype=c.ISTSOIL if self.het_ltype
+                               else int(lt), ctype=1, vtype=int(vt.flat[0]))
         self.psn_mode = psn_mode_of(self.psnveg)
         self.snicar = params_mod.read_snicar_data(self.snicar_path, dt, dev)
         self.params = params_mod.default_params(
             self.ncol, self.pft_path, vt, self.lat_deg, self.lon_deg,
             soil_color=self.soil_color, pct_sand=self.pct_sand,
             pct_clay=self.pct_clay, organic=self.organic,
-            mxsoil_color=self.mxsoil_color, ltype=self.ltype,
+            mxsoil_color=self.mxsoil_color,
+            snowage_tables=snowage_tables, ltype=self.ltype,
             topo_slope_raw=self.topo_slope_raw, topo_std=self.topo_std,
             dtype=dt, device=dev)
         self.state = cold_start(self.ncol, dt, dev)
-        if self.land.ltype not in (c.ISTSOIL, c.ISTCROP):
+        if self.het_ltype or self.land.ltype not in (c.ISTSOIL, c.ISTCROP):
             self.state = self._ltype_cold_start(self.state)
         lat_r = self.params.lat_r.cpu().numpy()
         lon_r = self.params.lon_r.cpu().numpy()
@@ -237,15 +265,24 @@ class Model:
     def _ltype_cold_start(self, state: ModelState) -> ModelState:
         """Ice/wet landunits start from the reference's init kernels
         (``init_soil_temp``/``init_soilh2o_state``) instead of the
-        hardwired soil column."""
+        hardwired soil column: an ice sheet ice-filled at 250 K, a wetland
+        water-filled.  Soil and crop columns, and every column's snow
+        layers and mesh, keep the hardwired start."""
         from elmkernels_torch.physics import init_state as ini
-        t, t_grnd = ini.init_soil_temp(self.land, state.snl, self.ncol,
+        land = (dataclasses.replace(self.land, ltype=self.params.ltype)
+                if self.het_ltype else self.land)
+        t, t_grnd = ini.init_soil_temp(land, state.snl, self.ncol,
                                        self.dtype)
-        vol, liq, ice = ini.init_soilh2o_state(self.land, state.snl,
+        vol, liq, ice = ini.init_soilh2o_state(land, state.snl,
                                                self.params.watsat, t,
                                                state.dz)
-        return state._replace(t_soisno=t, t_grnd=t_grnd, h2osoi_vol=vol,
-                              h2osoi_liq=liq, h2osoi_ice=ice)
+        soil = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+        return state._replace(
+            t_soisno=c.lsel(soil, state.t_soisno, t),
+            t_grnd=c.lsel(soil, state.t_grnd, t_grnd),
+            h2osoi_vol=c.lsel(soil, state.h2osoi_vol, vol),
+            h2osoi_liq=c.lsel(soil, state.h2osoi_liq, liq),
+            h2osoi_ice=c.lsel(soil, state.h2osoi_ice, ice))
 
     # ---- one step --------------------------------------------------------
 
@@ -257,7 +294,9 @@ class Model:
             qbot_is_rh=getattr(self.forcing, "qbot_is_rh", False),
             mixed_radiation=self.mixed_radiation,
             elm_correct_seb=self.elm_correct_seb,
-            warm_start=self.warm_start, mixed_canopy=self.mixed_canopy)
+            warm_start=self.warm_start, mixed_canopy=self.mixed_canopy,
+            het_ltype=self.het_ltype,
+            elm_correct_snow_aging=self.elm_correct_snow_aging)
         return diags
 
     def _attach_aero(self, forc: StepForcing, date: Date) -> StepForcing:

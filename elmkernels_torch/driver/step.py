@@ -12,6 +12,7 @@ ci root solve and the pentadiagonal solve are CUDA kernels.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -157,18 +158,30 @@ def advance(land: c.LandType, psnveg: psn.PFTPsnParams,
             albveg: sa.PFTAlbParams, snicar: SnicarTables,
             params: ModelParams, state: ModelState, forcing: StepForcing,
             phen: StepPhenology, dtime: float,
+            elm_correct_snow_aging: bool = False,
             psn_mode: str | None = None,
             qbot_is_rh: bool = False,
             mixed_radiation: bool = False,
             elm_correct_seb: bool = False,
             warm_start: bool = False,
+            het_ltype: bool = False,
             mixed_canopy: bool = False
             ) -> tuple[ModelState, StepDiagnostics]:
     """One dtime step.  ``forcing``/``phen`` hold tensors on the state's
     device.  ``mixed_radiation`` runs SNICAR and two-stream in f32,
     ``mixed_canopy`` the canopy stability loop, ``warm_start`` seeds the
     canopy/ci solvers from the previous step's obu/ci (the JAX package's
-    flags of the same names)."""
+    flags of the same names).
+
+    ``het_ltype=True`` takes each column's landunit type from
+    ``params.ltype`` in place of the domain's int ``land.ltype``: every
+    landunit branch then selects per column on the device.
+    ``elm_correct_snow_aging=True`` ages the snow grains from the
+    ``params.snowage_*`` tables with ELM's [SNW_RDS_MIN, SNW_RDS_MAX]
+    clamp (:func:`snow_hydrology.snow_aging`) in place of the reference's
+    pinned radius."""
+    if het_ltype:
+        land = dataclasses.replace(land, ltype=params.ltype)
     sfo = surface_phase(land, albveg, snicar, params, state, forcing, phen,
                         dtime, qbot_is_rh=qbot_is_rh,
                         mixed_radiation=mixed_radiation)
@@ -176,6 +189,7 @@ def advance(land: c.LandType, psnveg: psn.PFTPsnParams,
                     psn_mode=psn_mode, warm_start=warm_start,
                     mixed_canopy=mixed_canopy)
     return column_phase(land, params, state, forcing, sfo, fl, dtime,
+                        elm_correct_snow_aging=elm_correct_snow_aging,
                         elm_correct_seb=elm_correct_seb)
 
 
@@ -493,7 +507,8 @@ def flux_phase(land: c.LandType, psnveg: psn.PFTPsnParams,
 
 def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
                  forcing: StepForcing, sfo: _SurfaceOut, fl: _FluxOut,
-                 dtime: float, elm_correct_seb: bool = False
+                 dtime: float, elm_correct_snow_aging: bool = False,
+                 elm_correct_seb: bool = False
                  ) -> tuple[ModelState, StepDiagnostics]:
     """Soil/snow temperature solve + phase change, snow hydrology, surface
     flux finalization, conservation diagnostics, state assembly.  Of
@@ -613,7 +628,17 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
     mss2, cnc = sh.update_aerosol_mass_and_concen(
         dtime, st.snl, do_capsnow, gf.qflx_snwcp_ice, st.ice, st.liq,
         st.mss)
-    snw_rds = sh.snow_aging_pinned(st.snl, cb.h2osno, st.rds)
+    if elm_correct_snow_aging:
+        snw_rds = sh.snow_aging(do_capsnow, st.snl, cb.frac_sno, dtime,
+                                gf.qflx_snwcp_ice, gf.qflx_snow_grnd,
+                                cb.h2osno, st.dz, st.liq, st.ice, st.t,
+                                pc2.qflx_snofrz_lyr, p.snowage_tau,
+                                p.snowage_kappa, p.snowage_drdt0, st.rds,
+                                elm_correct_clamp=True)
+    else:
+        # the reference's double clamp pins every radius: the same result
+        # without the table work (snow_hydrology.snow_aging_pinned)
+        snw_rds = sh.snow_aging_pinned(st.snl, cb.h2osno, st.rds)
     snl, t_soisno = st.snl, st.t
     h2osoi_ice, h2osoi_liq = st.ice, st.liq
     dz, z, zi = st.dz, st.z, st.zi

@@ -33,13 +33,17 @@ def interception(land: c.LandType, frac_veg_nosno, forc_rain, forc_snow,
     """Canopy interception/storage and throughfall
     (``canopy_hydrology_impl.hh:8-67``)."""
     zero = torch.zeros_like(forc_rain)
+    passthrough = InterceptionOut(h2ocan, zero, zero, zero, zero, zero)
+    icecase = InterceptionOut(zero, zero, zero, zero, zero, zero)
     if land.lakpoi or land.is_wall:
-        return InterceptionOut(h2ocan, zero, zero, zero, zero, zero)
-    if c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC):
-        return InterceptionOut(zero, zero, zero, zero, zero, zero)
-    if not (c.ltype_mask(land, c.ISTSOIL, c.ISTWET, c.ISTCROP)
-            or land.urbpoi):
-        return InterceptionOut(h2ocan, zero, zero, zero, zero, zero)
+        return passthrough
+    ice = c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC)
+    soil_like = c.lor(c.ltype_mask(land, c.ISTSOIL, c.ISTWET, c.ISTCROP),
+                      land.urbpoi)
+    if ice is True:
+        return icecase
+    if ice is False and soil_like is False:
+        return passthrough
 
     total = forc_rain + forc_snow
     active = (frac_veg_nosno == 1) & (total > 0.0)
@@ -62,8 +66,10 @@ def interception(land: c.LandType, frac_veg_nosno, forc_rain, forc_snow,
     drip = active & (xrun > 0.0)
     qflx_candrip = torch.where(drip, xrun, 0.0)
     h2ocan_new = torch.where(drip, h2ocanmx, h2ocan_new)
-    return InterceptionOut(h2ocan_new, qflx_candrip, qflx_through_snow,
-                           qflx_through_rain, fracsnow, fracrain)
+    out = InterceptionOut(h2ocan_new, qflx_candrip, qflx_through_snow,
+                          qflx_through_rain, fracsnow, fracrain)
+    # per-column ltype: other columns pass through, ice columns zero
+    return c.lsel(ice, icecase, c.lsel(soil_like, out, passthrough))
 
 
 class GroundFluxOut(NamedTuple):
@@ -257,15 +263,22 @@ def snow_init(land: c.LandType, dtime, do_capsnow, oldfflag, forc_t, t_grnd,
     dz_snowf = torch.where(cap, 0.0, dz_snowf_nc)
 
     # effective snow fraction
-    if c.ltype_mask(land, c.ISTSOIL, c.ISTCROP) and c.SUBGRIDFLAG == 1:
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    if sc is True and c.SUBGRIDFLAG == 1:
         frac_sno_eff_new = frac_sno_new
-    else:
+    elif sc is False or c.SUBGRIDFLAG != 1:
         frac_sno_eff_new = torch.ones_like(frac_sno_new)
+    else:
+        frac_sno_eff_new = c.lsel(sc, frac_sno_new,
+                                  torch.ones_like(frac_sno_new))
 
-    if c.ltype_mask(land, c.ISTWET):
+    wet = c.ltype_mask(land, c.ISTWET)
+    if wet is not False:
         warm = t_grnd > c.TFRZ
-        h2osno_new = torch.where(warm, 0.0, h2osno_new)
-        snow_depth_new = torch.where(warm, 0.0, snow_depth_new)
+        h2osno_new = c.lsel(wet, torch.where(warm, 0.0, h2osno_new),
+                            h2osno_new)
+        snow_depth_new = c.lsel(wet, torch.where(warm, 0.0, snow_depth_new),
+                                snow_depth_new)
 
     # --- initialize first snow layer when accumulation >= 10 mm ---
     newnode = ((snl == 0) & (qflx_snow_grnd > 0.0)
@@ -315,7 +328,8 @@ def fraction_h2osfc(land: c.LandType, micro_sigma, h2osno, h2osfc,
     consistency adjustment against the snow fraction
     (``canopy_hydrology_impl.hh:310-357``)."""
     min_h2osfc = 1.e-8
-    if not c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    if sc is False:
         return FractionH2osfcOut(h2osfc, h2osoi_liq, frac_sno,
                                  frac_sno_eff, torch.zeros_like(h2osfc))
 
@@ -349,5 +363,10 @@ def fraction_h2osfc(land: c.LandType, micro_sigma, h2osno, h2osfc,
                                   frac_h2osfc)
     frac_sno_adj = torch.where(over, 1.0 - frac_h2osfc_adj, frac_sno)
     frac_sno_eff_adj = torch.where(over, frac_sno_adj, frac_sno_eff)
-    return FractionH2osfcOut(h2osfc_new, h2osoi_liq_new, frac_sno_adj,
-                             frac_sno_eff_adj, frac_h2osfc_adj)
+    out = FractionH2osfcOut(h2osfc_new, h2osoi_liq_new, frac_sno_adj,
+                            frac_sno_eff_adj, frac_h2osfc_adj)
+    if sc is True:
+        return out
+    return c.lsel(sc, out, FractionH2osfcOut(
+        h2osfc, h2osoi_liq, frac_sno, frac_sno_eff,
+        torch.zeros_like(h2osfc)))

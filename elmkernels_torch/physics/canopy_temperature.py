@@ -60,20 +60,27 @@ def calc_soilalpha(land: c.LandType, frac_sno, frac_h2osfc, h2osoi_liq,
     hr = torch.ones_like(frac_sno)
     soilalpha = torch.full_like(frac_sno, c.SPVAL)
 
-    if c.ltype_mask(land, c.ISTWET, c.ISTICE, c.ISTICE_MEC):
-        return SoilAlphaOut(qred, hr, soilalpha)
-    if c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    wet_ice = c.ltype_mask(land, c.ISTWET, c.ISTICE, c.ISTICE_MEC)
+    defaults = SoilAlphaOut(qred, hr, soilalpha)
+    if wet_ice is True:
+        return defaults
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    if sc is not False:
         i0 = c.NLEVSNO
         wx = (h2osoi_liq[:, i0] / c.DENH2O
               + h2osoi_ice[:, i0] / c.DENICE) / dz[:, i0]
         fac = torch.clamp(wx / watsat[:, 0], 0.01, 1.0)
         psit = torch.clamp(-sucsat[:, 0] * fac ** (-bsw[:, 0]), min=smpmin)
-        hr = torch.exp(psit / c.ROVERG / t_soisno[:, i0])
-        qred = (1.0 - frac_sno - frac_h2osfc) * hr + frac_sno + frac_h2osfc
-        soilalpha = qred
+        hr_sc = torch.exp(psit / c.ROVERG / t_soisno[:, i0])
+        qred_sc = ((1.0 - frac_sno - frac_h2osfc) * hr_sc + frac_sno
+                   + frac_h2osfc)
+        hr = c.lsel(sc, hr_sc, hr)
+        qred = c.lsel(sc, qred_sc, qred)
+        soilalpha = c.lsel(sc, qred_sc, soilalpha)
     elif land.ctype in (c.ICOL_SUNWALL, c.ICOL_SHADEWALL):
         qred = torch.zeros_like(frac_sno)
-    return SoilAlphaOut(qred, hr, soilalpha)
+    out = SoilAlphaOut(qred, hr, soilalpha)
+    return out if wet_ice is False else c.lsel(wet_ice, defaults, out)
 
 
 def calc_soilbeta(land: c.LandType, frac_sno, frac_h2osfc, watsat, watfc,
@@ -99,7 +106,8 @@ def humidities(land: c.LandType, snl, forc_q, forc_pbot, t_h2osfc, t_grnd,
     The reference's unsatisfiable ``qsatg > forc_q && forc_q > qsatg``
     guards are dropped; the live dew-limit guard on the soil branch is kept.
     """
-    if c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    if sc is not False:
         top_sno_t = take_layer(t_soisno, c.NLEVSNO - snl)
         qs_snow = qsat(top_sno_t, forc_pbot)
         qg_snow = qs_snow.qs
@@ -124,7 +132,9 @@ def humidities(land: c.LandType, snl, forc_q, forc_pbot, t_h2osfc, t_grnd,
         qg = (frac_sno_eff * qg_snow
               + (1.0 - frac_sno_eff - frac_h2osfc) * qg_soil
               + frac_h2osfc * qg_h2osfc)
-        return HumiditiesOut(qg_snow, qg_soil, qg, qg_h2osfc, dqgdT)
+        soilcase = HumiditiesOut(qg_snow, qg_soil, qg, qg_h2osfc, dqgdT)
+        if sc is True:
+            return soilcase
 
     qs = qsat(t_grnd, forc_pbot)
     qg = qred * qs.qs
@@ -132,7 +142,8 @@ def humidities(land: c.LandType, snl, forc_q, forc_pbot, t_h2osfc, t_grnd,
     dew = (qs.qs > forc_q) & (forc_q > qred * qs.qs)
     qg = torch.where(dew, forc_q, qg)
     dqgdT = torch.where(dew, 0.0, dqgdT)
-    return HumiditiesOut(qg, qg, qg, qg, dqgdT)
+    other = HumiditiesOut(qg, qg, qg, qg, dqgdT)
+    return other if sc is False else c.lsel(sc, soilcase, other)
 
 
 class GroundPropertiesOut(NamedTuple):
@@ -155,10 +166,13 @@ def ground_properties(land: c.LandType, snl, frac_sno, forc_th, forc_q, elai,
                       h2osoi_ice) -> GroundPropertiesOut:
     """Emissivities, latent-heat selector, and roughness lengths.
     ``displar_v``/``z0mr_v`` are the PFT trait values (scalars or [ncol])."""
-    if c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC):
+    ice = c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC)
+    if ice is True:
         emg = torch.full_like(frac_sno, 0.97)
     else:
         emg = (1.0 - frac_sno) * 0.96 + frac_sno * 0.97
+        if ice is not False:
+            emg = c.lsel(ice, torch.full_like(frac_sno, 0.97), emg)
 
     avmuir = 1.0
     emv = 1.0 - torch.exp(-(elai + esai) / avmuir)
@@ -189,12 +203,18 @@ def forcing_height(land: c.LandType, veg_active, frac_veg_nosno, z0m, z0mg,
                    forc_t, displa, forc_hgt_u_patch, forc_hgt_t_patch,
                    forc_hgt_q_patch) -> ForcingHeightOut:
     """Patch-level forcing heights (+z0m+displa) and 2m-adjusted thm."""
-    if c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    wet_ice = c.ltype_mask(land, c.ISTWET, c.ISTICE, c.ISTICE_MEC)
+    if sc is True:
         add = torch.where(frac_veg_nosno == 0, z0mg + displa, z0m + displa)
-    elif c.ltype_mask(land, c.ISTWET, c.ISTICE, c.ISTICE_MEC):
+    elif wet_ice is True:
         add = z0mg
-    else:
+    elif sc is False and wet_ice is False:
         add = torch.zeros_like(z0mg)  # urban: z_0_town + z_d_town == 0
+    else:
+        add = c.lsel(sc, torch.where(frac_veg_nosno == 0, z0mg + displa,
+                                     z0m + displa),
+                     c.lsel(wet_ice, z0mg, torch.zeros_like(z0mg)))
     add = torch.where(veg_active, add, 0.0)
 
     u = forc_hgt_u_patch + add

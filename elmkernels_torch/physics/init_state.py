@@ -23,7 +23,12 @@ def init_soil_temp(land: c.LandType, snl, ncol, dtype=torch.float64):
     """Cold-start temperature profile + t_grnd (``init_soil_temp``)."""
     ice = c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC)
     wet = c.ltype_mask(land, c.ISTWET)
-    t_soil = 250.0 if ice else (277.0 if wet else 274.0)
+    if isinstance(ice, bool):
+        t_soil = 250.0 if ice else (277.0 if wet else 274.0)
+    else:
+        t_soil = torch.full(ice.shape, 274.0, dtype=dtype, device=ice.device)
+        t_soil = torch.where(ice, 250.0, torch.where(wet, 277.0, t_soil))
+        t_soil = t_soil[:, None]
     lev = levels(c.NLEVTOT, snl)[None, :]
     snow_active = (lev < _NSNO) & (lev >= (_NSNO - snl)[:, None])
     zero = torch.zeros((ncol, c.NLEVTOT), dtype=dtype, device=snl.device)
@@ -37,12 +42,18 @@ def init_soilh2o_state(land: c.LandType, snl, watsat, t_soisno, dz):
     """Cold-start soil water from volumetric content (soil/crop path of
     ``init_soilh2o_state``)."""
     bed = levels(c.NLEVGRND, watsat)[None, :] >= c.NLEVBED
-    if c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    wet = c.ltype_mask(land, c.ISTWET)
+    if sc is True:
         vol0 = torch.where(bed, 0.0, torch.full_like(watsat, 0.15))
-    elif c.ltype_mask(land, c.ISTWET):
+    elif wet is True:
         vol0 = torch.where(bed, 0.0, torch.ones_like(watsat))
-    else:
+    elif isinstance(sc, bool) and isinstance(wet, bool):
         vol0 = torch.ones_like(watsat)
+    else:
+        ones = torch.ones_like(watsat)
+        vol0 = c.lsel(sc, torch.where(bed, 0.0, torch.full_like(watsat, 0.15)),
+                      c.lsel(wet, torch.where(bed, 0.0, ones), ones))
     h2osoi_vol = torch.minimum(vol0.expand_as(watsat), watsat)
 
     dz_soil = dz[:, _NSNO:]
@@ -82,9 +93,13 @@ def init_topo_slope(raw_topo_slope):
 
 
 def init_melt_factor(land: c.LandType, topo_std):
-    if c.ltype_mask(land, c.ISTICE_MEC):
+    icemec = c.ltype_mask(land, c.ISTICE_MEC)
+    if icemec is True:
         return torch.full_like(topo_std, 10.0)
-    return rdiv(200.0, torch.clamp(topo_std, min=10.0))
+    melt = rdiv(200.0, torch.clamp(topo_std, min=10.0))
+    if icemec is False:
+        return melt
+    return c.lsel(icemec, torch.full_like(topo_std, 10.0), melt)
 
 
 def init_micro_sigma(topo_slope):

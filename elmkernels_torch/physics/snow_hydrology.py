@@ -262,8 +262,10 @@ def snow_compaction(land: c.LandType, snl, dtime, int_snow, n_melt, frac_sno,
 
     # melt compaction
     melted = imelt[:, :_NSNO] == 1
-    if c.SUBGRIDFLAG == 1 and c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
-        ddz3 = torch.clamp((swe_old - wx) / wx_safe, 0.0, 1.0)
+    sc = (c.ltype_mask(land, c.ISTSOIL, c.ISTCROP) if c.SUBGRIDFLAG == 1
+          else False)
+    if sc is not False:
+        ddz3_sc = torch.clamp((swe_old - wx) / wx_safe, 0.0, 1.0)
         wsum = torch.sum(wx_act, dim=1)[:, None]  # only used at i == top
         shrunk = (swe_old - wx) > 0.0
         int_safe = torch.where(int_snow != 0.0, int_snow, 1.0)[:, None]
@@ -271,13 +273,15 @@ def snow_compaction(land: c.LandType, snl, dtime, int_snow, n_melt, frac_sno,
             2.0 * torch.clamp(torch.where(lev == top[:, None], wsum, 0.0)
                               / int_safe, max=1.0) - 1.0)
             / c.ELM_PI) ** n_melt[:, None]
-        ddz3 = ddz3 - torch.where(
+        ddz3_sc = ddz3_sc - torch.where(
             shrunk, torch.clamp((fsno_melt - fs) / fs_safe, min=0.0), 0.0)
-        ddz3 = -1.0 / dtime * ddz3
-    else:
+        ddz3_sc = -1.0 / dtime * ddz3_sc
+    if sc is not True:
         fio = frac_iceold[:, :_NSNO]
         fio_safe = torch.where(fio != 0.0, fio, 1.0)
-        ddz3 = -1.0 / dtime * torch.clamp((fio - fi) / fio_safe, min=0.0)
+        ddz3_ns = -1.0 / dtime * torch.clamp((fio - fi) / fio_safe, min=0.0)
+    ddz3 = (ddz3_sc if sc is True else ddz3_ns if sc is False
+            else c.lsel(sc, ddz3_sc, ddz3_ns))
     ddz3 = torch.where(melted, ddz3, 0.0)
 
     pdzdtc = ddz1 + ddz2 + ddz3
@@ -342,7 +346,16 @@ def combine_layers(land: c.LandType, dtime, st: SnowState, h2osno,
     below-minimum-thickness layers with neighbors
     (``snow_hydrology_impl.hh:648-897``)."""
     dzmin = const((0.010, 0.015, 0.025, 0.055, 0.115), h2osno)
-    soil_like = (c.ltype_mask(land, c.ISTSOIL, c.ISTCROP) or land.urbpoi)
+    soil_like = c.lor(c.ltype_mask(land, c.ISTSOIL, c.ISTCROP), land.urbpoi)
+
+    def sl_and(m):
+        """``m`` on the soil-like columns only: ``m`` itself for a
+        soil-like domain, None for a domain with none."""
+        if soil_like is True:
+            return m
+        if soil_like is False:
+            return None
+        return m & soil_like
 
     snl = st.snl
     t, ice, liq = st.t, st.ice, st.liq
@@ -362,19 +375,20 @@ def combine_layers(land: c.LandType, dtime, st: SnowState, h2osno,
         m = (i >= top_old) & (ice_i <= 0.01)
         last = i == _NSNO - 1
         # merge mass into the layer below (soil-like land units)
-        if soil_like:
-            below = (lev20 == i + 1) & m[:, None]
+        msl = sl_and(m)
+        if msl is not None:
+            below = (lev20 == i + 1) & msl[:, None]
             liq = torch.where(below, liq + liq_i[:, None], liq)
             ice = torch.where(below, ice + ice_i[:, None], ice)
             if last:
-                q = torch.where(m, (liq_i + ice_i) / dtime, 0.0)
-                qflx_sl_top_soil = torch.where(m, q, qflx_sl_top_soil)
+                q = torch.where(msl, (liq_i + ice_i) / dtime, 0.0)
+                qflx_sl_top_soil = torch.where(msl, q, qflx_sl_top_soil)
             else:
                 q = torch.zeros_like(h2osno)
             mflx_snowlyr_col = mflx_snowlyr_col + q
             if not last:
                 dz = torch.where(below, dz + dz[:, i:i + 1], dz)
-                below5 = (lev5 == i + 1) & m[:, None]
+                below5 = (lev5 == i + 1) & msl[:, None]
                 mss = {k: torch.where(below5, v + v[:, i:i + 1], v)
                        for k, v in mss.items()}
         # shift elements above down one
@@ -408,12 +422,13 @@ def combine_layers(land: c.LandType, dtime, st: SnowState, h2osno,
     h2osno_n = torch.where(gone, zwice, h2osno_n)
     mss = {k: torch.where(gone[:, None], 0.0, v) for k, v in mss.items()}
     snow_depth_n = torch.where(gone & (h2osno_n <= 0.0), 0.0, snow_depth_n)
-    if soil_like:
+    gsl = sl_and(gone)
+    if gsl is not None:
         liq = liq.clone()
-        liq[:, _NSNO - 1] = torch.where(gone, 0.0, liq[:, _NSNO - 1])
-        liq[:, _NSNO] = liq[:, _NSNO] + torch.where(gone, zwliq, 0.0)
-        qflx_snow2topsoi = torch.where(gone, zwliq / dtime, qflx_snow2topsoi)
-        mflx_snowlyr_col = mflx_snowlyr_col + torch.where(gone,
+        liq[:, _NSNO - 1] = torch.where(gsl, 0.0, liq[:, _NSNO - 1])
+        liq[:, _NSNO] = liq[:, _NSNO] + torch.where(gsl, zwliq, 0.0)
+        qflx_snow2topsoi = torch.where(gsl, zwliq / dtime, qflx_snow2topsoi)
+        mflx_snowlyr_col = mflx_snowlyr_col + torch.where(gsl,
                                                           zwliq / dtime, 0.0)
 
     none_left = h2osno_n <= 0.0
@@ -668,8 +683,8 @@ def snow_aging_pinned(snl, h2osno, snw_rds):
     SNW_RDS_MIN from both sides): active layers -> SNW_RDS_MIN, inactive
     layers of layered columns -> 0, layerless columns pass through, a thin
     layerless pack gets the fresh-snow radius in the bottom slot.  The JAX
-    package's ``snow_aging_pinned``; its full Flanner-Zender
-    ``snow_aging`` (the ``elm_correct_snow_aging`` option) is not ported.
+    package's ``snow_aging_pinned``: :func:`snow_aging` gives the same
+    result under that clamp, through work whose result it discards.
     """
     top = _NSNO - snl
     lev = levels(_NSNO, snl)[None, :]
@@ -677,6 +692,105 @@ def snow_aging_pinned(snl, h2osno, snw_rds):
     active = (lev >= top[:, None]) & layered
     out = torch.where(active, c.SNW_RDS_MIN,
                       torch.where(layered, 0.0, snw_rds))
+    thin = (snl == 0) & (h2osno > 0.0)
+    return torch.where(thin[:, None] & (lev == _NSNO - 1), c.SNW_RDS_MIN,
+                       out)
+
+
+def _table_index(x, hi: int):
+    """``rint(x)`` as an index clamped to [0, hi] (the JAX package's
+    ``clip(rint(x).astype(int32), 0, hi)``); a NaN gives 0, so that no
+    index can leave the table."""
+    return torch.clamp(torch.nan_to_num(torch.round(x), nan=0.0), 0.0,
+                       float(hi)).long()
+
+
+def snow_aging(do_capsnow, snl, frac_sno, dtime, qflx_snwcp_ice,
+               qflx_snow_grnd, h2osno, dz, h2osoi_liq, h2osoi_ice, t_soisno,
+               qflx_snofrz_lyr, snowage_tau, snowage_kappa, snowage_drdt0,
+               snw_rds, elm_correct_clamp: bool = False):
+    """Snow effective-radius evolution: the Flanner & Zender (2006) dry
+    aging from the [11, 31, 8] ``snicar_drdt`` tables over (T, dT/dz, rho),
+    Brun (1989) wet growth, and the refreeze and new-snow mixing
+    (``snow_hydrology_impl.hh:80-225``).  The reference clamps the aged
+    radius to SNW_RDS_MIN from both sides (``impl:217-223``), so the
+    radius never grows; ``elm_correct_clamp=True`` clamps it to
+    [SNW_RDS_MIN, SNW_RDS_MAX] as ELM's SnowSnicarMod does, and grains
+    age.  The JAX package gathers whole table rows and sums a one-hot
+    over the rho bins; here the tables are indexed directly, which gives
+    the same value (a sum of one entry and zeros is exact)."""
+    top = _NSNO - snl
+    lev = levels(_NSNO, snl)[None, :]
+    layered = (snl > 0)[:, None]
+    active = (lev >= top[:, None]) & layered
+    at_top = lev == top[:, None]
+
+    liq5, ice5 = h2osoi_liq[:, :_NSNO], h2osoi_ice[:, :_NSNO]
+    t5 = t_soisno[:, :_NSNO]
+    dz5 = dz[:, :_NSNO]
+    fs = frac_sno[:, None]
+
+    h2osno_lyr = liq5 + ice5
+    h2osno_lyr_safe = torch.where(h2osno_lyr != 0.0, h2osno_lyr, 1.0)
+
+    # temperatures at the layer's top and bottom interfaces (impl:100-107)
+    t_m1 = torch.cat([t5[:, :1], t5[:, :-1]], dim=1)
+    dz_m1 = torch.cat([dz5[:, :1], dz5[:, :-1]], dim=1)
+    t_p1 = torch.cat([t5[:, 1:], t_soisno[:, _NSNO:_NSNO + 1]], dim=1)
+    dz_p1 = torch.cat([dz5[:, 1:], dz[:, _NSNO:_NSNO + 1]], dim=1)
+    den_b = torch.where(dz5 + dz_p1 != 0.0, dz5 + dz_p1, 1.0)
+    den_t = torch.where(dz5 + dz_m1 != 0.0, dz5 + dz_m1, 1.0)
+    t_top_itf = torch.where(
+        at_top, take_layer(t_soisno, torch.clamp(top, 0, _NSNO - 1))[:, None],
+        (t_m1 * dz5 + t5 * dz_m1) / den_t)
+    t_btm_itf = (t_p1 * dz5 + t5 * dz_p1) / den_b
+
+    cdz = fs * dz5
+    cdz_safe = torch.where(cdz != 0.0, cdz, 1.0)
+    dTdz = torch.abs((t_top_itf - t_btm_itf) / cdz_safe)
+    rhos = torch.clamp(h2osno_lyr / cdz_safe, min=50.0)
+
+    n_t, n_tgrd, n_rhos = snowage_tau.shape
+    t_idx = _table_index((t5 - 223.0) / 5.0, n_t - 1)
+    tgrd_idx = _table_index(dTdz / 10.0, n_tgrd - 1)
+    rhos_idx = _table_index((rhos - 50.0) / 50.0, n_rhos - 1)
+    bst_tau = snowage_tau[t_idx, tgrd_idx, rhos_idx]
+    bst_kappa = snowage_kappa[t_idx, tgrd_idx, rhos_idx]
+    bst_drdt0 = snowage_drdt0[t_idx, tgrd_idx, rhos_idx]
+
+    dr_fresh = snw_rds - c.SNW_RDS_MIN
+    dr_fresh = torch.where(torch.abs(dr_fresh) < 1.0e-8, 0.0, dr_fresh)
+    kappa_safe = torch.where(bst_kappa != 0.0, bst_kappa, 1.0)
+    dr = (bst_drdt0 * (bst_tau / (dr_fresh + bst_tau))
+          ** rdiv(1.0, kappa_safe)) * (dtime / 3600.0)
+
+    frc_liq = torch.clamp(liq5 / h2osno_lyr_safe, max=0.1)
+    rds_safe = torch.where(snw_rds != 0.0, snw_rds, 1.0)
+    dr_wet = 1.0e18 * (dtime * (4.22e-13 * frc_liq ** 3.0)
+                       / (4.0 * c.ELM_PI * rds_safe ** 2.0))
+    dr = dr + dr_wet
+
+    newsnow = torch.clamp(torch.where(do_capsnow != 0, qflx_snwcp_ice,
+                                      qflx_snow_grnd) * dtime, min=0.0)
+    refrzsnow = torch.clamp(qflx_snofrz_lyr * dtime, min=0.0)
+    frc_refrz = refrzsnow / h2osno_lyr_safe
+    frc_newsnow = torch.where(at_top, newsnow[:, None] / h2osno_lyr_safe,
+                              0.0)
+    both = frc_refrz + frc_newsnow
+    over = both > 1.0
+    tot = torch.where(both != 0.0, both, 1.0)
+    frc_refrz = torch.where(over, frc_refrz / tot, frc_refrz)
+    frc_newsnow = torch.where(over, 1.0 - frc_refrz, frc_newsnow)
+    frc_oldsnow = torch.where(over, 0.0, 1.0 - frc_refrz - frc_newsnow)
+
+    rds_new = ((snw_rds + dr) * frc_oldsnow + c.SNW_RDS_MIN * frc_newsnow
+               + 1000.0 * frc_refrz)
+    hi = c.SNW_RDS_MAX if elm_correct_clamp else c.SNW_RDS_MIN
+    rds_new = torch.where(rds_new < c.SNW_RDS_MIN, c.SNW_RDS_MIN, rds_new)
+    rds_new = torch.where(rds_new > hi, hi, rds_new)
+
+    out = torch.where(active, rds_new, torch.where(layered, 0.0, snw_rds))
+    # thin snow without layers: fresh-snow radius in the bottom slot
     thin = (snl == 0) & (h2osno > 0.0)
     return torch.where(thin[:, None] & (lev == _NSNO - 1), c.SNW_RDS_MIN,
                        out)

@@ -453,12 +453,15 @@ def phase_change_soisno(land: c.LandType, snl, dtime, dhsdT, frac_h2osfc,
     imelt = melt.long()
 
     # supercooled water content for soil layers (Zhao 1997, Koren 1999)
-    if c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    scmask = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    if scmask is not False:
         t_soil = t_soisno[:, nsno:]
         smp = (c.HFUS * (c.TFRZ - t_soil) / (c.GRAV * t_soil) * 1000.0)
         sc = (watsat * torch.clamp(smp / sucsat, min=1e-300)
               ** (-1.0 / bsw) * dz[:, nsno:] * 1000.0)
         supercool = torch.where(t_soil < c.TFRZ, sc, 0.0)
+        if scmask is not True:
+            supercool = c.lsel(scmask, supercool, torch.zeros_like(watsat))
     else:
         supercool = torch.zeros_like(watsat)
     supercool_full = torch.cat(

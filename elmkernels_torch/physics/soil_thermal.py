@@ -34,11 +34,13 @@ def calc_soil_tk(land: c.LandType, h2osoi_liq, h2osoi_ice, t_soisno, dz,
     liq, ice = h2osoi_liq[:, i0:], h2osoi_ice[:, i0:]
     t, dzs = t_soisno[:, i0:], dz[:, i0:]
 
-    if c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC):
+    icem = c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC)
+    wetm = c.ltype_mask(land, c.ISTWET)
+    if icem is True:
         return _ice_or_water(t)
 
     bedrock = levels(c.NLEVGRND, t)[None, :] >= c.NLEVBED
-    if c.ltype_mask(land, c.ISTWET):
+    if wetm is True:
         return torch.where(bedrock, TKBDRK, _ice_or_water(t))
 
     satw = torch.clamp(
@@ -53,7 +55,12 @@ def calc_soil_tk(land: c.LandType, h2osoi_liq, h2osoi_ice, t_soisno, dz,
     dksat = (tkmg * TKWAT ** (fl * watsat)
              * TKICE ** ((1.0 - fl) * watsat))
     thk = torch.where(wet, dke * dksat + (1.0 - dke) * tkdry, tkdry)
-    return torch.where(bedrock, TKBDRK, thk)
+    thk = torch.where(bedrock, TKBDRK, thk)
+    if icem is False and wetm is False:
+        return thk
+    icewat = _ice_or_water(t)
+    return c.lsel(icem, icewat,
+                  c.lsel(wetm, torch.where(bedrock, TKBDRK, icewat), thk))
 
 
 def _snow_active(snl, like):
@@ -101,13 +108,21 @@ def calc_soil_heat_capacity(land: c.LandType, snl, h2osno, watsat,
     i0 = c.NLEVSNO
     ice, liq, dzs = h2osoi_ice[:, i0:], h2osoi_liq[:, i0:], dz[:, i0:]
     lev = levels(c.NLEVGRND, dz)
-    if c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC):
+    icem = c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC)
+    wetm = c.ltype_mask(land, c.ISTWET)
+    if icem is True:
         cv = ice * c.CPICE + liq * c.CPWAT
-    elif c.ltype_mask(land, c.ISTWET):
+    elif wetm is True:
         cv = ice * c.CPICE + liq * c.CPWAT
         cv = torch.where(lev[None, :] >= c.NLEVBED, csol * dzs, cv)
-    else:
+    elif isinstance(icem, bool) and isinstance(wetm, bool):
         cv = (csol * (1.0 - watsat) * dzs + ice * c.CPICE + liq * c.CPWAT)
+    else:
+        cv_ice = ice * c.CPICE + liq * c.CPWAT
+        cv_wet = torch.where(lev[None, :] >= c.NLEVBED, csol * dzs, cv_ice)
+        cv_soil = (csol * (1.0 - watsat) * dzs + ice * c.CPICE
+                   + liq * c.CPWAT)
+        cv = c.lsel(icem, cv_ice, c.lsel(wetm, cv_wet, cv_soil))
     # thin snow on bare ground adds its heat capacity to the top soil layer
     add = ((snl == 0) & (h2osno > 0.0))[:, None] & (lev[None, :] == 0)
     return cv + torch.where(add, c.CPICE * h2osno[:, None], 0.0)

@@ -78,14 +78,15 @@ def soil_albedo(land: c.LandType, snl, t_grnd, coszen, h2osoi_vol, albsat,
     calb = 95.6
 
     lit = (coszen > 0.0)[:, None]
-    if c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    icem = c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC)
+    lakem = c.ltype_mask(land, c.ISTDLAK)
+
+    def soil():
         inc = torch.clamp(0.11 - 0.40 * h2osoi_vol[:, 0], min=0.0)
-        albsod = torch.minimum(albsat + inc[:, None], albdry)
-        albsoi = albsod
-    elif c.ltype_mask(land, c.ISTICE, c.ISTICE_MEC):
-        albsod = albice
-        albsoi = albsod
-    elif c.ltype_mask(land, c.ISTDLAK):
+        return torch.minimum(albsat + inc[:, None], albdry)
+
+    def lake():
         sicefr = 1.0 - torch.exp(-calb * (c.TFRZ - t_grnd) / c.TFRZ)
         sod = (sicefr[:, None] * alblak
                + (1.0 - sicefr)[:, None]
@@ -96,10 +97,26 @@ def soil_albedo(land: c.LandType, snl, t_grnd, coszen, h2osoi_vol, albsat,
                + (1.0 - sicefr)[:, None] * torch.clamp(alblakwi, min=0.10))
         frozen = (snl == 0)[:, None]
         albsod = torch.where(frozen, sod, alblak)
-        albsoi = torch.where(frozen, soi, albsod)
-    else:  # wetland
+        return albsod, torch.where(frozen, soi, albsod)
+
+    if sc is True:
+        albsod = soil()
+        albsoi = albsod
+    elif icem is True:
+        albsod = albice
+        albsoi = albsod
+    elif lakem is True:
+        albsod, albsoi = lake()
+    elif sc is False and icem is False and lakem is False:  # wetland
         albsod = alblak
         albsoi = albsod
+    else:  # per-column ltype: select among the four surfaces
+        sod_sc = soil()
+        sod_lake, soi_lake = lake()
+        albsod = c.lsel(sc, sod_sc,
+                        c.lsel(icem, albice, c.lsel(lakem, sod_lake, alblak)))
+        albsoi = c.lsel(sc, sod_sc,
+                        c.lsel(icem, albice, c.lsel(lakem, soi_lake, alblak)))
     return SoilAlbedoOut(torch.where(lit, albsod, 0.0),
                          torch.where(lit, albsoi, 0.0))
 
@@ -134,21 +151,24 @@ def flux_absorption_factor(land: c.LandType, coszen, frac_sno, albsod,
     (``surface_albedo_impl.hh:169-211``); flx_abs[di]_snw are
     [ncol, NLEVSNO+1, numrad]."""
     lit = (coszen > 0.0)[:, None]
-    if c.SUBGRIDFLAG == 0 or c.ltype_mask(land, c.ISTDLAK):
+    lakem = True if c.SUBGRIDFLAG == 0 else c.ltype_mask(land, c.ISTDLAK)
+    if lakem is not False:
         fs = frac_sno[:, None]
 
         def wgt(flx, albsfc, albsnow):
             return (flx * fs + (1.0 - fs) * (1.0 - albsfc)
                     * safe_div(flx, 1.0 - albsnow, albsnow != 1.0))
-        dv = wgt(flx_absd_snw[:, :, 0], albsod[:, 0:1], albsnd[:, 0:1])
-        dn = wgt(flx_absd_snw[:, :, 1], albsod[:, 1:2], albsnd[:, 1:2])
-        iv = wgt(flx_absi_snw[:, :, 0], albsoi[:, 0:1], albsni[:, 0:1])
-        inn = wgt(flx_absi_snw[:, :, 1], albsoi[:, 1:2], albsni[:, 1:2])
-    else:
-        dv = flx_absd_snw[:, :, 0] * (1.0 - albsnd[:, 0:1])
-        dn = flx_absd_snw[:, :, 1] * (1.0 - albsnd[:, 1:2])
-        iv = flx_absi_snw[:, :, 0] * (1.0 - albsni[:, 0:1])
-        inn = flx_absi_snw[:, :, 1] * (1.0 - albsni[:, 1:2])
+        lake = (wgt(flx_absd_snw[:, :, 0], albsod[:, 0:1], albsnd[:, 0:1]),
+                wgt(flx_absd_snw[:, :, 1], albsod[:, 1:2], albsnd[:, 1:2]),
+                wgt(flx_absi_snw[:, :, 0], albsoi[:, 0:1], albsni[:, 0:1]),
+                wgt(flx_absi_snw[:, :, 1], albsoi[:, 1:2], albsni[:, 1:2]))
+    if lakem is not True:
+        other = (flx_absd_snw[:, :, 0] * (1.0 - albsnd[:, 0:1]),
+                 flx_absd_snw[:, :, 1] * (1.0 - albsnd[:, 1:2]),
+                 flx_absi_snw[:, :, 0] * (1.0 - albsni[:, 0:1]),
+                 flx_absi_snw[:, :, 1] * (1.0 - albsni[:, 1:2]))
+    dv, dn, iv, inn = (lake if lakem is True else other if lakem is False
+                       else c.lsel(lakem, lake, other))
     return FluxAbsorptionOut(torch.where(lit, dv, 0.0),
                              torch.where(lit, dn, 0.0),
                              torch.where(lit, iv, 0.0),
@@ -210,10 +230,13 @@ def two_stream_solver(land: c.LandType, nrad, coszen, t_veg, fwet, elai,
     betads = 0.5
     betais = 0.5
 
-    if land.urbpoi or not c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    if land.urbpoi or sc is False:
         veg = torch.zeros_like(coszen, dtype=torch.bool)
-    else:
+    elif sc is True:
         veg = (coszen > 0.0) & ((elai + esai) > 0.0)
+    else:
+        veg = sc & (coszen > 0.0) & ((elai + esai) > 0.0)
     noveg = (coszen > 0.0) & ~veg
 
     wl = elai / torch.clamp(elai + esai, min=_MPE)

@@ -19,9 +19,11 @@ def calc_soilevap_stress(land: c.LandType, frac_sno, frac_h2osfc, watsat,
     ``watsat``/``watfc`` are soil-only arrays (layer 0 = top soil layer);
     liq/ice/dz are combined snow+soil arrays.
     """
-    if c.ltype_mask(land, c.ISTWET, c.ISTICE, c.ISTICE_MEC):
+    wet_ice = c.ltype_mask(land, c.ISTWET, c.ISTICE, c.ISTICE_MEC)
+    sc = c.ltype_mask(land, c.ISTSOIL, c.ISTCROP)
+    if wet_ice is True:
         return torch.ones_like(frac_sno)
-    if not c.ltype_mask(land, c.ISTSOIL, c.ISTCROP):
+    if wet_ice is False and sc is False:
         return torch.zeros_like(frac_sno)
 
     i0 = c.NLEVSNO
@@ -32,7 +34,12 @@ def calc_soilevap_stress(land: c.LandType, frac_sno, frac_h2osfc, watsat,
     beta_dry = ((1.0 - frac_sno - frac_h2osfc) * 0.25
                 * (1.0 - torch.cos(c.ELM_PI * fac_fc)) ** 2.0
                 + frac_sno + frac_h2osfc)
-    return torch.where(dry, beta_dry, 1.0)
+    beta = torch.where(dry, beta_dry, 1.0)
+    if sc is True:
+        return beta
+    # per column: soil/crop -> beta, wetland/ice -> 1, others -> 0
+    return c.lsel(wet_ice, torch.ones_like(frac_sno),
+                  c.lsel(sc, beta, torch.zeros_like(frac_sno)))
 
 
 def getlblcef(rho, temp):

@@ -1,14 +1,17 @@
 """Where the time of one step of the port goes on the card.
 
     python -m elmkernels_torch.tools.profile_step [--ncol 262144] [--steps 4]
-        [--loop {run,series,windows}] [--window 4] [--grid {uniform,global}]
-        [--out profile.json]
+        [--loop {run,series,windows}] [--window 4]
+        [--grid {uniform,global,landunits}] [--out profile.json]
 
 Builds a model with the production flags from synthetic input files
 (written under ``build/``): ``--grid uniform`` is ``Model(ncol)``, one PFT
 at one site; ``--grid global`` is ``Model.from_surfdata`` on the
 ncol-cell global grid (per-column PFTs, phenology and aerosol-deposition
-files, synthetic forcing).  It runs two warm-up summer steps, then
+files, synthetic forcing); ``--grid landunits`` is that grid with
+per-column landunit types (``synthetic.landunit_map``, seed 0: soil, crop,
+wetland and ice sheet; ice and wetland unvegetated) and live snow aging
+on synthetic ``snicar_drdt`` tables.  It runs two warm-up summer steps, then
 ``--steps`` steps from noon of July 1 under ``torch.profiler`` (CPU and
 CUDA activities): ``--loop run`` through ``Model.advance`` (each step's
 inputs built on the host and copied), ``--loop series`` through
@@ -114,7 +117,7 @@ def main(argv=None) -> int:
     ap.add_argument("--loop", choices=("run", "series", "windows"),
                     default="run")
     ap.add_argument("--window", type=int, default=4)
-    ap.add_argument("--grid", choices=("uniform", "global"),
+    ap.add_argument("--grid", choices=("uniform", "global", "landunits"),
                     default="uniform")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
@@ -150,11 +153,20 @@ def main(argv=None) -> int:
         capture_output=True, text=True, check=True, timeout=60
     ).stdout.strip().splitlines()[0]
 
-    if args.grid == "global":
+    if args.grid in ("global", "landunits"):
         inputs = synthetic.write_global_inputs(repo / "build" / "global",
                                                args.ncol)
-        model = Model.from_surfdata(inputs.pop("surfdata"), args.ncol,
-                                    pft_path=str(pft),
+        surfdata = inputs.pop("surfdata")
+        if args.grid == "landunits":
+            from elmkernels_torch.data.surfdata import read_surfdata
+            sd = read_surfdata(surfdata, args.ncol)
+            ltype = synthetic.landunit_map(sd.lat_deg, seed=0)
+            aging = files / "snicar_drdt.nc"
+            synthetic.write_snow_aging_tables(aging)
+            inputs.update(ltype=ltype, vtype=synthetic.landunit_vtypes(
+                sd.vtype, ltype).tolist(), elm_correct_snow_aging=True,
+                snow_aging_path=str(aging))
+        model = Model.from_surfdata(surfdata, args.ncol, pft_path=str(pft),
                                     snicar_path=str(snicar), **inputs)
     else:
         model = Model(ncol=args.ncol, pft_path=str(pft),

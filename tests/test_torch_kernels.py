@@ -62,3 +62,35 @@ def test_pdma_kernel_matches_plain(card, ncol, offset):
     torch.testing.assert_close(pdma_solve(lhs, rhs),
                                tst.pdma_solve_plain(lhs, rhs), rtol=0,
                                atol=0)
+
+
+@pytest.mark.cuda
+def test_pdma_kernel_matches_plain_on_ice_sheet_systems(card, tmp_path,
+                                                       monkeypatch):
+    """Bit for bit on the systems soil_temperature assembles for ice-sheet
+    and wetland columns (ice- or water-filled heat capacity and
+    conductivity, no supercooled water), captured from one January step
+    of a mixed CPU batch."""
+    from elmkernels_torch import constants as tc
+    from elmkernels_torch.data import synthetic
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.ops.pdma import pdma_solve
+    from elmkernels_torch.utils.dates import Date
+    synthetic.write_clm_params(tmp_path / "p.nc")
+    synthetic.write_snicar_optics(tmp_path / "s.nc")
+    seen = []
+
+    def capture(lhs, rhs):
+        seen.append((lhs.clone(), rhs.clone()))
+        return tst.pdma_solve_plain(lhs, rhs)
+    monkeypatch.setattr(tst, "pdma_solve", capture)
+    ltype = [tc.ISTICE, tc.ISTICE_MEC, tc.ISTWET, tc.ISTSOIL] * 16
+    vtype = [0, 0, 0, 12] * 16
+    m = Model(ncol=len(ltype), ltype=ltype, vtype=vtype,
+              pft_path=str(tmp_path / "p.nc"),
+              snicar_path=str(tmp_path / "s.nc"), device="cpu")
+    m.advance(Date.from_ymd(1985, 1, 1))
+    lhs, rhs = (t.to(card) for t in seen[0])
+    torch.testing.assert_close(pdma_solve(lhs, rhs),
+                               tst.pdma_solve_plain(lhs, rhs), rtol=0,
+                               atol=0)

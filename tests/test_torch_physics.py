@@ -253,9 +253,8 @@ _DTYPES = {np.dtype(np.float64): torch.float64,
 
 def _off(value) -> bool:
     """An input the port has not taken over yet, left off in the recorded
-    runs: an option at None or False (monthly aerosol forcing, snow-aging
-    tables, the corrected snow aging, per-column land type), or a forcing
-    the step reads only for its monthly aerosol rates, which are None."""
+    runs: an option at None or False (``organic_max``), or a forcing the
+    step reads only for its monthly aerosol rates, which are None."""
     return value is None or value is False or (
         type(value).__name__ == "StepForcing" and value.aero is None)
 
@@ -291,7 +290,11 @@ def _port_value(x, floats_as_tensors, keep_dtypes=False):
         if isinstance(v, float) and floats_as_tensors:
             return torch.tensor(v, dtype=torch.float64)
         if dataclasses.is_dataclass(v) and type(v).__name__ == "LandType":
-            return tc.LandType(**dataclasses.asdict(v))
+            land = {f.name: getattr(v, f.name)
+                    for f in dataclasses.fields(v)}
+            if not isinstance(land["ltype"], int):  # per-column [ncol]
+                land["ltype"] = tp.to_torch(land["ltype"])
+            return tc.LandType(**land)
         if isinstance(v, tuple) and hasattr(v, "_fields"):
             name = type(v).__name__
             if name in _CONVERTERS:
