@@ -30,8 +30,8 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 7. loops, bit for bit: the heterogeneous global grid at 8,192 columns
    (``Model.from_surfdata`` with month-per-file NetCDF forcing, phenology
    and aerosol deposition, all written by ``elmkernels_torch.data.
-   synthetic``), 48 steps from one cold start by ``run``, ``run_scan``,
-   ``run_scan_series`` and ``run_windows(series=True, window=24)``: every
+   synthetic``), 24 steps from one cold start by ``run``, ``run_scan``,
+   ``run_scan_series`` and ``run_windows(series=True, window=12)``: every
    state field equal at atol 0, each loop's per-step diagnostics equal to
    the reductions of ``run``'s, and the ci solve run only in "mixed" mode;
 8. the production loop at full width: ``Model.from_surfdata`` on the
@@ -53,11 +53,30 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    columns and mean ``t_grnd`` per class, snow layers and aged radii,
    launches), then one timed 12-step window whose kept K1 and K4 calls
    are held against their plain versions;
-10. prints the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
+10. operations, on the production loop's grid: a ``RunConfig`` builds
+   the model, ``run_windows(series=True, window=48)`` runs 96 steps with a
+   ``StepGuard`` checking each window, ``MetricsLogger`` lines and a
+   ``HistoryWriter``; a checkpoint written after window 1 restores into a
+   fresh model that runs window 2 to the same state bit for bit; a strict
+   guard (``errh2o_led_max=0``) trips and rolls back to window 1 bit for
+   bit; ``MinimalInterface`` runs 8 host-forced steps at 262,144 columns
+   against a twin on its own providers (rtol 1e-9, atol 1e-12), then the
+   NaN-forcing recovery round trip, equal to a twin bit for bit; and
+   ``python -m elmkernels_torch.run_model`` runs a small JSON config;
+11. sensitivity: the global grid under the exact flags, ``run_jvp`` for 2
+   steps from 1985-07-01 06:00 seeded by ``tbot`` (untimed: its ms/step
+   against the primal's, the launches of K1, K1-T and K4) and by
+   ``watsat`` (under the timers); tangents finite; the primal unchanged by
+   seeding; the ``tbot`` tangents of four fluxes against central
+   differences (h = 1e-3 K, rtol 2e-3, atol 1e-4) on the columns where
+   the perturbed runs take the same solver iterations and are smooth; the
+   first kept K1-T and K4 tangent calls against their plain versions;
+12. prints the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
    per launch on the main path, ``prod_*`` the same on the production
-   loop, ``land_*`` on the landunits phase, ``test_ms`` and ``plain_ms``
-   on the test problems of 3 and 4), the card line, and
-   ``{"ok": true, ...}`` last.
+   loop, ``land_*`` on the landunits phase, ``sens_*`` on the sensitivity
+   path, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4;
+   K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path), the
+   card line, and ``{"ok": true, ...}`` last.
 
 Any failed check raises and the script exits non-zero.  Synthetic
 input files and the kernel builds go under ``build/`` in the checkout.
@@ -392,6 +411,34 @@ def check_pdma(ncol: int):
     return res
 
 
+def entry_overhead(reps: int = 200) -> dict:
+    """Host microseconds a call of each kernel's entry point through its
+    autograd Function (what the step calls) against its wrapper alone, on
+    small inputs where the launch itself is short."""
+    import torch
+    from elmkernels_torch.ops import ci_solver, pdma, testing
+    x0, env, en = testing.ci_problem_tensors(1024, 3, "c3", torch.float32,
+                                             "cuda")
+    lhs, rhs = (torch.tensor(a, device="cuda")
+                for a in testing.pdma_problem(1024, 3))
+    calls = {"ci_hybrid_solve": lambda: ci_solver.ci_hybrid_solve(
+                 x0, env, "c3", en),
+             "CiSolve": lambda: ci_solver.solve(x0, env, "c3", en),
+             "pdma_solve": lambda: pdma.pdma_solve(lhs, rhs),
+             "PdmaSolve": lambda: pdma.solve(lhs, rhs)}
+    res = {}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        res[name] = (time.perf_counter() - t0) / reps * 1e6
+    phase("entry points, host us a call: " + json.dumps(res))
+    return res
+
+
 class ModeSpy:
     """Counts the photosynthesis modes ``ci_hybrid_solve`` is called with
     while installed in its module's place (``with``); ``launches`` passes
@@ -548,7 +595,8 @@ def timers(keep: int = 0, keep_pdma: int = 0):
 
 LOOPS_NCOL = 8192
 LOOPS_GRID = (64, 128)       # the NetCDF forcing's (lat, lon) grid
-LOOPS_STEPS, LOOPS_WINDOW = 48, 24
+# 24 steps (cut from 48 to keep the script near 600 s)
+LOOPS_STEPS, LOOPS_WINDOW = 24, 12
 # the closed water ledger on the global grid: f64 rounding of the rain
 # terms reaches ~8e-9 mm on rainy columns, in the JAX package's step as
 # in the port's (tests/test_torch_scan.py::test_water_ledger_residual_is_
@@ -569,6 +617,25 @@ WINTER_STEPS, WINTER_MORE = 700, 48
 # steps and window from 1985-01-01
 LAND_SEED = 0
 LAND_STEPS, LAND_WINDOW = 96, 48
+# the operations phase: the interface's steps against its twin (the JAX
+# package's tests/test_interface.py), and run_model's small JSON config
+IFACE_STEPS = 8
+RUN_MODEL_CONFIG = dict(ncol=4096, nsteps=4, start_doy=181, start_sec=43200)
+# the sensitivity phase: steps, start (1985-07-01 06:00, the JAX package's
+# tests/test_sensitivity.py), the finite-difference step in K and the
+# tolerances of that test; K1-T and K4 calls held against their plain
+# versions; at most this share of columns may be left out of the
+# finite-difference check (iteration counts or one-sided slopes that
+# differ between the perturbed runs)
+SENS_STEPS, SENS_START_S = 2, 6 * 3600
+SENS_H, SENS_RTOL, SENS_ATOL = 1e-3, 2e-3, 1e-4
+SENS_FIELDS = ("eflx_sh_tot", "eflx_lh_tot", "t_ref2m", "eflx_lwrad_out")
+SENS_CI_KEPT, SENS_PDMA_KEPT = 4, 2
+SENS_MAX_LEFT_OUT = 0.01
+# flops of one ci residual evaluation on (value, tangent) pairs: the 70 of
+# the value, and for the tangent 3 more per multiply or divide (~30), 1 per
+# add or subtract (~30), 2 per square root (3) and 3 per max/min (~6)
+CI_FUNC_JVP_FLOPS = 214
 
 
 def check_loops(files, kernels: dict) -> dict:
@@ -929,6 +996,453 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     return res, launches, on_land
 
 
+def _host_inputs(iface, date):
+    """The interface model's own providers interpolated on the host: what
+    an ATS host model would hand in."""
+    import numpy as np
+    from elmkernels_torch.driver.interface import HostForcing, HostPhenology
+    m = iface.model
+    w = m.forcing.window(date, m.dtime)
+    p = m.phenology.window(date)
+
+    def mix(pair, wt1, wt2):
+        return wt1 * np.asarray(pair[0]) + wt2 * np.asarray(pair[1])
+    return (HostForcing(atm_tbot=mix(w.tbot, w.wt1, w.wt2),
+                        atm_pbot=mix(w.pbot, w.wt1, w.wt2),
+                        atm_qbot=mix(w.qbot, w.wt1, w.wt2),
+                        atm_flds=mix(w.flds, w.wt1, w.wt2),
+                        atm_fsds=w.fsds, atm_prec=w.prec,
+                        atm_wind=mix(w.wind, w.wt1, w.wt2)),
+            HostPhenology(lai=mix(p.mlai, p.wt1, p.wt2),
+                          sai=mix(p.msai, p.wt1, p.wt2),
+                          htop=mix(p.mhtop, p.wt1, p.wt2),
+                          hbot=mix(p.mhbot, p.wt1, p.wt2)))
+
+
+def max_rel(a, b) -> float:
+    """Largest |a - b| / |b| over the finite entries of b (0 if none)."""
+    import torch
+    fin = torch.isfinite(b)
+    d = (a - b).abs()[fin]
+    return (d / b.abs()[fin].clamp_min(1e-300)).max().item() if d.numel() \
+        else 0.0
+
+
+def state_diff(a, b) -> list:
+    """The fields in which two ModelStates differ at all."""
+    import torch
+    return [k for k in a._fields if not torch.equal(getattr(a, k),
+                                                    getattr(b, k))]
+
+
+def operations(files, inputs: dict, kernels: dict) -> dict:
+    """Phase 10: the operations layer at full width.  A RunConfig builds the
+    production loop's global-grid model; run_windows runs 96 steps with a
+    StepGuard checking each window, MetricsLogger lines and a
+    HistoryWriter; a checkpoint after window 1 restores into a fresh model
+    that runs window 2 to the same state bit for bit; a strict guard trips
+    and rolls back to window 1; MinimalInterface runs host-forced steps
+    against a twin, then the NaN recovery round trip; and
+    ``python -m elmkernels_torch.run_model`` runs a small JSON config."""
+    import os
+    import shutil
+    import types
+    import numpy as np
+    import torch
+    from elmkernels_torch.config import RunConfig
+    from elmkernels_torch.driver.interface import MinimalInterface
+    from elmkernels_torch.utils import checkpoint as ckpt
+    from elmkernels_torch.utils.dates import Date
+    from elmkernels_torch.utils.guard import StepGuard, errsol_bound
+    from elmkernels_torch.utils.history import HistoryWriter
+    from elmkernels_torch.utils.metrics import MetricsLogger
+    out_dir = REPO / "build" / "operations"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    # the config has the JAX package's fields: no aerosol file, so the
+    # static deposition rates (the production loop reads the file)
+    cfg = RunConfig(ncol=PROD_NCOL, surfdata_path=inputs["surfdata"],
+                    phenology_path=inputs["phenology_path"],
+                    pft_path=str(files[0]), snicar_path=str(files[1]),
+                    start_doy=181, start_sec=0)
+    t0 = time.perf_counter()
+    m = cfg.make_model()
+    build_s = time.perf_counter() - t0
+    # the guard of the JAX package's long run (tools/long_run.py): the
+    # closed ledger, the steady snow balance and the horizon-scaled
+    # shortwave bound; the reference's unclosed water and snow views are
+    # not invariants (errh2o reads 0.12 mm in the first window here)
+    checks = dict(ncol=PROD_NCOL, errh2o_max=None, errh2osno_max=None,
+                  errh2osno_steady_max=1e-7,
+                  errsol_max=errsol_bound(PROD_NCOL, PROD_STEPS))
+    guard = StepGuard(errh2o_led_max=GLOBAL_LEDGER_BOUND, **checks)
+    strict = StepGuard(errh2o_led_max=0.0, **checks)
+    guard.snapshot(m.state)
+    metrics = MetricsLogger(out_dir / "metrics.jsonl")
+    history = HistoryWriter(str(out_dir / "history.nc"), ("t_grnd", "h2osno"),
+                            every=PROD_STEPS // PROD_WINDOW)
+    ck_path = out_dir / "window1.pt"
+    reports, records, windows, io = [], [], [], {}
+
+    def window_done(date, state, d):
+        reports.append(guard.check(state, d))
+        records.append(metrics.log_window(date, state, d))
+        history.record(date, state, d)
+        windows.append(d)
+        if len(windows) == 1:
+            strict.snapshot(state)      # validated by `guard` just above
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(ck_path, state)
+            io["save_s"] = time.perf_counter() - t0
+
+    start = cfg.start_date()
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.run_windows(start, PROD_STEPS, window=PROD_WINDOW, series=True,
+                  callback=window_done)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels, "operations, run_windows")
+    metrics.close()
+    history.close()
+    lines = (out_dir / "metrics.jsonl").read_text().splitlines()
+
+    # resume: a fresh model restored from the window-1 checkpoint runs
+    # window 2 to the same state
+    m2 = cfg.make_model()
+    t0 = time.perf_counter()
+    m2.state = ckpt.restore(ck_path, like=m2.state)
+    torch.cuda.synchronize()
+    io["restore_s"] = time.perf_counter() - t0
+    later = start.copy()
+    later.increment_seconds(PROD_WINDOW * int(m.dtime))
+    m2.run_windows(later, PROD_WINDOW, window=PROD_WINDOW, series=True)
+    resume_diff = state_diff(m.state, m2.state)
+    window1 = ckpt.restore(ck_path, like=m2.state)
+    del m2
+
+    # a strict guard trips on window 2 and rolls back to window 1
+    rep = strict.check(m.state, windows[1])
+    back = strict.restore_into(m.state)
+    rollback_diff = [k for k in ckpt.PRIMARY_VARS if not torch.equal(
+        getattr(back, k), getattr(window1, k))]
+    res = dict(label="operations", ncol=PROD_NCOL, steps=PROD_STEPS,
+               window=PROD_WINDOW, model_build_s=build_s, wall_s=wall,
+               ms_per_step=wall / PROD_STEPS * 1e3, launches=launches,
+               guard_reports=[(r.ok, r.reasons) for r in reports],
+               metrics_lines=len(lines), metrics_last=records[-1],
+               history_files=[pathlib.Path(p).name for p in history.written],
+               checkpoint_bytes=os.path.getsize(ck_path),
+               checkpoint_save_s=io["save_s"],
+               checkpoint_restore_s=io["restore_s"],
+               resume_fields_differing=resume_diff,
+               strict_guard=dict(ok=rep.ok, reasons=rep.reasons,
+                                 can_roll_back=rep.can_roll_back),
+               rollback_fields_differing=rollback_diff,
+               finite=finite(m.state), errsol_bound=guard.errsol_max)
+    del m, back, window1
+    phase("operations, run_windows with guard, metrics, history, "
+          "checkpoint: " + json.dumps(res))
+    if not (all(r.ok for r in reports) and len(lines) == 2
+            and len(history.written) == 1 and res["finite"]):
+        raise AssertionError(f"the guarded production run failed: {res}")
+    if resume_diff:
+        raise AssertionError(f"resume from the checkpoint differs: "
+                             f"{resume_diff}")
+    if rep.ok or not rep.can_roll_back or rollback_diff or not any(
+            "errh2o_led" in r for r in rep.reasons):
+        raise AssertionError(f"the strict guard's trip and rollback: {res}")
+
+    # the coupling interface at full width: host-forced steps against a
+    # twin on its own providers, then the NaN recovery round trip
+    kw = dict(pft_path=str(files[0]), snicar_path=str(files[1]))
+    a = MinimalInterface(ncol=PROD_NCOL, model_kw=kw).setup()
+    b = MinimalInterface(ncol=PROD_NCOL, model_kw=kw).setup()
+    date = Date.from_ymd(1985, 7, 1, 6 * 3600)
+    reset(kernels)
+    t0 = time.perf_counter()
+    for _ in range(IFACE_STEPS):
+        fa = a.advance(date, 1800.0)
+        atm, phen = _host_inputs(b, date)
+        fb = b.advance_with_forcing(date, 1800.0, atm, phen)
+        date.increment_seconds(1800)
+    wall = time.perf_counter() - t0
+    iface_launches = counts(kernels, "interface")
+    flux_ok = np.allclose(fb.eflx_sh_tot, fa.eflx_sh_tot, rtol=1e-9,
+                          atol=1e-9)
+    worst, bad = 0.0, []
+    for k in a.model.state._fields:
+        x, y = getattr(b.model.state, k), getattr(a.model.state, k)
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                bad.append(k)
+            continue
+        gap = ((x - y).abs() / (1e-12 + 1e-9 * y.abs())).max().item()
+        worst = max(worst, gap)
+        if not gap <= 1.0:
+            bad.append(k)
+    del a
+    snap = b.snapshot()
+    twin = MinimalInterface(ncol=PROD_NCOL, model_kw=kw).setup()
+    twin.restore(snap)
+    atm, phen = _host_inputs(b, date)
+    b.advance_with_forcing(date, 1800.0, atm._replace(
+        atm_tbot=np.asarray(atm.atm_tbot) * np.nan), phen)
+    clean = types.SimpleNamespace(**{k: torch.zeros(1) for k in (
+        "errh2o", "errh2o_led", "errh2osno", "errsol", "errseb")})
+    nan_rep = StepGuard(ncol=PROD_NCOL).check(b.model.state, clean)
+    b.restore(snap)
+    b.advance_with_forcing(date, 1800.0, atm, phen)
+    twin.advance_with_forcing(date, 1800.0, atm, phen)
+    recovery_diff = state_diff(twin.model.state, b.model.state)
+    del b, twin, snap
+    iface = dict(label="interface", ncol=PROD_NCOL, steps=IFACE_STEPS,
+                 ms_per_step_pair=wall / IFACE_STEPS * 1e3,
+                 launches=iface_launches, eflx_sh_tot_close=bool(flux_ok),
+                 state_worst_gap_over_tolerance=worst,
+                 state_fields_outside=bad, nan_guard=nan_rep.reasons,
+                 recovery_fields_differing=recovery_diff)
+    phase("operations, MinimalInterface against its twin: "
+          + json.dumps(iface))
+    if not flux_ok or bad or recovery_diff or not any(
+            "non-finite" in r for r in nan_rep.reasons):
+        raise AssertionError(f"the coupling interface failed: {iface}")
+
+    # the driver, as a user runs it, from a JSON config
+    cfg_path = out_dir / "run.json"
+    rm_dir = out_dir / "run_model"
+    cfg_path.write_text(json.dumps(dict(
+        RUN_MODEL_CONFIG, pft_path=str(files[0]), snicar_path=str(files[1]),
+        metrics_path=str(rm_dir / "metrics.jsonl"),
+        history_path=str(rm_dir / "history.nc"), history_every=2,
+        checkpoint_dir=str(rm_dir / "ck"), checkpoint_every=2)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "elmkernels_torch.run_model", "--config",
+         str(cfg_path)], cwd=REPO, capture_output=True, text=True,
+        timeout=300)
+    driver = dict(label="run_model", returncode=proc.returncode,
+                  wall_s=time.perf_counter() - t0,
+                  stdout=proc.stdout.strip().splitlines()[-3:],
+                  stderr=proc.stderr.strip().splitlines()[-3:])
+    phase("operations, python -m elmkernels_torch.run_model: "
+          + json.dumps(driver))
+    if proc.returncode != 0 or "0 validation failures" not in proc.stdout:
+        raise AssertionError(f"run_model failed: {driver}")
+    return dict(run=res, interface=iface, run_model=driver)
+
+
+class JvpSpy:
+    """Keeps the plain inputs and result of the first ``keep`` calls of an
+    autograd Function's ``jvp`` while installed (``with``)."""
+
+    def __init__(self, cls, keep: int):
+        self.cls, self.keep, self.kept = cls, keep, []
+        self.orig = cls.__dict__["jvp"]
+
+    def __enter__(self):
+        from elmkernels_torch.ops import tangents
+        orig, kept, keep = self.orig.__func__, self.kept, self.keep
+
+        def jvp(ctx, *tans):
+            out = orig(ctx, *tans)
+            if len(kept) < keep:
+                with tangents.plain_dispatch():
+                    saved = [tangents.primal(t).clone()
+                             for t in ctx.saved_tensors]
+                    kept.append((saved, [None if t is None else
+                                         tangents.primal(t).clone()
+                                         for t in tans],
+                                 tangents.primal(out).clone()))
+            return out
+        self.cls.jvp = staticmethod(jvp)
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.jvp = self.orig
+
+
+def ci_jvp_bound(x0, enabled, iters):
+    """(bytes ms, operations ms) of one K1-T launch: the 20 inputs and
+    their tangents and ``enabled`` read, the 7 outputs, their tangents and
+    the iterations written; operations the dual residual evaluations these
+    leaves needed (as :func:`ci_bound`)."""
+    from elmkernels_torch.physics.photosynthesis import SECANT_ITMAX
+    n = x0.shape[0]
+    nbytes = n * (2 * 20 * 8 + 1 + 2 * 7 * 8 + 4)
+    it = iters.double()
+    evals = (enabled.double() * (2 + it + (iters > SECANT_ITMAX).double())
+             ).sum()
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            evals * CI_FUNC_JVP_FLOPS / PEAK_FLOPS["float64"] * 1e3)
+
+
+def sensitivity(files, inputs: dict) -> dict:
+    """Phase 11: the tangent-linear model on the 262,144-column global
+    grid under the exact flags, 2 steps from 1985-07-01 06:00: run_jvp
+    seeded by tbot (untimed: ms/step against the primal, launches) and by
+    watsat (under the timers: K1-T and K4 per launch, kept calls); the
+    tbot tangents against central finite differences; the primal against
+    the plain trajectory; K1-T and K4's tangent rule against their plain
+    versions on the path's own inputs."""
+    import torch
+    from elmkernels_torch.driver import sensitivity as sens
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.physics import photosynthesis as psn
+    from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
+    from elmkernels_torch.utils.dates import Date
+    inputs = dict(inputs)
+    inputs.pop("write_s")
+    surfdata = inputs.pop("surfdata")
+    m = Model.from_surfdata(surfdata, PROD_NCOL, pft_path=str(files[0]),
+                            snicar_path=str(files[1]), mixed_radiation=False,
+                            **inputs)
+    start = Date.from_ymd(1985, 7, 1, SENS_START_S)
+    forc, phen = m.stack_windows(start, SENS_STEPS)
+    kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
+               "ci_hybrid_solve_jvp": ci_solver.ci_hybrid_solve_jvp,
+               "pdma_solve": pdma.pdma_solve}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) / SENS_STEPS * 1e3
+
+    (_, base), primal_ms = timed(lambda: sens.trajectory(m, forc, phen))
+    reset(kernels)
+    res_t, jvp_ms = timed(lambda: sens.run_jvp(
+        m, start, SENS_STEPS, seed_forcing=sens.seed_field("tbot"),
+        forc_stack=forc, phen_stack=phen))
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    if not (launches["ci_hybrid_solve_jvp"] and launches["pdma_solve"]):
+        raise AssertionError(f"K1-T or K4 was not launched on the "
+                             f"sensitivity path: {launches}")
+
+    def ci_jvp_layout(args):
+        x0, dx0, env, denv, mode, enabled = args
+        return (x0.contiguous(), dx0.contiguous(),
+                type(env)(*(t.contiguous() for t in env)),
+                type(denv)(*(t.contiguous() for t in denv)), mode,
+                enabled.contiguous())
+
+    t1t = MainPathTimes(ci_solver, "ci_hybrid_solve_jvp",
+                        lambda a, out: ci_jvp_bound(a[0], a[5], out[2]),
+                        ci_jvp_layout, keep=SENS_CI_KEPT)
+    t4 = MainPathTimes(pdma, "pdma_solve",
+                       lambda a, out: pdma_bound(a[0].shape[0]))
+    with t1t, t4, JvpSpy(pdma.PdmaSolve, SENS_PDMA_KEPT) as spy:
+        # timed again: the second run, with ~1 ms of timer guard a launch
+        res_w, jvp_ms_again = timed(lambda: sens.run_jvp(
+            m, start, SENS_STEPS, seed_params=sens.seed_field("watsat"),
+            forc_stack=forc, phen_stack=phen))
+    on_path = {"ci_hybrid_solve_jvp": t1t.summary(),
+               "pdma_solve": t4.summary()}
+    phase("kernels on the sensitivity path: " + json.dumps(on_path))
+
+    # tangents finite
+    nonfinite = [f"{kind}.{k}" for res in (res_t, res_w)
+                 for kind in ("d_state", "d_diags")
+                 for k, v in getattr(res, kind)._asdict().items()
+                 if v.is_floating_point() and not bool(
+                     torch.isfinite(v).all())]
+    # the primal: the same with either seed and as the plain trajectory
+    primal_diff = [k for k in base._fields if not (
+        torch.equal(getattr(res_t.diags, k), getattr(base, k))
+        and torch.equal(getattr(res_w.diags, k), getattr(base, k)))]
+
+    # central differences of the tbot tangents
+    _, hi = sens.trajectory(m, forc._replace(tbot=forc.tbot + SENS_H), phen)
+    _, lo = sens.trajectory(m, forc._replace(tbot=forc.tbot - SENS_H), phen)
+    same_iters = ((hi.niters_canopy == lo.niters_canopy).all(0)
+                  & (hi.niters_ci == lo.niters_ci).all(0)
+                  & (hi.niters_canopy == base.niters_canopy).all(0)
+                  & (hi.niters_ci == base.niters_ci).all(0))
+    # differentiable within +-h: the one-sided slopes agree
+    smooth = torch.ones_like(same_iters)
+    for k in SENS_FIELDS:
+        up = (getattr(hi, k) - getattr(base, k)) / SENS_H
+        down = (getattr(base, k) - getattr(lo, k)) / SENS_H
+        smooth &= ((up - down).abs() <= SENS_ATOL + SENS_RTOL
+                   * (0.5 * (up + down)).abs()).all(0)
+    kept = same_iters & smooth
+    fd = {}
+    for k in SENS_FIELDS:
+        got = getattr(res_t.d_diags, k)[:, kept]
+        want = ((getattr(hi, k) - getattr(lo, k)) / (2 * SENS_H))[:, kept]
+        outside = ~((got - want).abs() <= SENS_ATOL + SENS_RTOL
+                    * want.abs())
+        fd[k] = dict(columns_outside=int(outside.any(0).sum().item()),
+                     max_abs_gap=(got - want).abs().max().item(),
+                     max_rel_gap=max_rel(got, want))
+    t_ref2m_warms = bool((res_t.d_diags.t_ref2m[:, kept] > 0).all())
+
+    # K1-T and K4's tangent rule on the path's own inputs
+    worst_v = worst_t = worst_abs = 0.0
+    eq, leaves = 1.0, 0
+    for (x0, dx0, env, denv, mode, en), (ci, out, it, dci, dout) in t1t.kept:
+        cp, op, ip, dcp, dop = psn.hybrid_solve_jvp_plain(x0, dx0, env,
+                                                          denv, mode, en)
+        for a, b in zip((ci, *out), (cp, *op)):
+            worst_v = max(worst_v, max_rel(a, b))
+            worst_abs = max(worst_abs, (a - b).abs().nan_to_num().max()
+                            .item())
+        for a, b in zip((dci, *dout), (dcp, *dop)):
+            worst_t = max(worst_t, max_rel(a, b))
+            worst_abs = max(worst_abs, (a - b).abs().nan_to_num().max()
+                            .item())
+        eq = min(eq, (it == ip).double().mean().item())
+        leaves += x0.shape[0]
+    (x0, dx0, env, denv, mode, en), _ = t1t.kept[0]
+    plain_ms = cuda_ms(lambda: psn.hybrid_solve_jvp_plain(
+        x0, dx0, env, denv, mode, en), 2)
+    # K4's tangent rule solves A dx = db - dA x where the plain version
+    # differentiates the elimination: equal to rounding, held at rtol 1e-9
+    k4_rel, k4_abs, k4_close, k4_cols = 0.0, 0.0, True, 0
+    for (lhs, rhs, _), (dlhs, drhs), dx in spy.kept:
+        _, dxp = torch.func.jvp(pdma_solve_plain, (lhs, rhs), (dlhs, drhs))
+        k4_rel = max(k4_rel, max_rel(dx, dxp))
+        k4_abs = max(k4_abs, (dx - dxp).abs().max().item())
+        k4_close &= bool(torch.allclose(dx, dxp, rtol=1e-9, atol=1e-12))
+        k4_cols += lhs.shape[0]
+    res = dict(label="sensitivity", ncol=PROD_NCOL, steps=SENS_STEPS,
+               psn_mode=m.psn_mode, primal_ms_per_step=primal_ms,
+               jvp_ms_per_step=jvp_ms, jvp_over_primal=jvp_ms / primal_ms,
+               jvp_ms_per_step_second_run_timed=jvp_ms_again,
+               launches=launches, nonfinite_tangents=nonfinite,
+               primal_fields_differing=primal_diff,
+               fd_columns_kept=int(kept.sum().item()),
+               fd_left_out_iterations=int((~same_iters).sum().item()),
+               fd_left_out_not_smooth=int((same_iters & ~smooth).sum()
+                                          .item()),
+               fd=fd, t_ref2m_tangent_positive=t_ref2m_warms,
+               k1t=dict(calls=len(t1t.kept), leaves=leaves,
+                        max_rel_value=worst_v, max_rel_tangent=worst_t,
+                        max_abs=worst_abs, equal_iters=eq,
+                        plain_ms=plain_ms),
+               k4_tangent=dict(calls=len(spy.kept), columns=k4_cols,
+                               max_rel_tangent=k4_rel, max_abs_tangent=k4_abs,
+                               close_at_1e_9=k4_close))
+    phase("sensitivity: " + json.dumps(res))
+    left_out = 1.0 - res["fd_columns_kept"] / PROD_NCOL
+    if nonfinite or primal_diff:
+        raise AssertionError(f"sensitivity: non-finite tangents or a primal "
+                             f"changed by seeding: {res}")
+    if left_out > SENS_MAX_LEFT_OUT or not t_ref2m_warms or any(
+            v["columns_outside"] for v in fd.values()):
+        raise AssertionError(f"tangents disagree with finite differences: "
+                             f"{res}")
+    if not (worst_v <= 1e-10 and worst_t <= 1e-10 and eq >= 0.999
+            and spy.kept and k4_close):
+        raise AssertionError(f"K1-T or K4's tangent rule disagrees with its "
+                             f"plain version: {res}")
+    return dict(res=res, on_path=on_path, launches=launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -972,6 +1486,7 @@ def main() -> int:
     # the production loop's type and mode: float32, "mixed", per-leaf traits
     check_ci(n_leaves, "mixed", torch.float32, 1e-5, time_it=False)
     k4 = check_pdma(262144)
+    entry_overhead()
 
     files_dir = REPO / "build" / "synthetic"
     files_dir.mkdir(parents=True, exist_ok=True)
@@ -1005,6 +1520,9 @@ def main() -> int:
     prod, prod_launches, on_prod = production_loop(files, inputs, wrappers)
     _, land_launches, on_land = landunits(files, inputs, wrappers,
                                           prod["ms_per_step"])
+    operations(files, inputs, wrappers)
+    sens = sensitivity(files, inputs)
+    on_sens, sens_launches = sens["on_path"], sens["launches"]
 
     def numbers(name, test):
         m, p, g = on_path[name], on_prod[name], on_land[name]
@@ -1032,8 +1550,30 @@ def main() -> int:
              replaces="elmkernels_tpu/physics/soil_temperature.py:282",
              max_abs_err=max(k4["max_abs_x"], k4_path["max_abs_x"]),
              library_ms=k4["library_ms"],
+             sens_launches=sens_launches["pdma_solve"],
+             sens_ms=on_sens["pdma_solve"]["ms"],
+             sens_bound_ms=on_sens["pdma_solve"]["bound_ms"],
+             sens_share_of_bound=on_sens["pdma_solve"]["share_of_bound"],
+             sens_tangent_max_rel=sens["res"]["k4_tangent"][
+                 "max_rel_tangent"],
              **numbers("pdma_solve", k4)),
     ]
+    # K1-T runs only on the sensitivity path: its launches and times are
+    # that path's
+    k1t, t = sens["res"]["k1t"], on_sens["ci_hybrid_solve_jvp"]
+    kernels.append(dict(
+        name="ci_hybrid_solve_jvp", route="cuda",
+        source="elmkernels_torch/csrc/ci_hybrid_solve.cu",
+        replaces="elmkernels_tpu/driver/sensitivity.py:91",
+        launches=sens_launches["ci_hybrid_solve_jvp"], max_abs_err=k1t[
+            "max_abs"], ms=t["ms"], plain_ms=k1t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        share_of_bound=t["share_of_bound"], library_ms=None,
+        sens_launches=sens_launches["ci_hybrid_solve_jvp"], sens_ms=t["ms"],
+        sens_bound_ms=t["bound_ms"], sens_share_of_bound=t["share_of_bound"],
+        sens_max_rel_value=k1t["max_rel_value"],
+        sens_max_rel_tangent=k1t["max_rel_tangent"],
+        sens_equal_iters=k1t["equal_iters"]))
     phase(f"script: {time.perf_counter() - t_script:.1f} s after start")
     print(json.dumps({"kernels": kernels}))
     print(card)

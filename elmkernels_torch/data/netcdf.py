@@ -91,9 +91,11 @@ def reshape_grid_to_cells(arr: np.ndarray) -> np.ndarray:
     return arr
 
 
-def write_nc(path, dims: dict, variables: dict) -> None:
+def write_nc(path, dims: dict, variables: dict,
+             attrs: dict | None = None) -> None:
     """Create a NetCDF-classic file.  ``dims``: name -> length (None for
-    the record dim); ``variables``: name -> (dim_names tuple, ndarray)."""
+    the record dim); ``variables``: name -> (dim_names tuple, ndarray);
+    ``attrs``: variable name -> {attribute: value}."""
     from scipy.io import netcdf_file
     with netcdf_file(str(path), "w") as f:
         for dname, dlen in dims.items():
@@ -102,3 +104,5 @@ def write_nc(path, dims: dict, variables: dict) -> None:
             arr = np.asarray(arr)
             v = f.createVariable(vname, arr.dtype.char, tuple(vdims))
             v[:] = arr
+            for aname, aval in (attrs or {}).get(vname, {}).items():
+                setattr(v, aname, aval)

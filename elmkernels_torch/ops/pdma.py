@@ -3,7 +3,9 @@
 It replaces ``pdma_solve_plain`` of
 ``elmkernels_torch/physics/soil_temperature.py`` (the JAX package's
 ``soil_temperature.py:pdma_solve``) for tensors on the card.
-``pdma_solve.launches`` counts the kernel's launches.
+``pdma_solve.launches`` counts the kernel's launches.  :class:`PdmaSolve`
+is the ``torch.autograd.Function`` the step calls: its ``jvp`` launches the
+kernel again for the tangent (dx = A^-1 (db - dA x)).
 """
 
 from __future__ import annotations
@@ -12,7 +14,8 @@ import ctypes
 
 import torch
 
-from elmkernels_torch.ops import build
+from elmkernels_torch.ops import build, tangents
+from elmkernels_torch.physics import soil_temperature as stp
 
 ROWS, BANDS = 21, 5
 # the kernel moves whole tiles of columns by bulk copy, which needs
@@ -35,6 +38,8 @@ def pdma_solve(lhs, rhs):
     both float64 on one CUDA device.  Returns x [ncol, 21]."""
     if not (lhs.is_cuda and rhs.is_cuda) or lhs.device != rhs.device:
         raise ValueError("pdma_solve takes CUDA tensors on one device")
+    tangents.refuse("pdma_solve", "elmkernels_torch.ops.pdma.PdmaSolve",
+                    (lhs, rhs))
     if lhs.dtype != torch.float64 or rhs.dtype != torch.float64:
         raise TypeError("pdma_solve takes float64")
     ncol = lhs.shape[0]
@@ -55,6 +60,48 @@ def pdma_solve(lhs, rhs):
 
 
 pdma_solve.launches = 0
+
+
+def _solve(lhs, rhs):
+    return (pdma_solve(lhs, rhs) if lhs.is_cuda
+            else stp.pdma_solve_plain(lhs, rhs))
+
+
+class PdmaSolve(torch.autograd.Function):
+    """The pentadiagonal solve as a differentiable function of ``lhs`` and
+    ``rhs``.  Tangent rule: differentiating A x = b gives
+    dx = A^-1 (db - dA x), one more solve with the same ``lhs`` (the
+    banded mat-vec is plain tensor arithmetic).  On CPU tensors it solves
+    with ``pdma_solve_plain``.  Forward mode only."""
+
+    @staticmethod
+    def forward(lhs, rhs):
+        return _solve(lhs, rhs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(*inputs, output)
+
+    @staticmethod
+    def jvp(ctx, dlhs, drhs):
+        lhs, _, x = (tangents.primal(t) for t in ctx.saved_tensors)
+        with tangents.plain_dispatch():
+            r = (torch.zeros_like(x) if drhs is None
+                 else tangents.primal(drhs))
+            if dlhs is not None:
+                r = r - stp.band_matvec(tangents.primal(dlhs), x)
+            return _solve(lhs, r)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "the pentadiagonal solve has no reverse mode (nor has the JAX "
+            "package's step); differentiate the step with torch.func.jvp")
+
+
+def solve(lhs, rhs):
+    """x through :class:`PdmaSolve`: the step's entry point on the card."""
+    return PdmaSolve.apply(lhs, rhs)
 
 
 def layout() -> dict:

@@ -89,6 +89,17 @@ def ci_problem_tensors(n: int, seed: int, mode: str, dtype, device):
             torch.tensor(enabled, device=device))
 
 
+def ci_tangents(x0, env: CiEnv, seed: int):
+    """Seeded tangents of a ci problem's float inputs: each value times a
+    standard normal draw (a relative direction), as (dx0, CiEnv)."""
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        d = rng.standard_normal(tuple(a.shape))
+        return a * torch.tensor(d, dtype=a.dtype, device=a.device)
+    return t(x0), CiEnv(*(t(v) for v in env))
+
+
 def pdma_problem(ncol: int, seed: int):
     """(lhs [ncol, 21, 5], rhs [ncol, 21]) float64: diagonally dominant
     pentadiagonal systems; column c has c % 6 identity snow rows on top

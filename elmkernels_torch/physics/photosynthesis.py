@@ -350,12 +350,27 @@ def hybrid_solve_plain(x0_init, env: CiEnv, mode: str, enabled,
     return xfin, out, it
 
 
+def hybrid_solve_jvp_plain(x0_init, dx0, env: CiEnv, denv: CiEnv,
+                           mode: str, enabled):
+    """``torch.func.jvp`` of :func:`hybrid_solve_plain` along ``(dx0,
+    denv)``: ``(ci, PsnOut, iterations, dci, tangent PsnOut)``, the plain
+    version of the tangent kernel."""
+    def solve(x0, *fields):
+        return hybrid_solve_plain(x0, CiEnv(*fields), mode, enabled)
+    # expanded (stride-0) scalars cannot carry a tangent of their own
+    (ci, out, it), (dci, dout, _) = torch.func.jvp(
+        solve, tuple(t.contiguous() for t in (x0_init, *env)),
+        tuple(t.contiguous() for t in (dx0, *denv)))
+    return ci, out, it, dci, dout
+
+
 def hybrid_solve(x0_init, env: CiEnv, mode: str, enabled):
-    """The ci root solve: the CUDA kernel for tensors on the card, the
-    plain masked-batch loop for tensors on the CPU."""
+    """The ci root solve: the CUDA kernel for tensors on the card (through
+    ``ops.ci_solver.CiSolve``, so that forward-mode tangents reach the
+    tangent kernel), the plain masked-batch loop for tensors on the CPU."""
     if x0_init.is_cuda:
-        from elmkernels_torch.ops.ci_solver import ci_hybrid_solve
-        return ci_hybrid_solve(x0_init, env, mode, enabled)
+        from elmkernels_torch.ops.ci_solver import solve
+        return solve(x0_init, env, mode, enabled)
     return hybrid_solve_plain(x0_init, env, mode, enabled)
 
 

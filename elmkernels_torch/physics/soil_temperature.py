@@ -275,12 +275,21 @@ def pdma_solve_plain(lhs, rhs):
     return torch.stack(x, dim=1)
 
 
+def band_matvec(lhs, x):
+    """``A x`` for the banded ``lhs`` [ncol, 21, 5] (bands: 2nd super,
+    super, diag, sub, 2nd sub) and ``x`` [ncol, 21]."""
+    n = x.shape[1]
+    xp = torch.nn.functional.pad(x, (2, 2))
+    return sum(lhs[:, :, b] * xp[:, 4 - b:4 - b + n] for b in range(NBAND))
+
+
 def pdma_solve(lhs, rhs):
-    """The pentadiagonal solve: the CUDA kernel for tensors on the card,
+    """The pentadiagonal solve: the CUDA kernel for tensors on the card
+    (through ``ops.pdma.PdmaSolve``, whose tangent rule launches it again),
     :func:`pdma_solve_plain` for tensors on the CPU."""
     if lhs.is_cuda:
-        from elmkernels_torch.ops.pdma import pdma_solve as kernel
-        return kernel(lhs, rhs)
+        from elmkernels_torch.ops.pdma import solve
+        return solve(lhs, rhs)
     return pdma_solve_plain(lhs, rhs)
 
 

@@ -17,6 +17,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 import torch_parity as tp
 from elmkernels_torch import constants as tc
+from elmkernels_torch.physics import math_utils
 from elmkernels_torch.utils.dates import Date as TDate
 
 torch.set_num_threads(1)
@@ -24,6 +25,10 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def files(tmp_path_factory):
+    # the step makes its constant tables at first use, and the counts below
+    # were taken in a fresh process: start from no table, whatever test ran
+    # before in this one
+    math_utils._CONSTANTS.clear()
     return tp.write_files(tmp_path_factory.mktemp("torch_int_path"))
 
 

@@ -94,3 +94,85 @@ def test_pdma_kernel_matches_plain_on_ice_sheet_systems(card, tmp_path,
     torch.testing.assert_close(pdma_solve(lhs, rhs),
                                tst.pdma_solve_plain(lhs, rhs), rtol=0,
                                atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["c3", "c4", "mixed"])
+def test_ci_tangent_kernel_matches_plain(card, mode):
+    """K1-T against torch.func.jvp of the plain solve on 2 x 65,536 leaves,
+    a quarter of them dry-air leaves: values and tangents at rtol 1e-10
+    with equal iteration counts."""
+    from elmkernels_torch.ops.ci_solver import ci_hybrid_solve_jvp
+    n = 2 * 65536
+    x0, env, en = testing.ci_problem_tensors(n, 13, mode, torch.float64,
+                                             card)
+    dx0, denv = testing.ci_tangents(x0, env, 17)
+    ck, ok, ik, dck, dok = ci_hybrid_solve_jvp(x0, dx0, env, denv, mode, en)
+    cp, op, ip, dcp, dop = tpsn.hybrid_solve_jvp_plain(x0, dx0, env, denv,
+                                                       mode, en)
+    print(f"dry-air leaves: {float((env.rh_can < 0.011).double().mean()):.3f}")
+    torch.testing.assert_close(ik, ip, rtol=0, atol=0)
+    for a, b in zip((ck, *ok, dck, *dok), (cp, *op, dcp, *dop)):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncol", sorted({n for n, _ in PDMA_CASES}))
+def test_pdma_tangent_rule_matches_plain(card, ncol):
+    """PdmaSolve's jvp (K4 twice) against torch.func.jvp through the plain
+    elimination."""
+    from elmkernels_torch.ops import pdma
+    lhs, rhs = testing.pdma_problem(ncol, 5)
+    lhs, rhs = torch.tensor(lhs, device=card), torch.tensor(rhs, device=card)
+    g = torch.Generator(device=card).manual_seed(0)
+    dl = torch.randn(lhs.shape, generator=g, dtype=lhs.dtype,
+                     device=card) * (lhs != 0)
+    dr = torch.randn(rhs.shape, generator=g, dtype=rhs.dtype, device=card)
+    before = pdma.pdma_solve.launches
+    xk, tk = torch.func.jvp(pdma.PdmaSolve.apply, (lhs, rhs), (dl, dr))
+    assert pdma.pdma_solve.launches - before == 2
+    xp, tpl = torch.func.jvp(tst.pdma_solve_plain, (lhs, rhs), (dl, dr))
+    torch.testing.assert_close(xk, xp, rtol=0, atol=0)
+    torch.testing.assert_close(tk, tpl, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.cuda
+def test_wrappers_refuse_tangent_tensors(card):
+    """A kernel wrapper handed a differentiated tensor raises and names
+    the Function to call, instead of dropping the tangent."""
+    import torch.autograd.forward_ad as fwAD
+    from elmkernels_torch.ops.ci_solver import ci_hybrid_solve
+    from elmkernels_torch.ops.pdma import pdma_solve
+    x0, env, en = testing.ci_problem_tensors(64, 0, "c3", torch.float64,
+                                             card)
+    with pytest.raises(RuntimeError, match="CiSolve"):
+        torch.func.jvp(lambda x: ci_hybrid_solve(x, env, "c3", en)[0],
+                       (x0,), (torch.ones_like(x0),))
+    lhs, rhs = (torch.tensor(a, device=card)
+                for a in testing.pdma_problem(64, 0))
+    with fwAD.dual_level(), pytest.raises(RuntimeError, match="PdmaSolve"):
+        pdma_solve(lhs, fwAD.make_dual(rhs, torch.ones_like(rhs)))
+    with pytest.raises(RuntimeError, match="PdmaSolve"):
+        pdma_solve(lhs.clone().requires_grad_(), rhs)
+
+
+@pytest.mark.cuda
+def test_ci_function_jvp_on_card(card):
+    """torch.func.jvp through CiSolve on the card: its forward launches
+    K1, its jvp K1-T, and the tangents equal the plain version's."""
+    from elmkernels_torch.ops import ci_solver
+    x0, env, en = testing.ci_problem_tensors(4096, 19, "mixed",
+                                             torch.float64, card)
+    dx0, denv = testing.ci_tangents(x0, env, 23)
+    k1, k1t = (ci_solver.ci_hybrid_solve.launches,
+               ci_solver.ci_hybrid_solve_jvp.launches)
+    out, tan = torch.func.jvp(
+        lambda x, *e: ci_solver.CiSolve.apply("mixed", x, en, *e),
+        (x0, *env), (dx0, *denv))
+    assert ci_solver.ci_hybrid_solve.launches == k1 + 1
+    assert ci_solver.ci_hybrid_solve_jvp.launches == k1t + 1
+    cp, op, ip, dcp, dop = tpsn.hybrid_solve_jvp_plain(x0, dx0, env, denv,
+                                                       "mixed", en)
+    torch.testing.assert_close(out[-1], ip, rtol=0, atol=0)
+    for a, b in zip((*out[:-1], *tan[:-1]), (cp, *op, dcp, *dop)):
+        torch.testing.assert_close(a, b, rtol=1e-10, atol=0, equal_nan=True)
