@@ -13,14 +13,19 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    2 x 262,144 leaves (c3 and mixed in float64 and float32, c4 in
    float64; mixed with traits that differ per leaf), and times the c3
    float32 case, the main path's mode and type, on that test problem;
-4. holds ``pdma_solve`` against its plain version bit for bit at ten
-   column counts from 1 to 262,145 and on views off 16-byte alignment,
-   and times both and ``torch.linalg.solve`` at [262144, 21, 5];
+4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
+   against their plain versions bit for bit at ten column counts from 1
+   to 262,145 and on views off 16-byte alignment, and times each, its
+   plain version and ``torch.linalg.solve`` at [262144, 21, 5];
 5. drives the main path: ``Model(ncol=262144)`` with the production flags
    through one summer day (48 steps) with no timer installed, for ms/step,
    columns/s, the conservation contracts and each kernel's launches; then
    12 steps around noon again with each launch timed by CUDA events on the
-   main path's own inputs (:class:`MainPathTimes`);
+   main path's own inputs (:class:`MainPathTimes`); then the same model
+   in float32 (``dtype=torch.float32``) 12 steps at noon, each
+   ``pdma_solve_f32`` launch timed and its first calls held against the
+   plain version bit for bit (errsol and errlon under 1e-3, as
+   ``tests/test_f32_drift.py``);
 6. drives ``Model(ncol=8192)`` through 700 January steps, long enough for
    the synthetic forcing to build snow layers (they form after ~550), then
    48 steps further twice from that state: as before (the reference's
@@ -34,6 +39,13 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ``run_scan_series`` and ``run_windows(series=True, window=12)``: every
    state field equal at atol 0, each loop's per-step diagnostics equal to
    the reductions of ``run``'s, and the ci solve run only in "mixed" mode;
+   then the same ``run_windows`` split over ranks, each a subprocess of
+   this script (``--shard-rank``): two ranks sharing the card on a gloo
+   group, then one rank on an NCCL group; every rank's block must equal
+   the unsharded final state bit for bit on every field and its global
+   diagnostics the unsharded reductions (maxima exactly, means to rtol
+   1e-12), with K1 and K4 launched (and timed) on every rank and their
+   first calls held against their plain versions;
 8. the production loop at full width: ``Model.from_surfdata`` on the
    262,144-cell global grid with the synthetic forcing, ``run_windows(
    nsteps=96, window=48, series=True)`` with no timer installed (ms/step,
@@ -71,12 +83,19 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    differences (h = 1e-3 K, rtol 2e-3, atol 1e-4) on the columns where
    the perturbed runs take the same solver iterations and are smooth; the
    first kept K1-T and K4 tangent calls against their plain versions;
-12. prints the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
+12. the JAX package's entry points' twins, as subprocesses:
+   ``python -m elmkernels_torch.bench`` at its defaults, with
+   ``BENCH_HETERO=1`` and with ``BENCH_F32=1 BENCH_DAYS=1`` (each JSON line
+   printed beside the card line), ``elmkernels_torch.tools.long_run`` at
+   8,192 columns for 96 steps (resume bit for bit, no guard trip) and
+   ``elmkernels_torch.examples.run_single_column``;
+13. prints each phase's seconds, the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
    per launch on the main path, ``prod_*`` the same on the production
    loop, ``land_*`` on the landunits phase, ``sens_*`` on the sensitivity
    path, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4;
-   K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path), the
-   card line, and ``{"ok": true, ...}`` last.
+   K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path;
+   ``shard_*`` per rank of the sharded runs; ``pdma_solve_f32``'s entry
+   from the float32 path), the card line, and ``{"ok": true, ...}`` last.
 
 Any failed check raises and the script exits non-zero.  Synthetic
 input files and the kernel builds go under ``build/`` in the checkout.
@@ -348,28 +367,34 @@ def check_pdma_on_path(kept, label: str) -> dict:
     return res
 
 
-def pdma_bound(ncol: int):
+def pdma_bound(ncol: int, dtype: str = "float64"):
     """(bytes ms, operations ms) of one pentadiagonal solve of ``ncol``
-    columns: 105 + 21 doubles read and 21 written per column, against
-    19 flops per row."""
-    return (ncol * (PDMA_ROWS * 7) * 8 / HBM_BYTES_PER_S * 1e3,
-            ncol * PDMA_ROWS * PDMA_ROW_FLOPS / PEAK_FLOPS["float64"] * 1e3)
+    columns in ``dtype``: 105 + 21 elements read and 21 written per
+    column, against 19 flops per row."""
+    itemsize = {"float64": 8, "float32": 4}[dtype]
+    return (ncol * (PDMA_ROWS * 7) * itemsize / HBM_BYTES_PER_S * 1e3,
+            ncol * PDMA_ROWS * PDMA_ROW_FLOPS / PEAK_FLOPS[dtype] * 1e3)
 
 
-def check_pdma(ncol: int):
-    """pdma_solve against pdma_solve_plain, bit for bit, at every column
-    count of PDMA_NCOLS and on views one column past a 16-byte boundary;
-    then times both and torch.linalg.solve at ``ncol`` columns."""
+def check_pdma(ncol: int, dtype=None):
+    """K4 in ``dtype`` (float64 by default; float32 through
+    ``pdma_solve_f32``) against pdma_solve_plain in that type, bit for
+    bit, at every column count of PDMA_NCOLS and on views one column past
+    a 16-byte boundary; then times both and torch.linalg.solve at
+    ``ncol`` columns."""
     import torch
-    from elmkernels_torch.ops import testing
-    from elmkernels_torch.ops.pdma import pdma_solve
+    from elmkernels_torch.ops import pdma, testing
     from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
+    dtype = dtype or torch.float64
+    name = "float64" if dtype == torch.float64 else "float32"
+    pdma_solve = pdma.pdma_solve if name == "float64" else pdma.pdma_solve_f32
     n_all = max(PDMA_NCOLS) + 1
     lhs_np, rhs_np = testing.pdma_problem(n_all, 7)
-    lhs_all = torch.tensor(lhs_np, device="cuda")
-    rhs_all = torch.tensor(rhs_np, device="cuda")
+    lhs_all = torch.tensor(lhs_np, device="cuda", dtype=dtype)
+    rhs_all = torch.tensor(rhs_np, device="cuda", dtype=dtype)
     cases = [(f"ncol={n}", lhs_all[:n], rhs_all[:n]) for n in PDMA_NCOLS]
-    # views at a storage offset of one column (840 B and 168 B)
+    # views at a storage offset of one column (840 B and 168 B in
+    # float64, 420 B and 84 B in float32)
     for n in PDMA_MISALIGNED_NCOLS:
         lv, rv = lhs_all[1:n + 1], rhs_all[1:n + 1]
         if lv.data_ptr() % 16 == 0 or rv.data_ptr() % 16 == 0:
@@ -381,7 +406,8 @@ def check_pdma(ncol: int):
         xp = pdma_solve_plain(lhs, rhs)
         torch.cuda.synchronize()
         max_abs = (xk - xp).abs().max().item()
-        phase(f"K4 pdma_solve vs plain, {label}: max_abs_x {max_abs}")
+        phase(f"K4 {pdma_solve.__name__} vs plain, {label}: max_abs_x "
+              f"{max_abs}")
         if not (torch.equal(xk, xp) and max_abs == 0.0):
             raise AssertionError(f"pdma_solve differs from its plain "
                                  f"version at {label}: {max_abs}")
@@ -399,15 +425,16 @@ def check_pdma(ncol: int):
     xp = pdma_solve_plain(lhs, rhs)
     xl = torch.linalg.solve(dense, rhs)
     rel_lib = ((xl - xp).abs() / xp.abs().clamp_min(1.0)).max().item()
-    res = dict(ncol=ncol, max_abs_x=worst, max_rel_linalg=rel_lib)
+    res = dict(kernel=pdma_solve.__name__, dtype=name, ncol=ncol,
+               max_abs_x=worst, max_rel_linalg=rel_lib)
     res["test_ms"] = cuda_ms(lambda: pdma_solve(lhs, rhs), 50)
     res["plain_ms"] = cuda_ms(lambda: pdma_solve_plain(lhs, rhs), 5)
     res["library_ms"] = cuda_ms(lambda: torch.linalg.solve(dense, rhs), 5)
-    t_bytes, t_ops = pdma_bound(ncol)
+    t_bytes, t_ops = pdma_bound(ncol, name)
     res["test_bound_ms"] = max(t_bytes, t_ops)
     res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     res["test_share_of_bound"] = res["test_bound_ms"] / res["test_ms"]
-    phase("K4 pdma_solve timing: " + json.dumps(res))
+    phase(f"K4 {pdma_solve.__name__} timing: " + json.dumps(res))
     return res
 
 
@@ -593,6 +620,22 @@ def timers(keep: int = 0, keep_pdma: int = 0):
                           keep=keep_pdma))
 
 
+# the sharded phase: the loops phase's run_windows, its oracle saved here;
+# the runs (backend, ranks) and each subprocess's time limit
+SHARD_DIR = REPO / "build" / "sharded"
+SHARD_RUNS = (("gloo", 2), ("nccl", 1))
+SHARD_TIMEOUT_S = 600
+# the float32 path: the main path's model in float32, 12 steps at noon
+F32_NCOL, F32_STEPS = 262144, 12
+# the all-float32 model's contract (tests/test_f32_drift.py's bounds)
+F32_ERR_BOUND = 1e-3
+# the entry-point twins, each a subprocess with its time limit: the bench
+# at its defaults, on the global grid, and in float32 for a day; the long
+# run at the loops phase's width for two windows; the single-column demo
+BENCH_RUNS = ({}, {"BENCH_HETERO": "1"}, {"BENCH_F32": "1",
+                                          "BENCH_DAYS": "1"})
+LONG_RUN_ENV = {"LR_NCOL": "8192", "LR_STEPS": "96", "LR_WINDOW": "48"}
+TWIN_TIMEOUT_S = 600
 LOOPS_NCOL = 8192
 LOOPS_GRID = (64, 128)       # the NetCDF forcing's (lat, lon) grid
 # 24 steps (cut from 48 to keep the script near 600 s)
@@ -671,6 +714,9 @@ def check_loops(files, kernels: dict) -> dict:
     with ModeSpy(ci_solver) as spy:
         m = model()
         res["psn_mode"] = m.psn_mode
+        SHARD_DIR.mkdir(parents=True, exist_ok=True)
+        torch.save({k: v.cpu() for k, v in m.state._asdict().items()},
+                   SHARD_DIR / "initial.pt")
         per_step = []
         reset(kernels)
         torch.cuda.synchronize()
@@ -704,11 +750,18 @@ def check_loops(files, kernels: dict) -> dict:
                 raise AssertionError(f"{name} differs from run: state "
                                      f"{state_diff}, diagnostics "
                                      f"{diag_diff}")
+            if name.startswith("run_windows"):
+                # the sharded phase's oracle: this loop's state and diags
+                torch.save(dict(
+                    state={k: v.cpu() for k, v in m.state._asdict().items()},
+                    diags={k: v.cpu() for k, v in d._asdict().items()}),
+                    SHARD_DIR / "oracle.pt")
     res.update(ci_modes=spy.modes, finite=finite(ref_state),
                errh2o_led=ref.errh2o_led_max.max().item(),
                errlon=ref.errlon_max.max().item(),
                errsol=ref.errsol_max.max().item(),
                errsol_bound=errsol_bound(LOOPS_NCOL, LOOPS_STEPS))
+    res["surfdata"], res["inputs"] = surfdata, inputs
     phase("loops, bit for bit: " + json.dumps(res))
     if res["psn_mode"] != "mixed" or set(spy.modes) != {"mixed"}:
         raise AssertionError(f"the ci solve ran in modes {spy.modes}, "
@@ -1443,6 +1496,266 @@ def sensitivity(files, inputs: dict) -> dict:
     return dict(res=res, on_path=on_path, launches=launches)
 
 
+def float32_path(files) -> dict:
+    """The main path's model in float32 (the JAX package's all-float32
+    mode), 12 steps around noon with each K4 launch timed
+    (``pdma_solve_f32``) and its first calls held against the plain
+    version in float32 bit for bit; the contracts of test_f32_drift.py."""
+    import torch
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.utils.dates import Date
+    m = Model(ncol=F32_NCOL, pft_path=str(files[0]),
+              snicar_path=str(files[1]), dtype=torch.float32)
+    start = Date.from_ymd(1985, 7, 1)
+    start.increment_seconds(18 * int(m.dtime))
+    kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
+               "pdma_solve_f32": pdma.pdma_solve_f32}
+    t4 = MainPathTimes(pdma, "pdma_solve_f32",
+                       lambda a, out: pdma_bound(a[0].shape[0], "float32"),
+                       keep=PDMA_KEPT)
+    worst = {"errsol": 0.0, "errlon": 0.0}
+
+    def cb(date, state, d):
+        for k in worst:
+            worst[k] = max(worst[k], getattr(d, k).abs().max().item())
+
+    with t4:
+        reset(kernels)
+        pdma.pdma_solve.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.run(start, F32_STEPS, cb)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(kernels, "float32 path")
+    on_path = t4.summary()
+    k4 = check_pdma_on_path(t4.kept, "float32 path")
+    res = dict(label="float32 path", ncol=F32_NCOL, steps=F32_STEPS,
+               dtype=str(m.state.t_grnd.dtype), wall_s=wall,
+               ms_per_step_under_timers=wall / F32_STEPS * 1e3,
+               launches=launches, float64_k4_launches=pdma.pdma_solve.launches,
+               finite=finite(m.state), on_path=on_path, **worst)
+    phase("float32 path: " + json.dumps(res))
+    if not (res["finite"] and res["dtype"] == "torch.float32"
+            and launches["pdma_solve_f32"] == F32_STEPS
+            and pdma.pdma_solve.launches == 0
+            and max(worst.values()) < F32_ERR_BOUND):
+        raise AssertionError(f"the float32 path failed: {res}")
+    return dict(res=res, on_path=on_path, k4=k4, launches=launches)
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def wait_all(procs, timeout_s: float, label: str) -> list:
+    """Each process's output; a timeout or a non-zero exit fails, and no
+    process is left running."""
+    outs = []
+    try:
+        for p in procs:
+            try:
+                outs.append(p.communicate(timeout=timeout_s)[0])
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{label}: a process outlasted "
+                                     f"{timeout_s} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, out in zip(procs, outs):
+        if p.returncode != 0:
+            raise AssertionError(f"{label} exited {p.returncode}:\n"
+                                 f"{out[-4000:]}")
+    return outs
+
+
+def shard_rank(rank: int, nranks: int, port: int, backend: str) -> int:
+    """One rank of the sharded phase (``chip_smoke.py --shard-rank``): its
+    block of the loops phase's grid on this rank's card, from the
+    unsharded initial state cut by ``shard_state``, the loops phase's
+    ``run_windows(series=True)`` with each K1 and K4 launch timed and the
+    first ones kept; writes its block, the global diagnostics, launches,
+    times and its kernels' checks to SHARD_DIR."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(REPO))
+    from elmkernels_torch import parallel
+    from elmkernels_torch.data.state import ModelState
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.utils.dates import Date
+    spec = json.loads((SHARD_DIR / "spec.json").read_text())
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=nranks, rank=rank)
+    mesh = parallel.column_mesh(spec["ncol"])
+    label = f"{backend} rank {rank} of {nranks}"
+    model = Model.from_surfdata(spec["surfdata"], mesh.ncol, col0=mesh.col0,
+                                sharding=mesh, **spec["kw"])
+    initial = torch.load(SHARD_DIR / "initial.pt", weights_only=True)
+    model.state = parallel.shard_state(mesh, ModelState(**initial))
+    kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
+               "pdma_solve": pdma.pdma_solve}
+    t1, t4 = timers(keep=1, keep_pdma=1)
+    with t1, t4:
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = model.run_windows(Date.from_ymd(1985, 7, 1), LOOPS_STEPS,
+                              window=LOOPS_WINDOW, series=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts(kernels, label)
+    on_path = timed_summaries(t1, t4, launches, label)
+    k1 = check_ci_on_path(t1.kept, 1e-5, label)
+    k4 = check_pdma_on_path(t4.kept, label)
+    torch.save(dict(
+        lo=mesh.lo, hi=mesh.hi, device=str(mesh.device), wall_s=wall,
+        state={k: v.cpu() for k, v in model.state._asdict().items()},
+        diags={k: v.cpu() for k, v in d._asdict().items()},
+        launches=launches, on_path=on_path, k1=k1, k4=k4),
+        SHARD_DIR / f"{backend}_rank{rank}.pt")
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_loops(files, loops: dict) -> dict:
+    """The loops phase's run_windows(series=True) split over ranks: two
+    ranks sharing the card on a gloo group, then one rank on an NCCL group
+    (NCCL refuses two ranks on one card), each a subprocess.  Every rank's
+    block must equal the unsharded run's final state bit for bit on every
+    field, its global diagnostics the unsharded reductions (maxima
+    exactly, means to rtol 1e-12), and K1 and K4 must have launched on it
+    and agree with their plain versions on its first calls."""
+    import torch
+    (SHARD_DIR / "spec.json").write_text(json.dumps(dict(
+        ncol=LOOPS_NCOL, surfdata=loops["surfdata"],
+        kw=dict(pft_path=str(files[0]), snicar_path=str(files[1]),
+                **loops["inputs"]))))
+    oracle = torch.load(SHARD_DIR / "oracle.pt", weights_only=True)
+    out = {}
+    for backend, nranks in SHARD_RUNS:
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(pathlib.Path(__file__).resolve()),
+             "--shard-rank", str(r), str(nranks), str(port), backend],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=dict(__import__("os").environ, LOCAL_RANK=str(r)))
+            for r in range(nranks)]
+        wait_all(procs, SHARD_TIMEOUT_S, f"sharded {backend} ranks")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(nranks):
+            got = torch.load(SHARD_DIR / f"{backend}_rank{r}.pt",
+                             weights_only=False)
+            lo, hi = got["lo"], got["hi"]
+            state_diff = [k for k, v in oracle["state"].items()
+                          if not torch.equal(got["state"][k], v[lo:hi])]
+            diag_diff = []
+            for k, v in oracle["diags"].items():
+                g = got["diags"][k]
+                if k.endswith("_mean"):
+                    ok = torch.allclose(g, v, rtol=1e-12, atol=0)
+                else:
+                    ok = torch.equal(g, v)
+                if not ok or g.dtype != v.dtype:
+                    diag_diff.append(k)
+            ranks.append(dict(
+                rank=r, block=[lo, hi], device=got["device"],
+                wall_s=got["wall_s"], launches=got["launches"],
+                on_path=got["on_path"],
+                k1_max_rel=got["k1"]["max_rel"],
+                k1_equal_iters=got["k1"]["equal_iters"],
+                k4_equal=got["k4"]["equal"],
+                state_fields_differing=state_diff,
+                diagnostics_differing=diag_diff))
+        res = dict(backend=backend, ranks=nranks, ncol=LOOPS_NCOL,
+                   steps=LOOPS_STEPS, window=LOOPS_WINDOW,
+                   wall_s_with_start=wall, per_rank=ranks)
+        phase(f"sharded loops, {backend}: " + json.dumps(res))
+        covered = sum(r["block"][1] - r["block"][0] for r in ranks)
+        if covered != LOOPS_NCOL or any(
+                r["state_fields_differing"] or r["diagnostics_differing"]
+                or not all(r["launches"].values()) for r in ranks):
+            raise AssertionError(f"sharded {backend} run differs from the "
+                                 f"unsharded one: {res}")
+        out[backend] = res
+    return out
+
+
+def entry_twins(card: str) -> dict:
+    """The JAX package's entry points' twins, as a user runs them:
+    ``python -m elmkernels_torch.bench`` (BENCH_RUNS), the long run with
+    its resume check, and the single-column demo.  Each bench line is
+    printed beside the card line; the float32 bench's K4 launches are
+    ``pdma_solve_f32``'s."""
+    import os
+    res = {"bench": []}
+    for knobs in BENCH_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "elmkernels_torch.bench"], cwd=REPO,
+            env=dict(os.environ, **knobs), capture_output=True, text=True,
+            timeout=TWIN_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        notes = [ln for ln in proc.stderr.splitlines() if ln.startswith("#")]
+        if proc.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"bench {knobs} exited {proc.returncode}:\n"
+                                 f"{proc.stdout}\n{proc.stderr[-4000:]}")
+        launches = json.loads(next(
+            ln for ln in notes if ln.startswith("# launches: "))[12:])
+        rec = dict(knobs=knobs, wall_s_with_start=wall, line=lines[0],
+                   launches=launches, notes=notes)
+        phase(f"bench twin {json.dumps(knobs)}: {lines[0]}  card: {card}")
+        phase(f"  bench twin {json.dumps(knobs)}, stderr: "
+              + json.dumps(notes))
+        res["bench"].append(rec)
+    f32 = res["bench"][-1]["launches"]
+    if not (f32["pdma_solve_f32"] and not f32["pdma_solve"]):
+        raise AssertionError(f"the float32 bench did not run K4 in float32: "
+                             f"{f32}")
+
+    out_dir = REPO / "build" / "longrun"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "elmkernels_torch.tools.long_run"], cwd=REPO,
+        env=dict(os.environ, LR_OUT=str(out_dir), **LONG_RUN_ENV),
+        capture_output=True, text=True, timeout=TWIN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"long run exited {proc.returncode}:\n"
+                             f"{proc.stdout}\n{proc.stderr[-4000:]}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["long_run"] = dict(summary, wall_s_with_start=wall)
+    phase("long-run twin: " + json.dumps(res["long_run"]))
+    if not (summary["resume_bit_identical"]
+            and summary["guard_failures"] == 0):
+        raise AssertionError(f"the long run failed: {summary}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "elmkernels_torch.examples.run_single_column"],
+        cwd=REPO, capture_output=True, text=True, timeout=TWIN_TIMEOUT_S)
+    lines = proc.stdout.strip().splitlines()
+    res["single_column"] = dict(
+        exit=proc.returncode, lines=len(lines), first=lines[:1],
+        last=lines[-1:], wall_s_with_start=time.perf_counter() - t0)
+    phase("single-column twin: " + json.dumps(res["single_column"]))
+    if proc.returncode != 0 or len(lines) != 101 or not lines[-1].startswith(
+            "final errsol_max="):
+        raise AssertionError(f"the single-column demo failed:\n"
+                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1457,6 +1770,14 @@ def main() -> int:
     from elmkernels_torch.ops import build, ci_solver, pdma
 
     t_script = time.perf_counter()
+    laps, t_lap = {}, [t_script]
+
+    def lap(label: str) -> None:
+        """Seconds since the last lap, printed with the others at the end."""
+        now = time.perf_counter()
+        laps[label] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     card = card_line()
     phase(f"device: {torch.cuda.get_device_name(0)} "
           f"(torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -1475,6 +1796,8 @@ def main() -> int:
     if not spills or any(n != "0" for pair in spills for n in pair):
         raise AssertionError(f"pdma_kernel spills: {spills}")
     phase("K4 pdma_kernel launch layout: " + json.dumps(pdma.layout()))
+    phase("K4 pdma_kernel<float> launch layout: "
+          + json.dumps(pdma.layout(torch.float32)))
 
     # the main path's production flags run the canopy loop, and so the ci
     # solve, in float32 (mixed_canopy): its numbers go in the kernels line
@@ -1486,7 +1809,9 @@ def main() -> int:
     # the production loop's type and mode: float32, "mixed", per-leaf traits
     check_ci(n_leaves, "mixed", torch.float32, 1e-5, time_it=False)
     k4 = check_pdma(262144)
+    k4f = check_pdma(262144, torch.float32)
     entry_overhead()
+    lap("build and kernel checks")
 
     files_dir = REPO / "build" / "synthetic"
     files_dir.mkdir(parents=True, exist_ok=True)
@@ -1502,6 +1827,7 @@ def main() -> int:
     # times per launch from 12 steps around noon under the timers
     main_run, launches, _ = drive(262144, 7, 48, files, "main path",
                                   wrappers)
+    lap("main path")
     t1, t4 = timers(keep_pdma=PDMA_KEPT)
     with t1, t4:
         _, timed, _ = drive(262144, 7, 12, files, "main path, timed",
@@ -1509,24 +1835,43 @@ def main() -> int:
     on_path = timed_summaries(t1, t4, timed, "main path")
     k4_path = check_pdma_on_path(t4.kept, "main path")
     del t1, t4
+    lap("main path, timed")
+    f32 = float32_path(files)
+    lap("float32 path")
     winter, _, winter_model = drive(8192, 1, WINTER_STEPS, files,
                                     "winter path", wrappers)
     if winter["snl_max"] == 0:
         raise AssertionError("winter path made no snow layers")
+    lap("winter path")
     winter_aging(winter_model, files, wrappers)
     del winter_model
-    check_loops(files, wrappers)
+    lap("winter aging")
+    loops = check_loops(files, wrappers)
+    lap("loops")
+    shard = sharded_loops(files, loops)
+    lap("sharded loops")
     inputs = global_inputs()
     prod, prod_launches, on_prod = production_loop(files, inputs, wrappers)
+    lap("production loop")
     _, land_launches, on_land = landunits(files, inputs, wrappers,
                                           prod["ms_per_step"])
+    lap("landunits")
     operations(files, inputs, wrappers)
+    lap("operations")
     sens = sensitivity(files, inputs)
     on_sens, sens_launches = sens["on_path"], sens["launches"]
+    lap("sensitivity")
+    twins = entry_twins(card)
+    lap("entry-point twins")
 
     def numbers(name, test):
         m, p, g = on_path[name], on_prod[name], on_land[name]
+        ranks = [r for run in shard.values() for r in run["per_rank"]]
         return dict(launches=launches[name], ms=m["ms"],
+                    shard_launches=[r["launches"][name] for r in ranks],
+                    shard_ms=[r["on_path"][name]["ms"] for r in ranks],
+                    shard_share_of_bound=[
+                        r["on_path"][name]["share_of_bound"] for r in ranks],
                     bound_ms=m["bound_ms"], bound_by=m["bound_by"],
                     share_of_bound=m["share_of_bound"],
                     plain_ms=test["plain_ms"], test_ms=test["test_ms"],
@@ -1558,6 +1903,21 @@ def main() -> int:
                  "max_rel_tangent"],
              **numbers("pdma_solve", k4)),
     ]
+    # K4 in float32 runs on the float32 path (and the float32 bench): its
+    # launches and per-launch times are that path's
+    t = f32["on_path"]
+    kernels.append(dict(
+        name="pdma_solve_f32", route="cuda",
+        source="elmkernels_torch/csrc/pdma_solve.cu",
+        replaces="elmkernels_tpu/physics/soil_temperature.py:282",
+        launches=f32["launches"]["pdma_solve_f32"],
+        max_abs_err=max(k4f["max_abs_x"], f32["k4"]["max_abs_x"]),
+        ms=t["ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        share_of_bound=t["share_of_bound"], plain_ms=k4f["plain_ms"],
+        library_ms=k4f["library_ms"], test_ms=k4f["test_ms"],
+        test_bound_ms=k4f["test_bound_ms"],
+        test_share_of_bound=k4f["test_share_of_bound"],
+        bench_launches=twins["bench"][-1]["launches"]["pdma_solve_f32"]))
     # K1-T runs only on the sensitivity path: its launches and times are
     # that path's
     k1t, t = sens["res"]["k1t"], on_sens["ci_hybrid_solve_jvp"]
@@ -1574,6 +1934,7 @@ def main() -> int:
         sens_max_rel_value=k1t["max_rel_value"],
         sens_max_rel_tangent=k1t["max_rel_tangent"],
         sens_equal_iters=k1t["equal_iters"]))
+    phase("phase times, s: " + json.dumps(laps))
     phase(f"script: {time.perf_counter() - t_script:.1f} s after start")
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -1584,4 +1945,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--shard-rank"]:
+        rank, nranks, port = (int(a) for a in sys.argv[2:5])
+        sys.exit(shard_rank(rank, nranks, port, sys.argv[5]))
     sys.exit(main())

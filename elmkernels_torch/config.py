@@ -49,7 +49,8 @@ class RunConfig:
     forcing_basename: str | None = None
     # surfdata NetCDF with monthly phenology; None selects the synthetic
     phenology_path: str | None = None
-    # float64 model (False: float32, on the CPU only)
+    # float64 model (False: float32 throughout, the JAX package's
+    # all-float32 mode)
     f64: bool = True
     # ELM's snow grain aging; False is reference-exact
     elm_correct_snow_aging: bool = False
@@ -87,10 +88,6 @@ class RunConfig:
             raise NotImplementedError(
                 "packed_carry is not ported to elmkernels_torch yet; run "
                 "with packed_carry=false")
-        if not self.f64 and self.device != "cpu":
-            raise ValueError("f64=false runs on the CPU only (device='cpu'):"
-                             " the card's soil/snow solve kernel takes "
-                             "float64")
         kw: dict[str, Any] = dict(
             dtime=self.dtime, pft_path=self.pft_path,
             snicar_path=self.snicar_path,

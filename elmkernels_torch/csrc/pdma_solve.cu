@@ -12,11 +12,15 @@
 // with --fmad=false so no multiply-add is contracted and the results equal
 // the plain version's to the last bit.
 //
-// Bound: bytes.  Per column the solve reads 105 + 21 doubles and writes
-// 21 (1176 B) for ~400 flops, far below the card's flop/byte balance.
-// A column's bands and right-hand side are contiguous, so a tile of
-// kTile consecutive columns is one contiguous range of lhs (kTile x 840 B)
-// and one of rhs (kTile x 168 B).  The design moves those ranges with
+// The solve is one template over the element type T, instantiated for
+// float64 (pdma_solve_f64) and float32 (pdma_solve_f32, the model's
+// all-float32 mode).  Sizes below are for float64, float32's in brackets.
+//
+// Bound: bytes.  Per column the solve reads 105 + 21 elements and writes
+// 21 (1176 B [588 B]) for ~400 flops, far below the card's flop/byte
+// balance.  A column's bands and right-hand side are contiguous, so a tile
+// of kTile consecutive columns is one contiguous range of lhs
+// (kTile x 840 B [420 B]) and one of rhs (kTile x 168 B [84 B]).  The design moves those ranges with
 // Hopper's bulk asynchronous copy and leaves the recurrence per thread:
 //
 // - A persistent grid: (SMs x resident blocks per SM) blocks, both read at
@@ -25,9 +29,10 @@
 // - A ring of kStages stages in dynamic shared memory, each one tile's lhs
 //   and rhs with its own mbarrier.  Thread 0 issues the bulk loads of the
 //   next kStages tiles while the block solves the current one.
-// - The recurrence reads its rows from shared memory (column strides of
-//   105 and 21 doubles are odd, so a warp's 8-byte accesses hit distinct
-//   banks).  A[i] and B[i] overwrite row i's super-diagonal bands and Z[i]
+// - The recurrence reads its rows from shared memory.  Column strides of
+//   105 and 21 elements are odd: a float32 warp's 4-byte accesses hit 32
+//   distinct banks, and each half-warp phase of a float64 warp's 8-byte
+//   accesses hits 16 distinct bank pairs, so neither conflicts.  A[i] and B[i] overwrite row i's super-diagonal bands and Z[i]
 //   the row's right-hand side, as each row is read once; x overwrites Z in
 //   the back substitution.  No per-column arrays live in registers.
 // - x leaves by one bulk store from the stage's rhs slot, after
@@ -35,20 +40,24 @@
 //
 // Tile and stages: the solve of a tile is a serial chain of 21 divisions
 // per thread, so the card needs many columns solving at once, and every
-// column solving holds its 1008 B in shared memory.  kTile = 32 (one warp)
-// and kStages = 2 make a block of 64,528 B, three of which fit on an SM
-// (228 KB): 96 columns solve at once and up to six 32 KB loads are in
-// flight per SM, well above the ~25 KB that 3.35 TB/s over 132 SMs needs
-// at ~1 us of latency.  A 64-column tile fits one block per SM (two
-// stages), cutting the columns that solve at once from 96 to 64.
+// column solving holds its 1008 B [504 B] in shared memory.  kTile = 32
+// (one warp) and kStages = 2 make a block of 64,528 B [32,272 B], three
+// [six] of which fit on an SM (228 KB): 96 [192] columns solve at once and
+// up to six 32 KB [twelve 16 KB] loads are in flight per SM, well above
+// the ~25 KB that 3.35 TB/s over 132 SMs needs at ~1 us of latency.  For
+// float64 a 64-column tile fits one block per SM (two stages), cutting the
+// columns that solve at once from 96 to 64.
 //
-// Alignment: a bulk copy needs 16-B aligned addresses and sizes.  Tiles
-// start at even columns and move by bulk copy when they hold an even
-// number of columns (kTile x 840 B and kTile x 168 B are multiples of 16).
-// The one tile that holds an odd count, the last one for odd ncol, is
-// loaded and stored by the block's threads with plain coalesced accesses.
-// The base pointers must be 16-B aligned (the wrapper, ops/pdma.py, makes
-// them so); pdma_solve_f64 refuses others.
+// Alignment: a bulk copy needs 16-B aligned addresses and sizes.  A run
+// of kBulkCols columns is a multiple of 16 B in lhs and rhs: 2 columns
+// for float64 (1680 B, 336 B), 4 for float32 (1680 B, 336 B).  Tiles start
+// at multiples of kTile columns (kTile x 840 B [420 B] and kTile x 168 B
+// [84 B] are multiples of 16) and move by bulk copy when they hold a
+// multiple of kBulkCols columns.  The one tile that does not, the last
+// one when ncol is not such a multiple, is loaded and stored by the
+// block's threads with plain coalesced accesses.  The base pointers must
+// be 16-B aligned (the wrapper, ops/pdma.py, makes them so); the entry
+// points refuse others.
 
 #include <cuda_runtime.h>
 
@@ -58,17 +67,28 @@ namespace {
 
 constexpr int kRows = 21;
 constexpr int kBands = 5;
-constexpr int kLhsCol = kRows * kBands;  // doubles of lhs per column
+constexpr int kLhsCol = kRows * kBands;  // elements of lhs per column
 constexpr int kTile = 32;                // columns per tile = threads per block
 constexpr int kStages = 2;
-constexpr unsigned kLhsTileBytes = kTile * kLhsCol * sizeof(double);
-constexpr unsigned kRhsTileBytes = kTile * kRows * sizeof(double);
-constexpr unsigned kStageBytes = kLhsTileBytes + kRhsTileBytes;
-constexpr unsigned kSmemBytes =
-    kStages * kStageBytes + kStages * sizeof(unsigned long long);
-static_assert(kTile % 2 == 0 && kLhsTileBytes % 16 == 0 &&
-                  kRhsTileBytes % 16 == 0,
-              "stages must keep 16-B alignment for the bulk copies");
+
+constexpr unsigned gcd(unsigned a, unsigned b) { return b ? gcd(b, a % b) : a; }
+
+// Shared-memory layout and bulk-copy granule of the solve in type T.
+template <typename T>
+struct Layout {
+  static constexpr unsigned kLhsTileBytes = kTile * kLhsCol * sizeof(T);
+  static constexpr unsigned kRhsTileBytes = kTile * kRows * sizeof(T);
+  static constexpr unsigned kStageBytes = kLhsTileBytes + kRhsTileBytes;
+  static constexpr unsigned kSmemBytes =
+      kStages * kStageBytes + kStages * sizeof(unsigned long long);
+  // fewest columns whose lhs and rhs are both whole multiples of 16 B
+  static constexpr unsigned kLhsCols = 16 / gcd(16, kLhsCol * sizeof(T));
+  static constexpr unsigned kRhsCols = 16 / gcd(16, kRows * sizeof(T));
+  static constexpr int kBulkCols = kLhsCols > kRhsCols ? kLhsCols : kRhsCols;
+  static_assert(kTile % kBulkCols == 0 && kLhsTileBytes % 16 == 0 &&
+                    kRhsTileBytes % 16 == 0 && kStageBytes % 16 == 0,
+                "stages must keep 16-B alignment for the bulk copies");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -118,32 +138,33 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
 
 // One column in shared memory: d [21][5] bands, r [21] right-hand side.
 // On return r holds x; d's bands 0 and 1 hold B and A.
-__device__ __forceinline__ void solve_column(double* d, double* r) {
-  double U = 1.0 / d[2];
-  double a2 = d[1] * U;  // A[i-2], B[i-2], Z[i-2] as i advances
-  double b2 = d[0] * U;
-  double z2 = r[0] * U;
+template <typename T>
+__device__ __forceinline__ void solve_column(T* d, T* r) {
+  T U = T(1) / d[2];
+  T a2 = d[1] * U;  // A[i-2], B[i-2], Z[i-2] as i advances
+  T b2 = d[0] * U;
+  T z2 = r[0] * U;
   d[1] = a2;
   d[0] = b2;
   r[0] = z2;
 
-  double Y = d[kBands + 3];
-  U = 1.0 / (d[kBands + 2] - a2 * Y);
-  double a1 = (d[kBands + 1] - b2 * Y) * U;  // A[i-1], B[i-1], Z[i-1]
-  double b1 = d[kBands + 0] * U;
-  double z1 = (r[1] - z2 * Y) * U;
+  T Y = d[kBands + 3];
+  U = T(1) / (d[kBands + 2] - a2 * Y);
+  T a1 = (d[kBands + 1] - b2 * Y) * U;  // A[i-1], B[i-1], Z[i-1]
+  T b1 = d[kBands + 0] * U;
+  T z1 = (r[1] - z2 * Y) * U;
   d[kBands + 1] = a1;
   d[kBands + 0] = b1;
   r[1] = z1;
 
 #pragma unroll
   for (int i = 2; i < kRows; ++i) {
-    double* di = d + i * kBands;
+    T* di = d + i * kBands;
     Y = di[3] - a2 * di[4];
-    U = 1.0 / (di[2] - b2 * di[4] - a1 * Y);
-    const double a = (di[1] - b1 * Y) * U;
-    const double b = di[0] * U;
-    const double z = (r[i] - z2 * di[4] - z1 * Y) * U;
+    U = T(1) / (di[2] - b2 * di[4] - a1 * Y);
+    const T a = (di[1] - b1 * Y) * U;
+    const T b = di[0] * U;
+    const T z = (r[i] - z2 * di[4] - z1 * Y) * U;
     di[1] = a;
     di[0] = b;
     r[i] = z;
@@ -156,21 +177,25 @@ __device__ __forceinline__ void solve_column(double* d, double* r) {
   }
 
   // x[20] = Z[20] (already in r[20]); x[19] = Z[19] - A[19] x[20]
-  double xp2 = z1;
-  double xp1 = z2 - a2 * xp2;
+  T xp2 = z1;
+  T xp1 = z2 - a2 * xp2;
   r[kRows - 2] = xp1;
 #pragma unroll
   for (int i = kRows - 3; i >= 0; --i) {
-    const double xi = r[i] - d[i * kBands + 1] * xp1 - d[i * kBands] * xp2;
+    const T xi = r[i] - d[i * kBands + 1] * xp1 - d[i * kBands] * xp2;
     r[i] = xi;
     xp2 = xp1;
     xp1 = xi;
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kTile)
-    pdma_kernel(long long ncol, const double* __restrict__ lhs,
-                const double* __restrict__ rhs, double* __restrict__ x) {
+    pdma_kernel(long long ncol, const T* __restrict__ lhs,
+                const T* __restrict__ rhs, T* __restrict__ x) {
+  using L = Layout<T>;
+  constexpr unsigned kStageBytes = L::kStageBytes;
+  constexpr unsigned kLhsTileBytes = L::kLhsTileBytes;
   extern __shared__ __align__(128) unsigned char smem[];
   unsigned long long* bars =
       reinterpret_cast<unsigned long long*>(smem + kStages * kStageBytes);
@@ -180,15 +205,15 @@ __global__ void __launch_bounds__(kTile)
     const long long c = ncol - t * kTile;
     return c < kTile ? static_cast<int>(c) : kTile;
   };
-  // Thread 0: start the bulk loads of tile t into stage s.  A tile of odd
-  // count is left to the threads.
+  // Thread 0: start the bulk loads of tile t into stage s.  A tile whose
+  // count is not a multiple of kBulkCols is left to the threads.
   auto issue = [&](long long t, int s) {
     const int cnt = count(t);
-    if (cnt % 2) return;
+    if (cnt % L::kBulkCols) return;
     unsigned char* st = smem + s * kStageBytes;
     const uint32_t bar = smem_addr(&bars[s]);
-    const uint32_t lb = cnt * kLhsCol * sizeof(double);
-    const uint32_t rb = cnt * kRows * sizeof(double);
+    const uint32_t lb = cnt * kLhsCol * sizeof(T);
+    const uint32_t rb = cnt * kRows * sizeof(T);
     mbar_expect_tx(bar, lb + rb);
     bulk_load(smem_addr(st), lhs + t * kTile * kLhsCol, lb, bar);
     bulk_load(smem_addr(st + kLhsTileBytes), rhs + t * kTile * kRows, rb,
@@ -208,12 +233,11 @@ __global__ void __launch_bounds__(kTile)
   uint32_t phase = 0;  // bit s: parity of stage s's next completion
   int s = 0;
   for (long long t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    double* sl = reinterpret_cast<double*>(smem + s * kStageBytes);
-    double* sr =
-        reinterpret_cast<double*>(smem + s * kStageBytes + kLhsTileBytes);
+    T* sl = reinterpret_cast<T*>(smem + s * kStageBytes);
+    T* sr = reinterpret_cast<T*>(smem + s * kStageBytes + kLhsTileBytes);
     const int cnt = count(t);
     const long long c0 = t * kTile;
-    const bool bulk = cnt % 2 == 0;
+    const bool bulk = cnt % L::kBulkCols == 0;
     if (bulk) {
       mbar_wait(smem_addr(&bars[s]), (phase >> s) & 1u);
       phase ^= 1u << s;
@@ -232,7 +256,7 @@ __global__ void __launch_bounds__(kTile)
     if (bulk) {
       if (tid == 0) {
         bulk_store(x + c0 * kRows, smem_addr(sr),
-                   cnt * kRows * sizeof(double));
+                   cnt * kRows * sizeof(T));
         asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
         const long long next = t + static_cast<long long>(kStages) * gridDim.x;
         if (next < ntiles) issue(next, s);
@@ -247,26 +271,28 @@ __global__ void __launch_bounds__(kTile)
 
 constexpr int kMaxDevices = 64;
 
-// Blocks of pdma_kernel resident on the current device: SMs x blocks per
-// SM at kSmemBytes of dynamic shared memory.  Sets the kernel's shared
-// memory limit first (it needs more than the default 48 KB).  Cached per
-// device.
+// Blocks of pdma_kernel<T> resident on the current device: SMs x blocks
+// per SM at Layout<T>::kSmemBytes of dynamic shared memory.  Sets the
+// kernel's shared memory limit first (float64's needs more than the
+// default 48 KB).  Cached per device and type.
+template <typename T>
 int resident_blocks(int* sms_out, int* per_sm_out) {
+  constexpr unsigned kSmemBytes = Layout<T>::kSmemBytes;
   static int sms[kMaxDevices], per_sm[kMaxDevices];
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (per_sm[dev] == 0) {
-    err = cudaFuncSetAttribute(pdma_kernel,
+    err = cudaFuncSetAttribute(pdma_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kSmemBytes);
     if (err != cudaSuccess) return err;
     int n = 0, k = 0;
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k, pdma_kernel, kTile,
-                                                        kSmemBytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &k, pdma_kernel<T>, kTile, kSmemBytes);
     if (err != cudaSuccess) return err;
     if (k < 1) return cudaErrorInvalidConfiguration;
     sms[dev] = n;
@@ -277,41 +303,61 @@ int resident_blocks(int* sms_out, int* per_sm_out) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// lhs [ncol, 21, 5], rhs [ncol, 21], x [ncol, 21]: contiguous float64 on
-// the device, each 16-B aligned.  Launches on `stream` and returns the
-// first CUDA error (cudaErrorMisalignedAddress for an unaligned pointer).
-extern "C" int pdma_solve_f64(long long ncol, const void* lhs, const void* rhs,
-                              void* x, void* stream) {
+template <typename T>
+int launch(long long ncol, const void* lhs, const void* rhs, void* x,
+           void* stream) {
   if (ncol <= 0) return 0;
   if ((reinterpret_cast<uintptr_t>(lhs) | reinterpret_cast<uintptr_t>(rhs) |
        reinterpret_cast<uintptr_t>(x)) % 16)
     return cudaErrorMisalignedAddress;
   int sms = 0, per_sm = 0;
-  const int err = resident_blocks(&sms, &per_sm);
+  const int err = resident_blocks<T>(&sms, &per_sm);
   if (err != cudaSuccess) return err;
   const long long ntiles = (ncol + kTile - 1) / kTile;
   const long long cap = static_cast<long long>(sms) * per_sm;
   const long long grid = ntiles < cap ? ntiles : cap;
-  pdma_kernel<<<static_cast<unsigned>(grid), kTile, kSmemBytes,
-                static_cast<cudaStream_t>(stream)>>>(
-      ncol, static_cast<const double*>(lhs), static_cast<const double*>(rhs),
-      static_cast<double*>(x));
+  pdma_kernel<T><<<static_cast<unsigned>(grid), kTile, Layout<T>::kSmemBytes,
+                   static_cast<cudaStream_t>(stream)>>>(
+      ncol, static_cast<const T*>(lhs), static_cast<const T*>(rhs),
+      static_cast<T*>(x));
   return static_cast<int>(cudaGetLastError());
 }
 
-// What the launch chooses on the current device: out = {columns per tile,
-// stages, dynamic shared memory bytes per block, resident blocks per SM,
-// SMs}.  Returns a CUDA error code.
-extern "C" int pdma_solve_layout(int* out) {
+template <typename T>
+int layout(int* out) {
   int sms = 0, per_sm = 0;
-  const int err = resident_blocks(&sms, &per_sm);
+  const int err = resident_blocks<T>(&sms, &per_sm);
   if (err != cudaSuccess) return err;
   out[0] = kTile;
   out[1] = kStages;
-  out[2] = static_cast<int>(kSmemBytes);
+  out[2] = static_cast<int>(Layout<T>::kSmemBytes);
   out[3] = per_sm;
   out[4] = sms;
   return cudaSuccess;
+}
+
+}  // namespace
+
+// lhs [ncol, 21, 5], rhs [ncol, 21], x [ncol, 21]: contiguous float64
+// (float32) on the device, each 16-B aligned.  Launches on `stream` and
+// returns the first CUDA error (cudaErrorMisalignedAddress for an
+// unaligned pointer).
+extern "C" int pdma_solve_f64(long long ncol, const void* lhs, const void* rhs,
+                              void* x, void* stream) {
+  return launch<double>(ncol, lhs, rhs, x, stream);
+}
+
+extern "C" int pdma_solve_f32(long long ncol, const void* lhs, const void* rhs,
+                              void* x, void* stream) {
+  return launch<float>(ncol, lhs, rhs, x, stream);
+}
+
+// What the launch of the solve in elements of `elem_bytes` bytes (8 or 4)
+// chooses on the current device: out = {columns per tile, stages, dynamic
+// shared memory bytes per block, resident blocks per SM, SMs}.  Returns a
+// CUDA error code.
+extern "C" int pdma_solve_layout(int elem_bytes, int* out) {
+  if (elem_bytes == 8) return layout<double>(out);
+  if (elem_bytes == 4) return layout<float>(out);
+  return cudaErrorInvalidValue;
 }

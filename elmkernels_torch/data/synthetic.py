@@ -32,9 +32,16 @@ port's read these files through their own readers.
 - :func:`landunit_map` gives a global grid's columns their landunit types
   (soil, crop, wetland and ice sheet, from the latitudes and a seed), and
   :func:`landunit_vtypes` leaves ice and wetland columns unvegetated.
+- :func:`parameter_files` and :func:`global_surfdata` give the entry
+  points (``elmkernels_torch.bench``, ``examples.run_single_column``,
+  ``tools.long_run``) their files under ``build/`` in the checkout,
+  written once.
 """
 
 from __future__ import annotations
+
+import os
+import pathlib
 
 import numpy as np
 
@@ -335,6 +342,40 @@ def write_global_inputs(directory, ncell: int, forcing_grid=None,
         write_forcing_months(out["forcing_basename"], year, month, nmonths,
                              nlat, nlon)
     return out
+
+
+# where the entry points keep the files they write: build/ at the root of
+# the checkout (listed in .gitignore)
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build"
+
+
+def _ensure(path: pathlib.Path, write) -> str:
+    """``path``, written by ``write(file)`` first if it is missing; the
+    file appears whole (written aside, then renamed)."""
+    if not path.exists():
+        path.parent.mkdir(parents=True, exist_ok=True)
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
+        write(tmp)
+        os.replace(tmp, path)
+    return str(path)
+
+
+def parameter_files(directory=None) -> tuple[str, str]:
+    """(pft_path, snicar_path): the synthetic ``clm_params.nc`` and
+    ``snicar_optics.nc`` in ``directory`` (default ``build/synthetic``,
+    where ``chip_smoke.py`` writes them), written if missing."""
+    d = pathlib.Path(directory) if directory else BUILD_DIR / "synthetic"
+    return (_ensure(d / "clm_params.nc", write_clm_params),
+            _ensure(d / "snicar_optics.nc", write_snicar_optics))
+
+
+def global_surfdata(ncell: int, directory=None) -> str:
+    """The ``ncell``-cell global surfdata in ``directory`` (default
+    ``build/global``), written if missing: the JAX package's
+    ``tools/make_global_surfdata.py:ensure_surfdata``."""
+    d = pathlib.Path(directory) if directory else BUILD_DIR / "global"
+    return _ensure(d / f"surfdata_{ncell}.nc",
+                   lambda p: write_global_surfdata(p, ncell))
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,12 @@ Four loops drive the step over time, with the same results:
 The three device loops copy from pinned memory when the model is on a
 card, and reduce each step's diagnostics on the device
 (:class:`ScanDiagnostics`).
+
+``Model(ncol=mesh.ncol, col0=mesh.col0, sharding=mesh)``, with ``mesh``
+from :func:`elmkernels_torch.parallel.column_mesh`, runs one rank's block
+of a column axis split over a ``torch.distributed`` group.  The step is
+the same and crosses no rank; only the domain diagnostics do, once per
+window of a device loop and once per :meth:`Model.reduce_diags` call.
 """
 
 from __future__ import annotations
@@ -97,6 +103,43 @@ def _stack_diags(per_step: list) -> ScanDiagnostics:
     return ScanDiagnostics(*(torch.stack(v) for v in zip(*per_step)))
 
 
+# the ScanDiagnostics fields that are domain means; the others are maxima
+_MEAN_FIELDS = frozenset(("eflx_sh_mean", "eflx_lh_mean", "fsa_mean",
+                          "t_ref2m_mean", "niters_canopy_mean",
+                          "niters_ci_mean"))
+_IS_MEAN = tuple(k in _MEAN_FIELDS for k in ScanDiagnostics._fields)
+
+
+def _partial_diags(d: step_mod.StepDiagnostics) -> tuple:
+    """One step's ScanDiagnostics fields over this rank's columns: the
+    maxima as :func:`_reduce_diags` takes them, float64 sums in place of
+    the means."""
+    f64 = torch.float64
+    return (d.errh2o.abs().max(), d.errh2o_led.abs().max(),
+            d.errh2osno.abs().max(), d.errh2osno_steady.abs().max(),
+            d.errsol.abs().max(), d.errlon.abs().max(),
+            d.errseb.abs().max(), d.eflx_sh_tot.sum(dtype=f64),
+            d.eflx_lh_tot.sum(dtype=f64), d.fsa.sum(dtype=f64),
+            d.t_ref2m.sum(dtype=f64), d.niters_canopy.max(),
+            d.niters_canopy.sum(dtype=f64), d.niters_ci.sum(dtype=f64))
+
+
+def _global_diags(mesh, per_step: list, wdt) -> ScanDiagnostics:
+    """[nsteps] ScanDiagnostics over every rank's columns from this rank's
+    per-step partials: one MAX and one SUM collective for the window.
+    Maxima come back in their own dtype; means are the global float64
+    sums over the global column count, in the model's dtype ``wdt``."""
+    from elmkernels_torch.parallel.reductions import combine
+    fields = [torch.stack(v) for v in zip(*per_step)]
+    maxima, sums = combine(
+        mesh, maxima=[f for f, m in zip(fields, _IS_MEAN) if not m],
+        sums=[f for f, m in zip(fields, _IS_MEAN) if m])
+    mx, sm = iter(maxima), iter(sums / mesh.ncol_global)
+    return ScanDiagnostics(*((next(sm).to(wdt) if m
+                              else next(mx).to(f.dtype))
+                             for f, m in zip(fields, _IS_MEAN)))
+
+
 def _stack_host(items: list):
     """A list of NamedTuples of numpy arrays/floats (or None fields)
     stacked field by field along a new leading axis."""
@@ -149,6 +192,10 @@ class Model:
     # keeps the static ModelParams.aero_* rates
     aerosol_path: str | None = None
     col0: int = 0  # global column offset of this host's shard
+    # a ColumnMesh (elmkernels_torch.parallel.column_mesh): this model is
+    # its rank's block, ncol=mesh.ncol and col0=mesh.col0, on its device;
+    # None runs every column in one process
+    sharding: object = None
     # snicar_drdt_bst*.nc snow-aging tables; needed by
     # elm_correct_snow_aging=True, inert otherwise
     snow_aging_path: str | None = None
@@ -163,6 +210,18 @@ class Model:
     dtype: torch.dtype = torch.float64
 
     def __post_init__(self):
+        mesh = self.sharding
+        if mesh is not None:
+            if (self.ncol, self.col0) != (mesh.ncol, mesh.col0):
+                raise ValueError(
+                    f"Model(ncol={self.ncol}, col0={self.col0}) is not rank "
+                    f"{mesh.rank}'s block of its mesh: ncol={mesh.ncol}, "
+                    f"col0={mesh.col0}")
+            if self.device is None:
+                self.device = mesh.device
+            elif torch.device(self.device) != mesh.device:
+                raise ValueError(f"device {self.device} is not the "
+                                 f"mesh's {mesh.device}")
         self.device = resolve_device(self.device)
         if self.pft_path is None or self.snicar_path is None:
             raise ValueError("Model needs pft_path and snicar_path "
@@ -337,6 +396,27 @@ class Model:
             date.increment_seconds(int(self.dtime))
         return last
 
+    # ---- domain diagnostics ----------------------------------------------
+
+    def _step_diags(self, d) -> tuple:
+        """A step's reductions inside a device loop: the domain's own, or
+        on a sharded model this rank's partials."""
+        return (_reduce_diags(d) if self.sharding is None
+                else _partial_diags(d))
+
+    def _window_diags(self, per_step: list) -> ScanDiagnostics:
+        """The [nsteps] ScanDiagnostics of a window's :meth:`_step_diags`;
+        on a sharded model they are combined over the ranks here, once."""
+        if self.sharding is None:
+            return _stack_diags(per_step)
+        return _global_diags(self.sharding, per_step, self.dtype)
+
+    def reduce_diags(self, d: step_mod.StepDiagnostics) -> ScanDiagnostics:
+        """A :meth:`run` step's diagnostics reduced as a device loop
+        reduces them ([1] each), over every rank's columns on a sharded
+        model (two collectives)."""
+        return self._window_diags([self._step_diags(d)])
+
     # ---- device loops ----------------------------------------------------
 
     def _promote(self, t: torch.Tensor) -> torch.Tensor:
@@ -387,10 +467,10 @@ class Model:
             f = StepForcing(*(None if v is None else self._promote(v[k])
                               for v in forc))
             p = StepPhenology(*(self._promote(v[k]) for v in phen))
-            out.append(_reduce_diags(self._step(f, p)))
+            out.append(self._step_diags(self._step(f, p)))
             if poll is not None:
                 poll()
-        return _stack_diags(out)
+        return self._window_diags(out)
 
     def run_scan(self, start: Date, nsteps: int) -> ScanDiagnostics:
         """Advance ``nsteps`` from inputs copied to the device once;
@@ -481,10 +561,10 @@ class Model:
                 wt1=pwt1[k], wt2=pwt2[k], mlai=row(phen_uniq.mlai, j),
                 msai=row(phen_uniq.msai, j), mhtop=row(phen_uniq.mhtop, j),
                 mhbot=row(phen_uniq.mhbot, j))
-            out.append(_reduce_diags(self._step(forc, phen)))
+            out.append(self._step_diags(self._step(forc, phen)))
             if poll is not None:
                 poll()
-        return _stack_diags(out)
+        return self._window_diags(out)
 
     def run_scan_series(self, start: Date, nsteps: int) -> ScanDiagnostics:
         """:meth:`run_scan` over the series layout: the same trajectory

@@ -278,12 +278,13 @@ def surface_phase(land: c.LandType, albveg: sa.PFTAlbParams,
             land, *cast_floats((coszen, s.h2osno), f32), s.snl,
             *cast_floats((s.h2osoi_liq, s.h2osoi_ice, s.snw_rds,
                           soil_alb.albsoi, sa_init.mss_cnc_aer_in_fdb,
-                          snicar), f32))
+                          snicar), f32), weight_dtype=wdt)
         drc, dfs = cast_floats((drc, dfs), wdt)
     else:
         drc, dfs = sn.snicar_ad_rt_both(
             land, coszen, s.h2osno, s.snl, s.h2osoi_liq, s.h2osoi_ice,
-            s.snw_rds, soil_alb.albsoi, sa_init.mss_cnc_aer_in_fdb, snicar)
+            s.snw_rds, soil_alb.albsoi, sa_init.mss_cnc_aer_in_fdb, snicar,
+            weight_dtype=wdt)
     grd = sa.ground_albedo(land, coszen, s.frac_sno, soil_alb.albsod,
                            soil_alb.albsoi, drc.albout, dfs.albout)
     fab = sa.flux_absorption_factor(land, coszen, s.frac_sno,

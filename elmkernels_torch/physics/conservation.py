@@ -11,6 +11,14 @@ import torch
 from elmkernels_torch import constants as c
 
 
+def column_water_mass(h2ocan, h2osno, h2osfc, h2osoi_ice, h2osoi_liq):
+    """Total column water [kg/m2] as the reference evaluates it (lines
+    5-15): ``h2osno`` and every layer's ice and liquid, so an active pack
+    counts twice (the step uses :func:`column_water_mass_tracked`)."""
+    return (h2ocan + h2osno + h2osfc
+            + torch.sum(h2osoi_ice + h2osoi_liq, dim=-1))
+
+
 def column_water_mass_tracked(h2ocan, h2osno, h2osfc, h2osoi_ice,
                               h2osoi_liq):
     """Total column water [kg/m2] without the reference's double count:

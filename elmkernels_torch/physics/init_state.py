@@ -1,10 +1,10 @@
-"""Cold-start initialization: soil temperature/water, root fraction,
-topography factors, and per-step init — batched.
+"""Cold-start initialization: snow layers and state, soil
+temperature/water, root fraction, topography factors, and per-step init —
+batched.
 
 Counterpart of ``elmkernels_tpu/physics/init_state.py`` (reference
-``src/physics/init_soil_state_impl.hh``, ``init_topography_impl.hh`` and
-``init_timestep_impl.hh``); its snow-layer initialization from a snow
-depth is not ported yet, as the model cold-starts without snow.
+``src/physics/init_snow_state_impl.hh``, ``init_soil_state_impl.hh``,
+``init_topography_impl.hh`` and ``init_timestep_impl.hh``).
 """
 
 from __future__ import annotations
@@ -14,9 +14,105 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
-from elmkernels_torch.physics.math_utils import levels, rdiv, take_layer
+from elmkernels_torch.physics.math_utils import (levels, rdiv, safe_tanh,
+                                                 take_layer)
 
 _NSNO = c.NLEVSNO
+
+
+class InitSnowLayersOut(NamedTuple):
+    snl: torch.Tensor
+    dz: torch.Tensor   # [ncol, NLEVSNO] snow part
+    z: torch.Tensor
+    zi: torch.Tensor   # [ncol, NLEVSNO+1] (zi[NLEVSNO] = 0)
+
+
+def _select(conds, vals, default, like):
+    """``jnp.select``: the value of the first true condition, else
+    ``default``."""
+    out = torch.full_like(like, default) if not isinstance(
+        default, torch.Tensor) else default
+    for cond, val in reversed(list(zip(conds, vals))):
+        out = torch.where(cond, val, out)
+    return out
+
+
+def init_snow_layers(snow_depth, lakpoi: bool) -> InitSnowLayersOut:
+    """Snow layer structure from an initial snow depth: the reference's
+    8-interval depth ladder (``init_snow_state_impl.hh``,
+    ``init_snow_layers``).  With snow, layers above the top active one
+    keep the SPVAL sentinel; with none (or on a lake) everything is 0."""
+    d = snow_depth
+    ncol = d.shape[0]
+    dz = torch.zeros((ncol, _NSNO), dtype=d.dtype, device=d.device)
+    if lakpoi:
+        return InitSnowLayersOut(torch.zeros_like(d, dtype=torch.int64), dz,
+                                 torch.zeros_like(dz),
+                                 d.new_zeros((ncol, _NSNO + 1)))
+
+    snl = _select([d < 0.01, d <= 0.03, d <= 0.07, d <= 0.18, d <= 0.41],
+                  [0, 1, 2, 3, 4], 5, torch.zeros_like(d, dtype=torch.int64))
+    d4 = _select(
+        [d < 0.01,
+         d <= 0.03,               # snl=1: all in layer 4
+         d <= 0.04,               # snl=2: half/half
+         d <= 0.07,               # snl=2: 0.02 + rest
+         d <= 0.12,               # snl=3
+         d <= 0.18,               # snl=3
+         d <= 0.29,               # snl=4
+         d <= 0.41,               # snl=4
+         d <= 0.64],              # snl=5
+        [0.0, d, d / 2.0, d - 0.02, (d - 0.02) / 2.0, d - 0.07,
+         (d - 0.07) / 2.0, d - 0.18, (d - 0.18) / 2.0], d - 0.41, d)
+    d3 = _select(
+        [d <= 0.03, d <= 0.04, d <= 0.07, d <= 0.12, d <= 0.18, d <= 0.29,
+         d <= 0.41, d <= 0.64],
+        [0.0, d / 2.0, 0.02, (d - 0.02) / 2.0, 0.05, (d - 0.07) / 2.0,
+         0.11, (d - 0.18) / 2.0], 0.23, d)
+    d2 = _select([d <= 0.07, d <= 0.18, d <= 0.41], [0.0, 0.02, 0.05], 0.11,
+                 d)
+    d1 = _select([d <= 0.18, d <= 0.41], [0.0, 0.02], 0.05, d)
+    d0 = torch.where(d <= 0.41, 0.0, torch.full_like(d, 0.02))
+    dz = torch.stack([d0, d1, d2, d3, d4], dim=1)
+
+    top = _NSNO - snl
+    inactive = levels(_NSNO, d)[None, :] < top[:, None]
+    none = (d < 0.01)[:, None]
+    dz = torch.where(none, 0.0, torch.where(inactive, c.SPVAL, dz))
+
+    zi = torch.full((ncol, _NSNO + 1), c.SPVAL, dtype=d.dtype,
+                    device=d.device)
+    zi[:, _NSNO] = 0.0
+    z = torch.full((ncol, _NSNO), c.SPVAL, dtype=d.dtype, device=d.device)
+    for i in range(_NSNO - 1, -1, -1):
+        act = i >= top
+        z[:, i] = torch.where(act, zi[:, i + 1] - 0.5 * dz[:, i], z[:, i])
+        zi[:, i] = torch.where(act, zi[:, i + 1] - dz[:, i], zi[:, i])
+    z = torch.where(none, 0.0, z)
+    zi = torch.where(none, 0.0, zi)
+    return InitSnowLayersOut(snl, dz, z, zi)
+
+
+def init_snow_state(land: c.LandType, snl, snow_depth, h2osno):
+    """Initial ``frac_sno`` and ``snw_rds`` (``init_snow_state_impl.hh``,
+    ``init_snow_state``; the other snow fields start at 0)."""
+    if land.urbpoi:
+        frac_sno = torch.clamp(snow_depth / 0.05, max=1.0)
+    else:
+        snowbd = torch.clamp(
+            h2osno / torch.where(snow_depth > 0.0, snow_depth, 1.0),
+            max=400.0)
+        fmelt = snowbd / 100.0
+        frac_sno = torch.where(
+            snow_depth > 0.0,
+            safe_tanh(snow_depth / (2.5 * c.ZLND * fmelt)), 0.0)
+    lev = levels(_NSNO, snl)[None, :]
+    active = lev >= (_NSNO - snl)[:, None]
+    thin = ((snl == 0) & (h2osno > 0.0))[:, None] & (lev == _NSNO - 1)
+    mask = active | thin
+    snw_rds = torch.where(mask, snow_depth.new_full(mask.shape,
+                                                    c.SNW_RDS_MIN), 0.0)
+    return frac_sno, snw_rds
 
 
 def init_soil_temp(land: c.LandType, snl, ncol, dtype=torch.float64):

@@ -313,17 +313,19 @@ def _snicar_core(band_id_b, is_drc_b, snw_ss_b, snw_asm_b, snw_ext_b,
 
 def _radiation_factor(flg_is_direct: bool, albout_lcl, flx_abs_lcl, mu_not,
                       snw_rds_lcl, snl_top, coszen, h2osno, albsoi,
-                      active) -> SnicarOut:
+                      active, weight_dtype=torch.float64) -> SnicarOut:
     """snow_albedo_radiation_factor (impl:671-771) for one incident flag:
     5-band -> vis/nir weighting, high-SZA near-IR adjustment (direct
     only), and the active/thin-snow/none branch select.  The band weights
-    are an f64 table, so the near-IR sums are f64 whatever the sweep's
-    dtype (as in the JAX package)."""
+    are a table of ``weight_dtype``, so the near-IR sums are in that type
+    whatever the sweep's: float64 in a float64 model, float32 sweep or
+    not, float32 in an all-float32 one (as the JAX package's
+    ``jnp.asarray`` of the weights is with and without x64)."""
     nsno = c.NLEVSNO
     dtype = coszen.dtype
     wgt = _FLX_WGT_DRC if flg_is_direct else _FLX_WGT_DFS
     wgt_sum = sum(wgt[1:5])
-    w = const(tuple(wgt[1:5]), coszen, torch.float64)
+    w = const(tuple(wgt[1:5]), coszen, weight_dtype)
 
     alb_vis = albout_lcl[0]
     alb_nir = torch.sum(w[:, None] * albout_lcl[1:5], dim=0) / wgt_sum
@@ -365,10 +367,13 @@ def _promote(*xs):
 
 def snicar_ad_rt_both(land: c.LandType, coszen, h2osno, snl, h2osoi_liq,
                       h2osoi_ice, snw_rds, albsoi, mss_cnc_aer,
-                      tables: SnicarTables) -> tuple[SnicarOut, SnicarOut]:
+                      tables: SnicarTables,
+                      weight_dtype=torch.float64
+                      ) -> tuple[SnicarOut, SnicarOut]:
     """Direct + diffuse sweeps in one solve: the 5 direct and 5 diffuse
     spectral bands stack into one 10-row band axis (the reference calls
-    SNICAR_AD_RT twice per step)."""
+    SNICAR_AD_RT twice per step).  ``weight_dtype`` is the model's type:
+    the band weights' (:func:`_radiation_factor`)."""
     nbnd = c.NUMRAD_SNW
     dev = coszen.device
     band_id_b = torch.arange(nbnd, device=dev).repeat(2)
@@ -383,8 +388,8 @@ def snicar_ad_rt_both(land: c.LandType, coszen, h2osno, snl, h2osoi_liq,
                      albsoi, mss_cnc_aer, tables)
     drc = _radiation_factor(True, albout_lcl[:nbnd], flx_abs_lcl[:nbnd],
                             mu_not, snw_rds_lcl, snl_top, coszen, h2osno,
-                            albsoi, active)
+                            albsoi, active, weight_dtype)
     dfs = _radiation_factor(False, albout_lcl[nbnd:], flx_abs_lcl[nbnd:],
                             mu_not, snw_rds_lcl, snl_top, coszen, h2osno,
-                            albsoi, active)
+                            albsoi, active, weight_dtype)
     return drc, dfs

@@ -8,6 +8,12 @@ read back by ``torch.load(weights_only=True)`` onto the model's device.
 
 The files are PyTorch's, not orbax's: a checkpoint of the JAX package
 cannot be read here, nor one of the port there.
+
+A sharded model (given its :class:`~elmkernels_torch.parallel.ColumnMesh`)
+writes one file per rank, ``<path>.rank<r>-of-<n>``, which records the
+rank's ``col0``, ``ncol`` and the number of ranks; a restore on a mesh
+reads its rank's file and refuses one written for another block, and an
+unsharded restore refuses a rank's file (and the other way round).
 """
 
 from __future__ import annotations
@@ -24,20 +30,50 @@ PRIMARY_VARS = ("snl", "snow_depth", "frac_sno", "int_snow", "snw_rds",
                 "h2osfc", "t_soisno", "t_grnd", "t_h2osfc", "dz", "z", "zi")
 
 
-def save(path, state: ModelState) -> None:
-    """Write ``state`` to the file ``path`` (its directory is made)."""
+_SHARD_KEY = "__shard__"
+
+
+def _shard(mesh) -> dict | None:
+    """What a rank's checkpoint records of its block (None unsharded)."""
+    if mesh is None:
+        return None
+    return {"col0": mesh.col0, "ncol": mesh.ncol, "nranks": mesh.nranks}
+
+
+def shard_path(path, mesh=None) -> pathlib.Path:
+    """The file of ``mesh``'s rank for checkpoint ``path``."""
     path = pathlib.Path(path)
+    if mesh is None:
+        return path
+    return path.with_name(f"{path.name}.rank{mesh.rank}-of-{mesh.nranks}")
+
+
+def save(path, state: ModelState, mesh=None) -> None:
+    """Write ``state`` to the file ``path`` (its directory is made); on a
+    mesh, this rank's block to its own file, :func:`shard_path`."""
+    path = shard_path(path, mesh)
     path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save(state._asdict(), path)
+    data = state._asdict()
+    if mesh is not None:
+        data[_SHARD_KEY] = _shard(mesh)
+    torch.save(data, path)
 
 
-def restore(path, like: ModelState | None = None,
-            device=None) -> ModelState:
+def restore(path, like: ModelState | None = None, device=None,
+            mesh=None) -> ModelState:
     """Read a checkpoint onto ``device`` (default: ``like``'s device, else
-    the CPU).  With ``like``, every field must have its shape and dtype."""
+    the CPU); on a mesh this rank's file, which must have been written for
+    the same block.  With ``like``, every field must have its shape and
+    dtype."""
     if device is None:
         device = like.t_grnd.device if like is not None else "cpu"
+    path = shard_path(path, mesh)
     data = torch.load(path, map_location=device, weights_only=True)
+    written = data.pop(_SHARD_KEY, None)
+    if written != _shard(mesh):
+        raise ValueError(f"checkpoint {path} was written for block "
+                         f"{written}, not this one, {_shard(mesh)} "
+                         f"(None: unsharded)")
     missing = set(ModelState._fields) - set(data)
     unknown = set(data) - set(ModelState._fields)
     if missing or unknown:

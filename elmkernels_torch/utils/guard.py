@@ -6,6 +6,12 @@ Counterpart of ``elmkernels_tpu/utils/guard.py``.  The reference keeps a
 :class:`StepGuard` snapshots the primary variables on the device, validates
 the post-step state (finiteness and conservation-error bounds), and hands
 back the last validated snapshot on failure, reporting what tripped.
+
+On a sharded model (a guard given the model's
+:class:`~elmkernels_torch.parallel.ColumnMesh`) every check decides on the
+maxima over all ranks, so that every rank passes, or trips and rolls its
+own block back, together: a guard that decided per rank would let the
+ranks' states drift apart without a word.
 """
 
 from __future__ import annotations
@@ -57,7 +63,9 @@ class StepGuard:
     wait per check; ``every`` > 1 checks every ``every``-th call only
     (rollback then restores the last *validated* snapshot).  ``ncol``
     scales the default shortwave bound with the batch
-    (:func:`errsol_bound`); an explicit ``errsol_max`` always wins."""
+    (:func:`errsol_bound`; on a mesh give the global count); an explicit
+    ``errsol_max`` always wins.  With ``mesh`` each check is a collective
+    (one MAX over the ranks), which every rank must call."""
 
     # sentinel default, so that an explicit errsol_max is never replaced
     # by the batch-scaled bound
@@ -66,7 +74,7 @@ class StepGuard:
     def __init__(self, errh2o_max=0.1, errh2o_led_max=1e-9,
                  errh2osno_max=1e-6, errh2osno_steady_max=1e-7,
                  errsol_max=_ERRSOL_UNSET, errseb_max=None, every=1,
-                 ncol=None):
+                 ncol=None, mesh=None):
         self.errh2o_max = errh2o_max
         # the closed ledger is exact to rounding: any excursion is a leak
         self.errh2o_led_max = errh2o_led_max
@@ -77,6 +85,7 @@ class StepGuard:
         self.errseb_max = errseb_max
         self.every = every
         self.ncol = ncol
+        self.mesh = mesh
         if errsol_max is StepGuard._ERRSOL_UNSET:
             errsol_max = errsol_bound(ncol) if ncol is not None else 1e-6
         self.errsol_max = errsol_max
@@ -113,6 +122,9 @@ class StepGuard:
                 continue
             names.append((name, bound))
             vals.append(torch.as_tensor(field, device=dev).abs().max())
+        if self.mesh is not None and self.mesh.group is not None:
+            from elmkernels_torch.parallel.reductions import combine
+            vals = combine(self.mesh, maxima=vals)[0]
         pulled = torch.stack([v.to(torch.float64) for v in vals]).tolist()
 
         reasons = []

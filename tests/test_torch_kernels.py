@@ -176,3 +176,42 @@ def test_ci_function_jvp_on_card(card):
     torch.testing.assert_close(out[-1], ip, rtol=0, atol=0)
     for a, b in zip((*out[:-1], *tan[:-1]), (cp, *op, dcp, *dop)):
         torch.testing.assert_close(a, b, rtol=1e-10, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ncol,offset", PDMA_CASES)
+def test_pdma_f32_kernel_matches_plain(card, ncol, offset):
+    """K4 in float32, bit for bit: the same operations in the same order,
+    each rounded to float32, as the plain version run in float32.  A
+    one-column offset (420 B, 84 B) is off 16-byte alignment too."""
+    from elmkernels_torch.ops.pdma import pdma_solve_f32
+    lhs, rhs = testing.pdma_problem(ncol + offset, 5)
+    lhs = torch.tensor(lhs, device=card, dtype=torch.float32)[offset:]
+    rhs = torch.tensor(rhs, device=card, dtype=torch.float32)[offset:]
+    assert (lhs.data_ptr() % 16 != 0) == bool(offset)
+    torch.testing.assert_close(pdma_solve_f32(lhs, rhs),
+                               tst.pdma_solve_plain(lhs, rhs), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_pdma_function_dispatches_by_dtype(card):
+    """The step's entry point launches the float32 kernel for float32
+    systems and the float64 one for float64; its tangent rule refuses
+    float32."""
+    from elmkernels_torch.ops import pdma
+    lhs, rhs = testing.pdma_problem(4096, 9)
+    for dtype, wrapper in ((torch.float32, pdma.pdma_solve_f32),
+                           (torch.float64, pdma.pdma_solve)):
+        lt = torch.tensor(lhs, device=card, dtype=dtype)
+        rt = torch.tensor(rhs, device=card, dtype=dtype)
+        before = wrapper.launches
+        x = pdma.solve(lt, rt)
+        assert wrapper.launches == before + 1 and x.dtype == dtype
+        torch.testing.assert_close(x, tst.pdma_solve_plain(lt, rt), rtol=0,
+                                   atol=0)
+    lt = torch.tensor(lhs, device=card, dtype=torch.float32)
+    rt = torch.tensor(rhs, device=card, dtype=torch.float32)
+    with pytest.raises(TypeError, match="float64"):
+        torch.func.jvp(pdma.PdmaSolve.apply, (lt, rt),
+                       (torch.zeros_like(lt), torch.ones_like(rt)))

@@ -122,7 +122,7 @@ def test_config_fields_match_jax():
     assert tf["pft_path"] is None and tf["device"] is None
 
 
-def test_config_make_model_on_cpu(files):
+def test_config_make_model_on_cpu(files, monkeypatch):
     cfg = tconfig.RunConfig(ncol=3, lat_deg=40.0, device="cpu",
                             pft_path=files[0], snicar_path=files[1],
                             mixed_canopy=False)
@@ -135,8 +135,10 @@ def test_config_make_model_on_cpu(files):
         tconfig.RunConfig(packed_carry=True, device="cpu",
                           pft_path=files[0],
                           snicar_path=files[1]).make_model()
-    # float32 runs the plain path only: the card's soil solve is float64
-    with pytest.raises(ValueError, match="f64"):
+    # float32 runs on the card too (K4 has a float32 instantiation): with
+    # no device named, the model asks for a card, which the CPU has not
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
         tconfig.RunConfig(f64=False, pft_path=files[0],
                           snicar_path=files[1]).make_model()
     m32 = tconfig.RunConfig(f64=False, device="cpu", pft_path=files[0],
