@@ -13,6 +13,11 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    2 x 262,144 leaves (c3 and mixed in float64 and float32, c4 in
    float64; mixed with traits that differ per leaf), and times the c3
    float32 case, the main path's mode and type, on that test problem;
+   holds ``ci_hybrid_solve_jvp`` (K1-T) bit for bit against
+   ``torch.func.jvp`` of the plain solve on 2 x 262,144 "mixed" leaves at
+   dry shares 0.25 and 1.0 and profiles it there (:func:`k1t_profile`:
+   ms, bound, evaluations a leaf by kind, warp efficiency, the f64 pipe's
+   floor; registers, spills and resident blocks from a probe build);
 4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
    against their plain versions bit for bit at ten column counts from 1
    to 262,145 and on views off 16-byte alignment, and times each, its
@@ -82,7 +87,11 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    seeding; the ``tbot`` tangents of four fluxes against central
    differences (h = 1e-3 K, rtol 2e-3, atol 1e-4) on the columns where
    the perturbed runs take the same solver iterations and are smooth; the
-   first kept K1-T and K4 tangent calls against their plain versions;
+   first kept K1-T and K4 tangent calls against their plain versions
+   (K1-T bit for bit) and K1-T's profile on its kept calls; then one
+   ``run_jvp`` step from 12:00 UTC, where K1-T's leaves need the solve
+   (:func:`sens_noon`: every launch timed, the first calls profiled and
+   held bit for bit);
 12. the JAX package's entry points' twins, as subprocesses:
    ``python -m elmkernels_torch.bench`` at its defaults, with
    ``BENCH_HETERO=1`` and with ``BENCH_F32=1 BENCH_DAYS=1`` (each JSON line
@@ -93,9 +102,13 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    per launch on the main path, ``prod_*`` the same on the production
    loop, ``land_*`` on the landunits phase, ``sens_*`` on the sensitivity
    path, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4;
-   K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path;
+   K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path,
+   ``sens_noon_*`` from its noon step;
    ``shard_*`` per rank of the sharded runs; ``pdma_solve_f32``'s entry
    from the float32 path), the card line, and ``{"ok": true, ...}`` last.
+
+``python3 chip_smoke.py --k1t-profile`` runs K1-T's profile alone
+(:func:`k1t_profile_main`).
 
 Any failed check raises and the script exits non-zero.  Synthetic
 input files and the kernel builds go under ``build/`` in the checkout.
@@ -161,22 +174,49 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def ci_bound(x0, enabled, iters):
+def guarded_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls after a warm-up,
+    each held between CUDA events that the card reaches only after a
+    GUARD_CYCLES sleep, so that the host's time to launch ``fn`` (its
+    wrapper's checks and allocations) falls outside the pair, as in
+    :class:`MainPathTimes`."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(GUARD_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        pairs.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def ci_evals(x0, env, mode, enabled):
+    """The residual evaluations these leaves' solves need: the starting
+    ones, the secant steps, the overflow re-evaluation and Brent's steps
+    that each leaf commits, counted by the plain solve's masks
+    (``testing.ci_eval_counts``; it waits on the card)."""
+    from elmkernels_torch.ops import testing
+    counts = testing.ci_eval_counts(x0, env, mode, enabled)
+    return float(sum(c.double().sum() for c in counts.values()))
+
+
+def ci_bound(x0, env, mode, enabled):
     """(bytes ms, operations ms) of one ci solve: bytes are the 20 inputs
     and ``enabled`` read, the 7 outputs and the iterations written;
-    operations the residual evaluations these leaves needed (the two
-    starting ones, the secant steps, the overflow re-evaluation; Brent's
-    steps not counted).  The operations time stays a tensor on the card,
-    so that no call waits on it."""
-    from elmkernels_torch.physics.photosynthesis import SECANT_ITMAX
+    operations the residual evaluations these leaves need
+    (:func:`ci_evals`, Brent's steps included)."""
     n, itemsize = x0.shape[0], x0.element_size()
     nbytes = n * (20 * itemsize + 1 + 7 * itemsize + 4)
-    it = iters.double()
-    evals = (enabled.double() * (2 + it + (iters > SECANT_ITMAX).double())
-             ).sum()
     dtype = str(x0.dtype).replace("torch.", "")
     return (nbytes / HBM_BYTES_PER_S * 1e3,
-            evals * CI_FUNC_FLOPS / PEAK_FLOPS[dtype] * 1e3)
+            ci_evals(x0, env, mode, enabled) * CI_FUNC_FLOPS
+            / PEAK_FLOPS[dtype] * 1e3)
 
 
 class MainPathTimes:
@@ -257,6 +297,7 @@ class MainPathTimes:
         return dict(calls=len(self.calls), late=len(self.calls) - n,
                     host_ms_median=host_ms[len(host_ms) // 2],
                     host_ms_max=host_ms[-1], ms=ms, bound_ms=bound,
+                    bytes_ms=sum(t_bytes) / n, operations_ms=sum(t_ops) / n,
                     share_of_bound=bound / ms,
                     bound_by="bytes" if sum(t_bytes) >= sum(t_ops)
                     else "operations")
@@ -287,8 +328,7 @@ def check_ci(n: int, mode: str, dtype, tol: float, time_it: bool):
                                  20)
         res["plain_ms"] = cuda_ms(
             lambda: psn.hybrid_solve_plain(x0, env, mode, en), 3)
-        t_bytes, t_ops = ci_bound(x0, en, it_k)
-        t_ops = t_ops.item()
+        t_bytes, t_ops = ci_bound(x0, env, mode, en)
         res["test_bound_ms"] = max(t_bytes, t_ops)
         res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         res["test_share_of_bound"] = res["test_bound_ms"] / res["test_ms"]
@@ -613,7 +653,7 @@ def timers(keep: int = 0, keep_pdma: int = 0):
                 mode, enabled.contiguous())
 
     return (MainPathTimes(ci_solver, "ci_hybrid_solve",
-                          lambda a, out: ci_bound(a[0], a[3], out[2]),
+                          lambda a, out: ci_bound(*a),
                           ci_layout, keep=keep),
             MainPathTimes(pdma, "pdma_solve",
                           lambda a, out: pdma_bound(a[0].shape[0]),
@@ -674,6 +714,9 @@ SENS_STEPS, SENS_START_S = 2, 6 * 3600
 SENS_H, SENS_RTOL, SENS_ATOL = 1e-3, 2e-3, 1e-4
 SENS_FIELDS = ("eflx_sh_tot", "eflx_lh_tot", "t_ref2m", "eflx_lwrad_out")
 SENS_CI_KEPT, SENS_PDMA_KEPT = 4, 2
+# K1-T where leaves need the solve: one run_jvp step from 12:00 UTC, the
+# synthetic forcing's noon (its sun is down everywhere at 06:00-07:00)
+SENS_NOON_START_S, SENS_NOON_STEPS = 12 * 3600, 1
 SENS_MAX_LEFT_OUT = 0.01
 # flops of one ci residual evaluation on (value, tangent) pairs: the 70 of
 # the value, and for the tangent 3 more per multiply or divide (~30), 1 per
@@ -1317,35 +1360,292 @@ class JvpSpy:
         self.cls.jvp = self.orig
 
 
-def ci_jvp_bound(x0, enabled, iters):
+def ci_jvp_bound(x0, env, mode, enabled, evals=None):
     """(bytes ms, operations ms) of one K1-T launch: the 20 inputs and
     their tangents and ``enabled`` read, the 7 outputs, their tangents and
     the iterations written; operations the dual residual evaluations these
-    leaves needed (as :func:`ci_bound`)."""
-    from elmkernels_torch.physics.photosynthesis import SECANT_ITMAX
+    leaves need (``evals``, or :func:`ci_evals`: Brent's steps
+    included)."""
     n = x0.shape[0]
     nbytes = n * (2 * 20 * 8 + 1 + 2 * 7 * 8 + 4)
-    it = iters.double()
-    evals = (enabled.double() * (2 + it + (iters > SECANT_ITMAX).double())
-             ).sum()
+    if evals is None:
+        evals = ci_evals(x0, env, mode, enabled)
     return (nbytes / HBM_BYTES_PER_S * 1e3,
             evals * CI_FUNC_JVP_FLOPS / PEAK_FLOPS["float64"] * 1e3)
 
 
-def sensitivity(files, inputs: dict) -> dict:
-    """Phase 11: the tangent-linear model on the 262,144-column global
-    grid under the exact flags, 2 steps from 1985-07-01 06:00: run_jvp
-    seeded by tbot (untimed: ms/step against the primal, launches) and by
-    watsat (under the timers: K1-T and K4 per launch, kept calls); the
-    tbot tangents against central finite differences; the primal against
-    the plain trajectory; K1-T and K4's tangent rule against their plain
-    versions on the path's own inputs."""
+# K1-T's profile: what holds it back.  The probe compiles the kernel
+# source again, with the library's flags, beside two small additions:
+# cudaOccupancyMaxActiveBlocksPerMultiprocessor for K1-T's "mixed" kernel,
+# and a kernel that runs one dual residual evaluation (ci_func on
+# Dual<double>, "mixed"), whose SASS counts the f64 instructions an
+# evaluation issues
+PROBE_SRC = r"""
+#include "{source}"
+#define PROBE_KERNEL ci_jvp_kernel<kMixed>
+extern "C" int k1t_probe_occupancy(int threads, int smem, int* blocks) {{
+  if (smem > 48 * 1024) {{
+    const cudaError_t err = cudaFuncSetAttribute(
+        PROBE_KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }}
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, PROBE_KERNEL,
+                                                       threads, smem);
+}}
+__global__ void k1t_probe_eval(const double* in, double* out) {{
+  using D = Dual<double>;
+  const Env<D> e = {{{init}}};
+  Out<D> o;
+  o.gs = D(in[40], in[41]);
+  const D f = ci_func<D, kMixed>(D(in[38], in[39]), o, e);
+  const D r[7] = {{f, o.gs, o.ac, o.aj, o.ap, o.ag, o.an}};
+  for (int k = 0; k < 7; ++k) {{
+    out[2 * k] = r[k].v;
+    out[2 * k + 1] = r[k].d;
+  }}
+}}
+"""
+# the f64 pipe's instructions, and the MUFU ones that start a division
+# and a square root in double precision
+F64_OPS = ("DADD", "DMUL", "DFMA")
+MUFU64 = ("MUFU.RCP64H", "MUFU.RSQ64H")
+# H100: FP64 lanes a clock on each SM (4 SM sub-partitions x 16)
+F64_LANES_PER_SM = 64
+
+
+def ptxas_entries(report: str) -> dict:
+    """{kernel's mangled name: (registers, spill store bytes, spill load
+    bytes)} from a ``ptxas -v`` report."""
+    out = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", chunk)
+        regs = re.search(r"Used (\d+) registers", chunk)
+        out[name] = (int(regs.group(1)) if regs else None,
+                     *(int(g) for g in (spill.groups() if spill else
+                                        (-1, -1))))
+    return out
+
+
+def sass_opcodes(sass: str, name_part: str) -> dict:
+    """Opcode counts of the functions whose name holds ``name_part`` in
+    ``cuobjdump -sass`` output (static counts: every branch once)."""
+    counts, keep = {}, False
+    for line in sass.splitlines():
+        if "Function : " in line:
+            keep = name_part in line
+            continue
+        m = keep and re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                               r"([A-Z][A-Z0-9_.]*)", line)
+        if m:
+            counts[m.group(1)] = counts.get(m.group(1), 0) + 1
+    return counts
+
+
+def k1t_probe(threads: int, smem: int) -> dict:
+    """Registers and spills of the K1-T kernels (the three modes) as
+    ``ptxas`` reports them, the resident blocks a SM of the "mixed" one at
+    ``threads`` threads and ``smem`` B of dynamic shared memory a block,
+    and the f64 instructions of one dual evaluation, from the probe (its
+    SASS is left in ``build/probe/probe.sass``)."""
+    import ctypes
+    from torch.utils.cpp_extension import CUDA_HOME
+    from elmkernels_torch.ops import build
+    fields = ("gb_mol je cair oair lmr_z par_z rh_can vcmax_z forc_pbot cp "
+              "kc ko tpu_z kp_z bbb qe theta_cj mbbopt c3frac").split()
+    init = ", ".join(f"D(in[{2 * k}], in[{2 * k + 1}])"
+                     for k in range(len(fields)))
+    d = REPO / "build" / "probe"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "probe.cu").write_text(PROBE_SRC.format(
+        source=build.CSRC / build.SOURCES["ci_hybrid_solve"], init=init))
+    lib = d / "libk1t_probe.so"
+    proc = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", str(lib),
+                           str(d / "probe.cu")], capture_output=True,
+                          text=True, timeout=900)
+    report = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"the K1-T probe did not build:\n{report}")
+    stem = "ci_jvp_kernel"
+    kernels = {name: dict(registers=r, spill_store_bytes=ss,
+                          spill_load_bytes=sl)
+               for name, (r, ss, sl) in ptxas_entries(report).items()
+               if stem in name}
+    probe = ctypes.CDLL(str(lib))
+    probe.k1t_probe_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                          ctypes.POINTER(ctypes.c_int)]
+    blocks = ctypes.c_int(0)
+    err = probe.k1t_probe_occupancy(threads, smem, ctypes.byref(blocks))
+    if err != 0:
+        raise AssertionError(f"occupancy query of {stem} failed: {err}")
+    sass = subprocess.run(
+        [str(pathlib.Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+         str(lib)], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    (d / "probe.sass").write_text(sass)
+    ops = sass_opcodes(sass, "k1t_probe_eval")
+    f64 = {k: ops.get(k, 0) for k in F64_OPS + MUFU64}
+    f64["other_D"] = sum(v for k, v in ops.items()
+                         if k.startswith("D") and k not in F64_OPS)
+    mixed = [k for k in kernels if f"{len(stem)}{stem}ILi2E" in k]
+    return dict(threads=threads, smem_bytes=smem,
+                blocks_per_sm=blocks.value,
+                warps_per_sm=blocks.value * threads // 32,
+                kernels=kernels,
+                mixed_kernel_sass_f64={
+                    k: v for k, v in sass_opcodes(sass, mixed[0]).items()
+                    if k in F64_OPS + MUFU64} if mixed else {},
+                eval_sass=f64, eval_f64_pipe=sum(f64[k] for k in F64_OPS))
+
+
+def sm_clock_mhz(fn, seconds: float = 1.5) -> dict:
+    """The SM clock ``nvidia-smi`` reads (MHz, every 200 ms) while ``fn``
+    runs back to back, and the card's highest."""
     import torch
-    from elmkernels_torch.driver import sensitivity as sens
-    from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import ci_solver, pdma
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits", "-lms", "200"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    rows = [[float(v) for v in line.split(",")]
+            for line in out.splitlines() if line.strip()]
+    loaded = sorted(r[0] for r in rows[2:]) or [r[0] for r in rows]
+    return dict(samples=len(rows), median=loaded[len(loaded) // 2],
+                max=rows[0][1] if rows else None)
+
+
+def k1t_profile(label: str, args, probe: dict | None = None,
+                reps: int = 20, sms: int = 132,
+                clock_mhz: float | None = None) -> dict:
+    """K1-T on one set of inputs ``args`` = (x0, dx0, env, denv, mode,
+    enabled): ms a launch, its bound; values, tangents and iterations
+    against torch.func.jvp of the plain solve; the residual evaluations
+    each leaf commits, by kind (from the plain solve's masks); the warp
+    efficiency of one thread a leaf (lanes that evaluate both starting
+    points, in the leaves' order) and of the kernel's schedule (its warps'
+    steps, from the launch's counters); the f64 pipe's floor (``probe``'s f64
+    instructions an evaluation x evaluations over SMs x 64 lanes x the SM
+    clock); and the critical path, K1-T on the leaf with the most
+    evaluations alone (no schedule ends before that leaf's chain of
+    dependent evaluations)."""
+    import torch
+    from elmkernels_torch.ops import ci_solver, testing
     from elmkernels_torch.physics import photosynthesis as psn
-    from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
+    x0, dx0, env, denv, mode, en = args
+    counts = testing.ci_eval_counts(x0, env, mode, en)
+    committed = sum(counts.values())
+    one_thread = committed + (2 - counts["start"])
+    n = x0.shape[0]
+    sched = torch.zeros(2, dtype=torch.int64, device=x0.device)
+    got = ci_solver.ci_hybrid_solve_jvp(*args, sched=sched)
+    steps = int(sched[1])
+    want = psn.hybrid_solve_jvp_plain(*args)
+    same = all(bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+               for a, b in zip(
+        (got[0], *got[1], got[3], *got[4]),
+        (want[0], *want[1], want[3], *want[4])))
+    ms = guarded_ms(lambda: ci_solver.ci_hybrid_solve_jvp(*args), reps)
+    total = float(committed.double().sum())
+    t_bytes, t_ops = ci_jvp_bound(x0, env, mode, en, total)
+    res = dict(label=label, leaves=n, mode=mode, ms=ms,
+               bound_ms=max(t_bytes, t_ops), bytes_ms=t_bytes,
+               operations_ms=t_ops, share_of_bound=max(t_bytes, t_ops) / ms,
+               bit_for_bit=same,
+               equal_iters=bool(torch.equal(got[2], want[2])),
+               enabled_share=float(en.double().mean()),
+               evals_per_leaf={k: float(v.double().mean())
+                               for k, v in counts.items()},
+               committed_evals_per_leaf=total / n,
+               one_thread_evals_per_leaf=float(one_thread.double().mean()),
+               max_evals=int(one_thread.max()),
+               warp_efficiency_one_thread=testing.warp_efficiency(
+                   one_thread),
+               warp_steps=steps,
+               # None where no leaf needs an evaluation (no step is taken)
+               warp_efficiency_schedule=(total / (32 * steps) if steps
+                                         else None))
+    if total:
+        # the critical path: the leaf with the most evaluations, alone
+        slow = one_thread.argmax().reshape(1)
+        alone = (x0[slow], dx0[slow], type(env)(*(v[slow] for v in env)),
+                 type(denv)(*(v[slow] for v in denv)), mode, en[slow])
+        res["slowest_leaf_evals"] = int(committed[slow])
+        res["slowest_leaf_alone_ms"] = guarded_ms(
+            lambda: ci_solver.ci_hybrid_solve_jvp(*alone), reps)
+    if probe and clock_mhz:
+        rate = sms * F64_LANES_PER_SM * clock_mhz * 1e6
+        res["f64_pipe_floor_ms"] = total * probe["eval_f64_pipe"] / rate * 1e3
+        res["f64_pipe_floor_one_thread_ms"] = (
+            float(one_thread.double().sum()) * probe["eval_f64_pipe"]
+            / res["warp_efficiency_one_thread"] / rate * 1e3)
+    return res
+
+
+def k1t_test_args(dry_share: float, n: int = 2 * 262144, mode="mixed",
+                  seed: int = 2024, device="cuda"):
+    """A K1-T test problem on the card: float64 leaves of
+    ``testing.ci_problem_tensors`` and seeded tangents."""
+    import torch
+    from elmkernels_torch.ops import testing
+    x0, env, en = testing.ci_problem_tensors(n, seed, mode, torch.float64,
+                                             device, dry_share=dry_share)
+    dx0, denv = testing.ci_tangents(x0, env, seed + 1)
+    return (x0, dx0, env, denv, mode, en)
+
+
+K1T_DRY_SHARES = (0.25, 1.0)
+
+
+def k1t_test_phase() -> dict:
+    """K1-T on its test problems (2 x 262,144 "mixed" leaves, float64, at
+    each of K1T_DRY_SHARES): the probe at the launch's own layout, the SM
+    clock under load, and
+    :func:`k1t_profile` of each problem, which must be bit for bit with
+    equal iterations.  Returns them with the plain jvp's ms and the
+    profile context for later calls."""
+    import torch
+    from elmkernels_torch.ops import ci_solver
+    from elmkernels_torch.physics import photosynthesis as psn
+    res = dict(layout=ci_solver.jvp_layout())
+    res["probe"] = k1t_probe(res["layout"]["threads"],
+                             res["layout"]["smem_bytes_per_block"])
+    phase("K1-T probe: " + json.dumps(res))
+    tests = [(ds, k1t_test_args(ds)) for ds in K1T_DRY_SHARES]
+    res["clock_mhz"] = sm_clock_mhz(
+        lambda: ci_solver.ci_hybrid_solve_jvp(*tests[0][1]))
+    res["ctx"] = dict(probe=res["probe"],
+                      sms=torch.cuda.get_device_properties(0)
+                      .multi_processor_count,
+                      clock_mhz=res["clock_mhz"]["median"])
+    res["profiles"] = []
+    for ds, args in tests:
+        prof = dict(k1t_profile(f"test problem, dry share {ds}", args,
+                                **res["ctx"]), dry_share=ds)
+        phase("K1-T profile: " + json.dumps(prof))
+        res["profiles"].append(prof)
+    res["plain_ms"] = cuda_ms(
+        lambda: psn.hybrid_solve_jvp_plain(*tests[0][1]), 2)
+    bad = [p["label"] for p in res["profiles"]
+           if not (p["bit_for_bit"] and p["equal_iters"])]
+    if bad:
+        raise AssertionError(f"K1-T disagrees with torch.func.jvp of the "
+                             f"plain solve on {bad}")
+    return res
+
+
+def sens_model(files, inputs: dict):
+    """The sensitivity phase's model (the global grid under the exact
+    flags), its start and its stacked forcing and phenology."""
+    from elmkernels_torch.driver.model import Model
     from elmkernels_torch.utils.dates import Date
     inputs = dict(inputs)
     inputs.pop("write_s")
@@ -1355,6 +1655,40 @@ def sensitivity(files, inputs: dict) -> dict:
                             **inputs)
     start = Date.from_ymd(1985, 7, 1, SENS_START_S)
     forc, phen = m.stack_windows(start, SENS_STEPS)
+    return m, start, forc, phen
+
+
+def ci_jvp_layout(args):
+    """K1-T's inputs laid out as the kernel takes them (contiguous)."""
+    x0, dx0, env, denv, mode, enabled = args
+    return (x0.contiguous(), dx0.contiguous(),
+            type(env)(*(t.contiguous() for t in env)),
+            type(denv)(*(t.contiguous() for t in denv)), mode,
+            enabled.contiguous())
+
+
+def k1t_timer(keep: int):
+    """MainPathTimes of K1-T, keeping its first ``keep`` calls."""
+    from elmkernels_torch.ops import ci_solver
+    return MainPathTimes(ci_solver, "ci_hybrid_solve_jvp",
+                         lambda a, out: ci_jvp_bound(a[0], a[2], a[4], a[5]),
+                         ci_jvp_layout, keep=keep)
+
+
+def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
+    """Phase 11: the tangent-linear model on the 262,144-column global
+    grid under the exact flags, 2 steps from 1985-07-01 06:00: run_jvp
+    seeded by tbot (untimed: ms/step against the primal, launches) and by
+    watsat (under the timers: K1-T and K4 per launch, kept calls); the
+    tbot tangents against central finite differences; the primal against
+    the plain trajectory; K1-T and K4's tangent rule against their plain
+    versions on the path's own inputs."""
+    import torch
+    from elmkernels_torch.driver import sensitivity as sens
+    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.physics import photosynthesis as psn
+    from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
+    m, start, forc, phen = sens_model(files, inputs)
     kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                "ci_hybrid_solve_jvp": ci_solver.ci_hybrid_solve_jvp,
                "pdma_solve": pdma.pdma_solve}
@@ -1376,16 +1710,7 @@ def sensitivity(files, inputs: dict) -> dict:
         raise AssertionError(f"K1-T or K4 was not launched on the "
                              f"sensitivity path: {launches}")
 
-    def ci_jvp_layout(args):
-        x0, dx0, env, denv, mode, enabled = args
-        return (x0.contiguous(), dx0.contiguous(),
-                type(env)(*(t.contiguous() for t in env)),
-                type(denv)(*(t.contiguous() for t in denv)), mode,
-                enabled.contiguous())
-
-    t1t = MainPathTimes(ci_solver, "ci_hybrid_solve_jvp",
-                        lambda a, out: ci_jvp_bound(a[0], a[5], out[2]),
-                        ci_jvp_layout, keep=SENS_CI_KEPT)
+    t1t = k1t_timer(SENS_CI_KEPT)
     t4 = MainPathTimes(pdma, "pdma_solve",
                        lambda a, out: pdma_bound(a[0].shape[0]))
     with t1t, t4, JvpSpy(pdma.PdmaSolve, SENS_PDMA_KEPT) as spy:
@@ -1434,9 +1759,10 @@ def sensitivity(files, inputs: dict) -> dict:
                      max_rel_gap=max_rel(got, want))
     t_ref2m_warms = bool((res_t.d_diags.t_ref2m[:, kept] > 0).all())
 
-    # K1-T and K4's tangent rule on the path's own inputs
+    # K1-T and K4's tangent rule on the path's own inputs; K1-T bit for
+    # bit (NaN where the plain version has NaN)
     worst_v = worst_t = worst_abs = 0.0
-    eq, leaves = 1.0, 0
+    eq, leaves, same = 1.0, 0, True
     for (x0, dx0, env, denv, mode, en), (ci, out, it, dci, dout) in t1t.kept:
         cp, op, ip, dcp, dop = psn.hybrid_solve_jvp_plain(x0, dx0, env,
                                                           denv, mode, en)
@@ -1448,8 +1774,16 @@ def sensitivity(files, inputs: dict) -> dict:
             worst_t = max(worst_t, max_rel(a, b))
             worst_abs = max(worst_abs, (a - b).abs().nan_to_num().max()
                             .item())
+        for a, b in zip((ci, *out, dci, *dout), (cp, *op, dcp, *dop)):
+            same &= bool(((a == b) | (torch.isnan(a) & torch.isnan(b)))
+                         .all())
         eq = min(eq, (it == ip).double().mean().item())
         leaves += x0.shape[0]
+    profiles = [k1t_profile(f"sensitivity path, call {i}", args, **k1t_ctx)
+                for i, (args, _) in enumerate(t1t.kept)]
+    for prof in profiles:
+        phase("K1-T profile: " + json.dumps(prof))
+    noon = sens_noon(m, kernels, k1t_ctx)
     (x0, dx0, env, denv, mode, en), _ = t1t.kept[0]
     plain_ms = cuda_ms(lambda: psn.hybrid_solve_jvp_plain(
         x0, dx0, env, denv, mode, en), 2)
@@ -1474,12 +1808,13 @@ def sensitivity(files, inputs: dict) -> dict:
                                           .item()),
                fd=fd, t_ref2m_tangent_positive=t_ref2m_warms,
                k1t=dict(calls=len(t1t.kept), leaves=leaves,
-                        max_rel_value=worst_v, max_rel_tangent=worst_t,
-                        max_abs=worst_abs, equal_iters=eq,
-                        plain_ms=plain_ms),
+                        bit_for_bit=same, max_rel_value=worst_v,
+                        max_rel_tangent=worst_t, max_abs=worst_abs,
+                        equal_iters=eq, plain_ms=plain_ms),
                k4_tangent=dict(calls=len(spy.kept), columns=k4_cols,
                                max_rel_tangent=k4_rel, max_abs_tangent=k4_abs,
-                               close_at_1e_9=k4_close))
+                               close_at_1e_9=k4_close),
+               noon=noon["res"])
     phase("sensitivity: " + json.dumps(res))
     left_out = 1.0 - res["fd_columns_kept"] / PROD_NCOL
     if nonfinite or primal_diff:
@@ -1489,11 +1824,66 @@ def sensitivity(files, inputs: dict) -> dict:
             v["columns_outside"] for v in fd.values()):
         raise AssertionError(f"tangents disagree with finite differences: "
                              f"{res}")
-    if not (worst_v <= 1e-10 and worst_t <= 1e-10 and eq >= 0.999
-            and spy.kept and k4_close):
+    if not (same and eq == 1.0 and spy.kept and k4_close):
         raise AssertionError(f"K1-T or K4's tangent rule disagrees with its "
                              f"plain version: {res}")
-    return dict(res=res, on_path=on_path, launches=launches)
+    return dict(res=res, on_path=on_path, launches=launches,
+                profiles=profiles, noon=noon)
+
+
+def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
+    """K1-T on the sensitivity model where its leaves need the solve:
+    ``run_jvp`` seeded by tbot for SENS_NOON_STEPS from 12:00 UTC, each
+    K1-T launch timed, its first SENS_CI_KEPT calls profiled and held bit
+    for bit, with equal iterations, against torch.func.jvp of the plain
+    solve; the primal finite.  Columns whose tangents are not finite are
+    counted, not refused: the JAX package's jvp of ``hybrid_solve`` gives
+    NaN ci tangents on the same leaves."""
+    import torch
+    from elmkernels_torch.driver import sensitivity as sens
+    from elmkernels_torch.ops import ci_solver
+    from elmkernels_torch.utils.dates import Date
+    start = Date.from_ymd(1985, 7, 1, SENS_NOON_START_S)
+    forc, phen = m.stack_windows(start, SENS_NOON_STEPS)
+    t1t = k1t_timer(SENS_CI_KEPT)
+    reset(kernels)
+    with t1t:
+        res_n = sens.run_jvp(m, start, SENS_NOON_STEPS,
+                             seed_forcing=sens.seed_field("tbot"),
+                             forc_stack=forc, phen_stack=phen)
+    launches = ci_solver.ci_hybrid_solve_jvp.launches
+    on_path = t1t.summary()
+    profiles = [k1t_profile(f"sensitivity path at noon, call {i}", args,
+                            **k1t_ctx)
+                for i, (args, _) in enumerate(t1t.kept)]
+    for prof in profiles:
+        phase("K1-T profile: " + json.dumps(prof))
+    primal_finite = all(bool(torch.isfinite(v).all())
+                        for v in res_n.diags._asdict().values()
+                        if v.is_floating_point())
+    bad = torch.zeros(m.ncol, dtype=torch.bool, device=m.device)
+    for v in res_n.d_diags._asdict().values():
+        if v.is_floating_point():
+            b = (~torch.isfinite(v)).any(0)
+            bad |= b.reshape(m.ncol, -1).any(1)
+    res = dict(start_s=SENS_NOON_START_S, steps=SENS_NOON_STEPS,
+               launches=launches, on_path=on_path,
+               enabled_share=[p["enabled_share"] for p in profiles],
+               evals_per_leaf=[p["committed_evals_per_leaf"]
+                               for p in profiles],
+               warp_efficiency=[p["warp_efficiency_schedule"]
+                                for p in profiles],
+               bit_for_bit=all(p["bit_for_bit"] and p["equal_iters"]
+                               for p in profiles),
+               primal_finite=primal_finite,
+               columns_nonfinite_tangent=int(bad.sum()))
+    phase("K1-T on the sensitivity path at noon: " + json.dumps(res))
+    if not (launches and profiles and res["bit_for_bit"] and primal_finite
+            and max(res["enabled_share"]) > 0):
+        raise AssertionError(f"K1-T at noon: not launched, no enabled leaf, "
+                             f"or disagrees with its plain version: {res}")
+    return dict(res=res, on_path=on_path, launches=launches,
+                profiles=profiles)
 
 
 def float32_path(files) -> dict:
@@ -1756,6 +2146,66 @@ def entry_twins(card: str) -> dict:
     return res
 
 
+def synthetic_files():
+    """The synthetic parameter, optics and aging files, written under
+    ``build/synthetic``."""
+    from elmkernels_torch.data import synthetic
+    files_dir = REPO / "build" / "synthetic"
+    files_dir.mkdir(parents=True, exist_ok=True)
+    files = (files_dir / "clm_params.nc", files_dir / "snicar_optics.nc",
+             files_dir / "snicar_drdt.nc")
+    synthetic.write_clm_params(files[0])
+    synthetic.write_snicar_optics(files[1])
+    synthetic.write_snow_aging_tables(files[2])
+    return files
+
+
+def k1t_profile_main() -> int:
+    """``python3 chip_smoke.py --k1t-profile``: K1-T alone, for finding
+    what holds it back.  Builds the kernels and the probe, then profiles
+    K1-T (:func:`k1t_profile`) on its test problems (2 x 262,144 "mixed"
+    leaves at dry shares 0.25 and 1.0) and on the sensitivity model at
+    noon (:func:`sens_noon`).  Prints one JSON line per measurement."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from elmkernels_torch.ops import build, ci_solver
+    t0 = time.perf_counter()
+    phase(f"card: {card_line()}")
+    build.build()
+    test = k1t_test_phase()
+    m, _, _, _ = sens_model(synthetic_files(), global_inputs())
+    sens_noon(m, {"ci_hybrid_solve_jvp": ci_solver.ci_hybrid_solve_jvp},
+              test["ctx"])
+    phase(f"profile: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
+def k1t_numbers(test: dict) -> dict:
+    """K1-T's test-problem and build numbers for the kernels line."""
+    probe = test["probe"]
+    mixed = [v for k, v in probe["kernels"].items() if "ILi2E" in k]
+    out = dict(registers=mixed[0]["registers"] if mixed else None,
+               spill_bytes=(mixed[0]["spill_store_bytes"]
+                            + mixed[0]["spill_load_bytes"]) if mixed
+               else None,
+               blocks_per_sm=probe["blocks_per_sm"],
+               warps_per_sm=probe["warps_per_sm"],
+               f64_pipe_instructions_per_eval=probe["eval_f64_pipe"],
+               sm_clock_mhz=test["ctx"]["clock_mhz"],
+               test_plain_ms=test["plain_ms"])
+    for prof in test["profiles"]:
+        key = ("test" if prof["dry_share"] == K1T_DRY_SHARES[0]
+               else "test_all_dry")
+        out.update({f"{key}_{k}": prof.get(k) for k in (
+            "ms", "bound_ms", "share_of_bound", "committed_evals_per_leaf",
+            "warp_efficiency_schedule", "warp_efficiency_one_thread",
+            "f64_pipe_floor_ms")})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1766,7 +2216,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from elmkernels_torch.data import synthetic
     from elmkernels_torch.ops import build, ci_solver, pdma
 
     t_script = time.perf_counter()
@@ -1808,18 +2257,13 @@ def main() -> int:
     check_ci(n_leaves, "mixed", torch.float64, 1e-12, time_it=False)
     # the production loop's type and mode: float32, "mixed", per-leaf traits
     check_ci(n_leaves, "mixed", torch.float32, 1e-5, time_it=False)
+    k1t_test = k1t_test_phase()
     k4 = check_pdma(262144)
     k4f = check_pdma(262144, torch.float32)
     entry_overhead()
     lap("build and kernel checks")
 
-    files_dir = REPO / "build" / "synthetic"
-    files_dir.mkdir(parents=True, exist_ok=True)
-    files = (files_dir / "clm_params.nc", files_dir / "snicar_optics.nc",
-             files_dir / "snicar_drdt.nc")
-    synthetic.write_clm_params(files[0])
-    synthetic.write_snicar_optics(files[1])
-    synthetic.write_snow_aging_tables(files[2])
+    files = synthetic_files()
 
     wrappers = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                 "pdma_solve": pdma.pdma_solve}
@@ -1858,7 +2302,7 @@ def main() -> int:
     lap("landunits")
     operations(files, inputs, wrappers)
     lap("operations")
-    sens = sensitivity(files, inputs)
+    sens = sensitivity(files, inputs, k1t_test["ctx"])
     on_sens, sens_launches = sens["on_path"], sens["launches"]
     lap("sensitivity")
     twins = entry_twins(card)
@@ -1933,7 +2377,20 @@ def main() -> int:
         sens_bound_ms=t["bound_ms"], sens_share_of_bound=t["share_of_bound"],
         sens_max_rel_value=k1t["max_rel_value"],
         sens_max_rel_tangent=k1t["max_rel_tangent"],
-        sens_equal_iters=k1t["equal_iters"]))
+        sens_equal_iters=k1t["equal_iters"],
+        sens_bit_for_bit=k1t["bit_for_bit"],
+        sens_warp_efficiency=[p["warp_efficiency_schedule"]
+                              for p in sens["profiles"]],
+        sens_evals_per_leaf=[p["committed_evals_per_leaf"]
+                             for p in sens["profiles"]],
+        sens_noon_launches=sens["noon"]["launches"],
+        sens_noon_ms=sens["noon"]["on_path"]["ms"],
+        sens_noon_bound_ms=sens["noon"]["on_path"]["bound_ms"],
+        sens_noon_bound_by=sens["noon"]["on_path"]["bound_by"],
+        sens_noon_share_of_bound=sens["noon"]["on_path"]["share_of_bound"],
+        sens_noon_warp_efficiency=sens["noon"]["res"]["warp_efficiency"],
+        sens_noon_evals_per_leaf=sens["noon"]["res"]["evals_per_leaf"],
+        **k1t_numbers(k1t_test)))
     phase("phase times, s: " + json.dumps(laps))
     phase(f"script: {time.perf_counter() - t_script:.1f} s after start")
     print(json.dumps({"kernels": kernels}))
@@ -1945,6 +2402,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--k1t-profile"]:
+        sys.exit(k1t_profile_main())
     if sys.argv[1:2] == ["--shard-rank"]:
         rank, nranks, port = (int(a) for a in sys.argv[2:5])
         sys.exit(shard_rank(rank, nranks, port, sys.argv[5]))

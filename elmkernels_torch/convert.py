@@ -35,6 +35,10 @@ def _fields(cls, d: dict, dtype, device):
     return cls(**{k: _tensor(d[k], dtype, device) for k in cls._fields})
 
 
+# The *_from_numpy builders are helpers for tests and conversions, not entry
+# points: device=None builds host tensors (PyTorch's default device), and a
+# Model given them moves them to its resolved device.
+
 def state_from_numpy(d: dict, dtype=torch.float64, device=None) -> ModelState:
     return _fields(ModelState, d, dtype, device)
 

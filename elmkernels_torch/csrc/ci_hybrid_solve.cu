@@ -20,7 +20,7 @@
 // plain version's, operation by operation (a re-fused ci solve drifted
 // ~1e-4 after 40 secant iterations in the JAX package's history).
 //
-// The tangent version instantiates the same solve on Dual<double>, a
+// The tangent version (K1-T) runs the same solve on Dual<double>, a
 // (value, tangent) pair: comparisons and branches act on the value, so the
 // tangent is carried through every secant and Brent iterate the primal
 // takes (what jax.jvp of the while_loops gives, not the implicit-function
@@ -32,14 +32,27 @@
 // tangent there), so that the kernel equals torch.func.jvp of the plain
 // version to the last bit.
 //
-// Bound: operations.  A leaf reads 21 values and writes 8 (the tangent
-// version 41 and 15), and runs up to ~62 residual evaluations of ~70 flops
-// each (~3x that with tangents) with divisions and square roots; the
-// kernel holds every iterate in registers and never returns to device
-// memory between iterations, which is what the eager masked loop (one host
-// sync and ~100 small launches per iteration) cannot do.
+// K1 (one thread a leaf, solve_leaf to its end) is bound by bytes: a leaf
+// reads 21 values and writes 8 for ~4 residual evaluations of ~70 flops.
+// K1-T reads 41 and writes 15 (437 B), and each evaluation on duals is a
+// chain of ~30 dependent f64 divisions and 3 square roots.  Run as K1 is,
+// one thread a leaf, it held a leaf's 38 env doubles in registers (168-184
+// a thread, 8 warps an SM) and each warp ran as long as its slowest leaf,
+// which left 0.26-0.28 of its lanes' evaluation slots used on its test
+// problems.
+// So K1-T runs solve_leaf's sequence as a resumable per-leaf machine, one
+// residual evaluation a step (leaf_begin, leaf_eval, below), on warps whose
+// lanes take a new leaf as soon as theirs ends (ci_jvp_kernel, below): the
+// env sits in shared memory and is read where ci_func uses it, and every
+// lane evaluates until the leaves run out.  The arithmetic is solve_leaf's,
+// operation by operation; only the schedule differs.  Its bound is bytes
+// where no leaf needs an evaluation (it then moves only its 437 B a leaf);
+// where leaves do, what holds it is the slowest leaf's chain of dependent
+// evaluations and the lanes that idle once the chunks run out, not the
+// f64 pipe (PERF.md, the table of kernels and K1-T's redesign).
 
 #include <math.h>
+#include <stdint.h>
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -186,6 +199,27 @@ struct Env {
       kc, ko, tpu_z, kp_z, bbb, qe, theta_cj, mbbopt, c3frac;
 };
 
+constexpr int kLanes = 32;
+
+// A leaf's env read where it is used: references to its fields in a
+// [field][lane] array (shared memory in K1-T), so that ci_func loads each
+// field at its use instead of holding all 19 (38 values with tangents) in
+// registers.
+template <typename T>
+struct EnvRef {
+  const T &gb_mol, &je, &cair, &oair, &lmr_z, &par_z, &rh_can, &vcmax_z,
+      &forc_pbot, &cp, &kc, &ko, &tpu_z, &kp_z, &bbb, &qe, &theta_cj,
+      &mbbopt, &c3frac;
+};
+
+template <typename T>
+HD EnvRef<T> env_ref(const T (*f)[kLanes], int lane) {
+  return {f[0][lane],  f[1][lane],  f[2][lane],  f[3][lane],  f[4][lane],
+          f[5][lane],  f[6][lane],  f[7][lane],  f[8][lane],  f[9][lane],
+          f[10][lane], f[11][lane], f[12][lane], f[13][lane], f[14][lane],
+          f[15][lane], f[16][lane], f[17][lane], f[18][lane]};
+}
+
 // A is T, or the plain scalar for a constant leading coefficient
 template <typename A, typename T>
 HD void quadratic_roots(A a, T b, T c, T& r1, T& r2) {
@@ -197,8 +231,9 @@ HD void quadratic_roots(A a, T b, T c, T& r1, T& r2) {
 }
 
 // Residual f(ci) and the rates at ci; `o.gs` enters as the previous gs_mol.
-template <typename T, int MODE>
-HD T ci_func(T ci, Out<T>& o, const Env<T>& e) {
+// E is Env<T>, or EnvRef<T> for fields read where they are used.
+template <typename T, int MODE, typename E>
+HD T ci_func(T ci, Out<T>& o, const E& e) {
   using S = typename Real<T>::type;
   T ac, aj, ap;
   T ac3 = T(0), aj3 = T(0), ap3 = T(0), ac4 = T(0), aj4 = T(0), ap4 = T(0);
@@ -396,6 +431,214 @@ HD T solve_leaf(const Env<T>& e, T xinit, bool en, Out<T>& out, int& iters) {
   return xfin;
 }
 
+// ---- the tangent solve as a resumable per-leaf machine ---------------------
+//
+// K1-T runs solve_leaf's sequence for a leaf one residual evaluation at a
+// time, so that a lane can stop after any evaluation and take another
+// leaf: the same operations in the same order, split at each evaluation.
+// A leaf's state between evaluations is its iterates (Brent reuses the
+// secant's registers: a = x0, fa = f0, b = x1, fb = f1, c = mx, fc = mf),
+// Brent's step and tolerance, and the gs_mol of its last committed
+// evaluation; the other rates of that evaluation go to `rates` (ac, aj,
+// ap, ag, an, the caller's per-lane store) and are not carried.  Only
+// evaluations whose results solve_leaf keeps are made: none for a disabled
+// leaf, no second starting one after f(x0) = 0.
+
+enum { kStart0, kStart1, kSecant, kOver, kBrent };
+
+template <typename T>
+struct Leaf {
+  T x0, f0, x1, f1, mx, mf, d, ed, tol, gs;
+  int it, bit, state;
+};
+
+// The point of the leaf's next evaluation.
+template <typename T>
+HD T leaf_point(const Leaf<T>& s) {
+  return s.state == kStart0 ? s.x0 : (s.state == kOver ? s.mx : s.x1);
+}
+
+// Starts a leaf: true if it needs evaluations, false if it is done with
+// ci = xfin (a disabled leaf: x0, every rate and gs_mol 0, no iteration).
+template <typename T>
+HD bool leaf_begin(Leaf<T>& s, T xinit, bool en, T& xfin) {
+  xfin = xinit;
+  s = {xinit, T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0),
+       0, 0, kStart0};
+  return en;
+}
+
+// The secant loop's head: the next iterate, and true to evaluate it, or
+// false on convergence (xfin set).
+template <typename T>
+HD bool secant_head(Leaf<T>& s, T& xfin) {
+  using S = typename Real<T>::type;
+  const S eps = S(1.0e-2);
+  ++s.it;
+  const T den = s.f1 - s.f0;
+  const T dx = -s.f1 * (s.x1 - s.x0) / (den != S(0) ? den : T(1.0));
+  const T x = s.x1 + dx;
+  s.tol = tabs(x) * eps;
+  if (tabs(dx) < s.tol) {
+    xfin = x;
+    return false;
+  }
+  s.x0 = s.x1;
+  s.f0 = s.f1;
+  s.x1 = x;
+  s.state = kSecant;
+  return true;
+}
+
+// Brent's head (btol = the bracketing secant step's tol): the next point
+// b + step, and true to evaluate it, or false on convergence (xfin set).
+template <typename T>
+HD bool brent_head(Leaf<T>& s, T& xfin) {
+  using S = typename Real<T>::type;
+  const S two_eps_b = S(2.0 * 1.0e-2);
+  T &a = s.x0, &fa = s.f0, &b = s.x1, &fb = s.f1, &c = s.mx, &fc = s.mf;
+  if ((fb > S(0) && fc > S(0)) || (fb < S(0) && fc < S(0))) {
+    c = a; fc = fa; s.d = b - a; s.ed = b - a;
+  }
+  if (tabs(val(fc)) < tabs(val(fb))) {
+    a = b; b = c; c = a;
+    fa = fb; fb = fc; fc = fa;
+  }
+  const T tol1 = two_eps_b * tabs(b) + S(0.5) * s.tol;
+  const T xm = S(0.5) * (c - b);
+  if (tabs(val(xm)) <= val(tol1) || fb == S(0)) {
+    xfin = b;
+    return false;
+  }
+  const bool interp_ok =
+      tabs(val(s.ed)) >= val(tol1) && tabs(val(fa)) > tabs(val(fb));
+  const T sr = fb / (fa != S(0) ? fa : T(1.0));
+  const bool aeqc = a == c;
+  const T p1 = S(2.0) * xm * sr;
+  const T q1 = S(1.0) - sr;
+  const T fcs = (fc != S(0)) ? fc : T(1.0);
+  const T q2 = fa / fcs;
+  const T r2 = fb / fcs;
+  const T p2 = sr * (S(2.0) * xm * q2 * (q2 - r2) -
+                     (b - a) * (r2 - S(1.0)));
+  const T q2b = (q2 - S(1.0)) * (r2 - S(1.0)) * (sr - S(1.0));
+  T pp = aeqc ? p1 : p2;
+  T qq = aeqc ? q1 : q2b;
+  if (pp > S(0)) qq = -qq;
+  pp = tabs(pp);
+  const S vxm = val(xm), vqq = val(qq), vtol1 = val(tol1);
+  const bool accept =
+      interp_ok &&
+      (S(2.0) * val(pp) < nmin(S(3.0) * vxm * vqq - tabs(vtol1 * vqq),
+                               tabs(val(s.ed) * vqq)));
+  const T d_int = pp / (qq != S(0) ? qq : T(1.0));
+  const T d_next = accept ? d_int : xm;
+  const T e_next = accept ? s.d : xm;
+  const T signed_tol = (xm >= S(0)) ? tol1 : -tol1;
+  const T step = (tabs(val(d_next)) > val(tol1)) ? d_next : signed_tol;
+  // a takes b's place and b moves to the point evaluated next (fb is its
+  // residual, set after the evaluation)
+  a = b;
+  fa = fb;
+  b = b + step;
+  s.d = d_next;
+  s.ed = e_next;
+  s.state = kBrent;
+  return true;
+}
+
+// Applies the residual f of the evaluation at leaf_point(s): true if the
+// leaf evaluates again (at leaf_point(s)), false if it is done (xfin set).
+template <typename T>
+HD bool leaf_after(Leaf<T>& s, T f, T& xfin) {
+  using S = typename Real<T>::type;
+  const S eps1 = S(1.0e-4);
+  const int itmax = 40, itmax_b = 20;
+  switch (s.state) {
+    case kStart0:
+      s.f0 = f;
+      if (f == S(0)) {
+        xfin = s.x0;
+        return false;
+      }
+      s.mx = s.x0;
+      s.mf = f;
+      s.x1 = s.x0 * S(0.99);
+      s.state = kStart1;
+      return true;
+    case kStart1:
+      s.f1 = f;
+      if (f == S(0)) {
+        xfin = s.x1;
+        return false;
+      }
+      if (f < s.mf) {
+        s.mx = s.x1;
+        s.mf = f;
+      }
+      return secant_head(s, xfin);
+    case kSecant:
+      s.f1 = f;
+      if (f < s.mf) {
+        s.mx = s.x1;
+        s.mf = f;
+      }
+      if (tabs(f) <= eps1) {
+        xfin = s.x1;
+        return false;
+      }
+      if (val(f) * val(s.f0) < S(0)) {
+        // bracketed: Brent from a = x0, b = c = x1
+        s.mx = s.x1;
+        s.mf = f;
+        s.d = T(0);
+        s.ed = T(0);
+        s.bit = 0;
+        return brent_head(s, xfin);
+      }
+      if (s.it > itmax) {
+        // reference: on iteration overflow, x0 keeps the post-shift value;
+        // one more evaluation at the minimum-f point (line 615)
+        s.state = kOver;
+        return true;
+      }
+      return secant_head(s, xfin);
+    case kOver:
+      xfin = s.x0;
+      return false;
+    default:  // kBrent
+      s.f1 = f;
+      if (f == S(0)) {
+        xfin = s.x1;
+        return false;
+      }
+      // leaves that exhaust Brent's ITMAX end at x = b (line 510)
+      if (++s.bit == itmax_b) {
+        xfin = s.x1;
+        return false;
+      }
+      return brent_head(s, xfin);
+  }
+}
+
+// One step of the machine: the residual at leaf_point(s) with the leaf's
+// env `e`, its rates committed to rates[k][lane] and its gs_mol to s;
+// then leaf_after.
+template <typename T, int MODE, typename E>
+HD bool leaf_eval(Leaf<T>& s, const E& e, T (*rates)[kLanes], int lane,
+                  T& xfin) {
+  Out<T> o;
+  o.gs = s.gs;
+  const T f = ci_func<T, MODE>(leaf_point(s), o, e);
+  s.gs = o.gs;
+  rates[0][lane] = o.ac;
+  rates[1][lane] = o.aj;
+  rates[2][lane] = o.ap;
+  rates[3][lane] = o.ag;
+  rates[4][lane] = o.an;
+  return leaf_after(s, f, xfin);
+}
+
 #ifdef __CUDACC__
 
 template <typename T>
@@ -435,49 +678,6 @@ __global__ void ci_hybrid_kernel(long long n, Ptrs<T> P,
   ci_out[i] = xfin;
   gs_out[i] = out.gs; ac_out[i] = out.ac; aj_out[i] = out.aj;
   ap_out[i] = out.ap; ag_out[i] = out.ag; an_out[i] = out.an;
-  iters_out[i] = it;
-}
-
-// the tangent version: values and tangents of the env fields, x0 and the
-// seven results in separate arrays
-struct OutPtrs {
-  double* v[7];
-  double* t[7];
-};
-
-template <int MODE>
-__global__ void ci_hybrid_jvp_kernel(long long n, Ptrs<double> P,
-                                     Ptrs<double> Pt,
-                                     const double* __restrict__ x0_in,
-                                     const double* __restrict__ x0_t,
-                                     const unsigned char* __restrict__ enabled,
-                                     OutPtrs O, int* __restrict__ iters_out) {
-  using D = Dual<double>;
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (i >= n) return;
-  const Env<double> ev = load_env(P, i);
-  const Env<double> et = load_env(Pt, i);
-  const Env<D> e = {
-      D(ev.gb_mol, et.gb_mol),       D(ev.je, et.je),
-      D(ev.cair, et.cair),           D(ev.oair, et.oair),
-      D(ev.lmr_z, et.lmr_z),         D(ev.par_z, et.par_z),
-      D(ev.rh_can, et.rh_can),       D(ev.vcmax_z, et.vcmax_z),
-      D(ev.forc_pbot, et.forc_pbot), D(ev.cp, et.cp),
-      D(ev.kc, et.kc),               D(ev.ko, et.ko),
-      D(ev.tpu_z, et.tpu_z),         D(ev.kp_z, et.kp_z),
-      D(ev.bbb, et.bbb),             D(ev.qe, et.qe),
-      D(ev.theta_cj, et.theta_cj),   D(ev.mbbopt, et.mbbopt),
-      D(ev.c3frac, et.c3frac)};
-  Out<D> o;
-  int it;
-  const D xfin = solve_leaf<D, MODE>(e, D(x0_in[i], x0_t[i]), enabled[i] != 0,
-                                     o, it);
-  const D r[7] = {xfin, o.gs, o.ac, o.aj, o.ap, o.ag, o.an};
-  for (int k = 0; k < 7; ++k) {
-    O.v[k][i] = r[k].v;
-    O.t[k][i] = r[k].d;
-  }
   iters_out[i] = it;
 }
 
@@ -525,6 +725,251 @@ int launch(int mode, long long n, const void* const* env, const void* x0,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- K1-T: the tangent solve on a persistent grid --------------------------
+//
+// Each warp is on its own: it claims chunks of 32 consecutive leaves from
+// the launch's counter (one atomic a chunk), stages a chunk's env values and
+// tangents, x0 and enabled flags into shared memory by cp.async (one
+// group; coalesced: lane l copies leaf l of every field), and hands the
+// chunk's leaves out in order to the lanes that have none.  A lane copies
+// its leaf's 19 (value, tangent) fields from the stage into its own column
+// of the warp's [field][lane] env and runs leaf_eval on it, one residual
+// evaluation a step, reading the fields where ci_func uses them.  A lane
+// whose leaf ends writes the leaf's 7 values, 7 tangents and count to
+// device memory and takes the next leaf before the next step, so the
+// warp's lanes all evaluate until the leaves run out.  When the stage is
+// spent it is restaged at once with the next chunk; lanes that still need
+// a leaf then wait one step for it, while the others evaluate.
+//
+// Shared memory, not registers, is what bounds the resident warps: a
+// warp's stage, env and rates take 22,560 B, so an SM holds 10 warps (5
+// blocks of 2), at ~123 registers a thread.  A second stage (one chunk
+// staged ahead) would leave 6 warps an SM; each dual evaluation is a chain
+// of dependent f64 divisions whose latency only more warps hide, so the
+// warps count for more than the step a few lanes wait once a chunk.
+
+using D = Dual<double>;
+
+constexpr int kJvpWarps = 2;  // warps a block
+constexpr int kRates = 5;     // ac, aj, ap, ag, an
+
+struct Chunk {
+  D env[kEnv][kLanes];
+  D x0[kLanes];
+  unsigned char en[kLanes];
+};
+
+struct WarpSmem {
+  Chunk stage;              // the chunk being handed out, or its successor
+  D env[kEnv][kLanes];      // each lane's leaf
+  D rates[kRates][kLanes];  // its last committed evaluation's rates
+};
+constexpr unsigned kJvpSmemBytes = kJvpWarps * sizeof(WarpSmem);
+static_assert(sizeof(WarpSmem) % 16 == 0, "warp areas 16-B aligned");
+
+__device__ __forceinline__ void cp_async(void* smem, const void* gmem,
+                                         int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(s),
+                 "l"(gmem)
+                 : "memory");
+}
+
+struct OutPtrs {
+  double* v[7];
+  double* t[7];
+};
+
+struct JvpArgs {
+  long long n;
+  Ptrs<double> P, Pt;
+  const double* x0;
+  const double* x0_t;
+  const unsigned char* enabled;
+  bool en_aligned;  // enabled is 4-B aligned: full chunks copy it by 4 B
+  OutPtrs O;
+  int* iters;
+  // the launch's own zeroed counters: [0] the next chunk to claim, [1] the
+  // sum of the warps' evaluation steps (a step: one evaluation by every
+  // lane that holds a leaf)
+  unsigned long long* sched;
+};
+
+// Stages chunk c into S: one cp.async group of the lane's copies.
+__device__ __forceinline__ void stage_chunk(Chunk& S, long long c,
+                                            const JvpArgs& A, int lane) {
+  const long long base = c * kLanes, i = base + lane;
+  if (i < A.n) {
+#pragma unroll
+    for (int k = 0; k < kEnv; ++k) {
+      cp_async(&S.env[k][lane].v, A.P.env[k] + i, 8);
+      cp_async(&S.env[k][lane].d, A.Pt.env[k] + i, 8);
+    }
+    cp_async(&S.x0[lane].v, A.x0 + i, 8);
+    cp_async(&S.x0[lane].d, A.x0_t + i, 8);
+  }
+  if (A.en_aligned && base + kLanes <= A.n) {
+    if (lane < kLanes / 4)
+      cp_async(&S.en[4 * lane], A.enabled + base + 4 * lane, 4);
+  } else if (i < A.n) {
+    S.en[lane] = A.enabled[i];
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+__device__ __forceinline__ long long claim_chunk(const JvpArgs& A,
+                                                 int lane) {
+  unsigned long long c = 0;
+  if (lane == 0) c = atomicAdd(&A.sched[0], 1ULL);
+  return static_cast<long long>(__shfl_sync(0xffffffffu, c, 0));
+}
+
+// The results of leaf i: ci, gs_mol, the rates (zero for a disabled leaf)
+// and the secant iterations.
+__device__ __forceinline__ void write_leaf(const JvpArgs& A, long long i,
+                                           const D& ci, const D& gs,
+                                           const D (*rates)[kLanes], int lane,
+                                           bool zero_rates, int it) {
+  A.O.v[0][i] = ci.v;
+  A.O.t[0][i] = ci.d;
+  A.O.v[1][i] = gs.v;
+  A.O.t[1][i] = gs.d;
+#pragma unroll
+  for (int k = 0; k < kRates; ++k) {
+    const D r = zero_rates ? D(0.0) : rates[k][lane];
+    A.O.v[2 + k][i] = r.v;
+    A.O.t[2 + k][i] = r.d;
+  }
+  A.iters[i] = it;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kJvpWarps * kLanes)
+    ci_jvp_kernel(const JvpArgs A) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WarpSmem& W = reinterpret_cast<WarpSmem*>(smem_raw)[threadIdx.x / kLanes];
+  const int lane = threadIdx.x % kLanes;
+  const unsigned full = 0xffffffffu;
+  const long long nchunks = (A.n + kLanes - 1) / kLanes;
+
+  // the warp's queue: chunk `cur` in the stage, handed out up to `pos`;
+  // the next chunk is staged when this one is spent, and lanes that still
+  // need a leaf then wait a step for it
+  long long cur = claim_chunk(A, lane);
+  if (cur >= nchunks) return;
+  stage_chunk(W.stage, cur, A, lane);
+  bool loading = true, exhausted = false;
+  int pos = 0;
+  int valid = static_cast<int>(min(static_cast<long long>(kLanes),
+                                   A.n - cur * kLanes));
+
+  Leaf<D> st;
+  long long leaf = 0;
+  bool has = false;
+  unsigned long long steps = 0;
+  for (;;) {
+    // hand the stage's leaves to the lanes that have none
+    unsigned need = __ballot_sync(full, !has);
+    if (need && loading) {
+      asm volatile("cp.async.wait_group 0;" ::: "memory");
+      __syncwarp();
+      loading = false;
+    }
+    while (need && !loading && pos < valid) {
+      const int rank = __popc(need & ((1u << lane) - 1u));
+      const int taken = min(valid - pos, __popc(need));
+      if (!has && rank < taken) {
+        const int p = pos + rank;
+#pragma unroll
+        for (int k = 0; k < kEnv; ++k) W.env[k][lane] = W.stage.env[k][p];
+        leaf = cur * kLanes + p;
+        D xfin;
+        has = leaf_begin(st, W.stage.x0[p], W.stage.en[p] != 0, xfin);
+        if (!has) write_leaf(A, leaf, xfin, D(0.0), W.rates, lane, true, 0);
+      }
+      pos += taken;
+      need = __ballot_sync(full, !has);
+    }
+    if (!loading && !exhausted && pos == valid) {
+      // the stage is spent: its reads are done before it is restaged
+      __syncwarp();
+      cur = claim_chunk(A, lane);
+      if (cur < nchunks) {
+        stage_chunk(W.stage, cur, A, lane);
+        loading = true;
+        pos = 0;
+        valid = static_cast<int>(min(static_cast<long long>(kLanes),
+                                     A.n - cur * kLanes));
+      } else {
+        exhausted = true;
+      }
+    }
+    if (!__any_sync(full, has)) {
+      if (exhausted) break;
+      continue;
+    }
+    ++steps;
+    if (has) {
+      D xfin;
+      if (!leaf_eval<D, MODE>(st, env_ref(W.env, lane), W.rates, lane,
+                              xfin)) {
+        write_leaf(A, leaf, xfin, st.gs, W.rates, lane, false, st.it);
+        has = false;
+      }
+    }
+  }
+  if (lane == 0) atomicAdd(&A.sched[1], steps);
+}
+
+// Resident blocks a SM of the K1-T kernel in `mode` on the current device
+// (its shared memory limit set first), and the SMs; cached per device.
+constexpr int kMaxDevices = 64;
+
+template <int MODE>
+int jvp_resident(int* sms_out, int* per_sm_out) {
+  static int sms[kMaxDevices], per_sm[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (per_sm[dev] == 0) {
+    err = cudaFuncSetAttribute(ci_jvp_kernel<MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kJvpSmemBytes);
+    if (err != cudaSuccess) return err;
+    int n = 0, k = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &k, ci_jvp_kernel<MODE>, kJvpWarps * kLanes, kJvpSmemBytes);
+    if (err != cudaSuccess) return err;
+    if (k < 1) return cudaErrorInvalidConfiguration;
+    sms[dev] = n;
+    per_sm[dev] = k;
+  }
+  *sms_out = sms[dev];
+  *per_sm_out = per_sm[dev];
+  return cudaSuccess;
+}
+
+template <int MODE>
+int launch_jvp(const JvpArgs& A, cudaStream_t s) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err = static_cast<cudaError_t>(jvp_resident<MODE>(&sms, &per_sm));
+  if (err != cudaSuccess) return err;
+  const long long chunks = (A.n + kLanes - 1) / kLanes;
+  const long long need = (chunks + kJvpWarps - 1) / kJvpWarps;
+  const long long cap = static_cast<long long>(sms) * per_sm;
+  const unsigned grid = static_cast<unsigned>(need < cap ? need : cap);
+  ci_jvp_kernel<MODE><<<grid, kJvpWarps * kLanes, kJvpSmemBytes, s>>>(A);
+  return static_cast<int>(cudaGetLastError());
+}
+
 #endif  // __CUDACC__
 
 }  // namespace
@@ -548,47 +993,60 @@ extern "C" int ci_hybrid_solve_f32(int mode, long long n,
   return launch<float>(mode, n, env, x0, enabled, out, stream);
 }
 
-// The tangent version, float64 only.  env/env_t: 19 device pointers each
-// (values and tangents, CiEnv order); out: the seven results and the
-// iteration count as for ci_hybrid_solve_f64; out_t: the seven results'
-// tangents.  mode as above.  Launches on `stream`; returns
-// cudaGetLastError().
+// The tangent version (K1-T), float64 only.  env/env_t: 19 device
+// pointers each (values and tangents, CiEnv order); out: the seven results
+// and the iteration count as for ci_hybrid_solve_f64; out_t: the seven
+// results' tangents.  sched: two zeroed 8-B counters on the device, the
+// launch's own (the chunks it hands out; its warps' evaluation steps, read
+// back after the launch).  mode as above.  Launches on `stream`; returns
+// the first CUDA error.
 extern "C" int ci_hybrid_solve_jvp_f64(int mode, long long n,
                                        const void* const* env,
                                        const void* const* env_t,
                                        const void* x0, const void* x0_t,
                                        const void* enabled, void* const* out,
-                                       void* const* out_t, void* stream) {
+                                       void* const* out_t, void* sched,
+                                       void* stream) {
   if (n <= 0) return 0;
-  const Ptrs<double> P = ptrs<double>(env), Pt = ptrs<double>(env_t);
-  OutPtrs O;
+  JvpArgs A;
+  A.n = n;
+  A.P = ptrs<double>(env);
+  A.Pt = ptrs<double>(env_t);
+  A.x0 = static_cast<const double*>(x0);
+  A.x0_t = static_cast<const double*>(x0_t);
+  A.enabled = static_cast<const unsigned char*>(enabled);
+  A.en_aligned = reinterpret_cast<uintptr_t>(enabled) % 4 == 0;
   for (int k = 0; k < 7; ++k) {
-    O.v[k] = static_cast<double*>(out[k]);
-    O.t[k] = static_cast<double*>(out_t[k]);
+    A.O.v[k] = static_cast<double*>(out[k]);
+    A.O.t[k] = static_cast<double*>(out_t[k]);
   }
+  A.iters = static_cast<int*>(out[7]);
+  A.sched = static_cast<unsigned long long*>(sched);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const double* x = static_cast<const double*>(x0);
-  const double* xt = static_cast<const double*>(x0_t);
-  const unsigned char* en = static_cast<const unsigned char*>(enabled);
-  int* iters = static_cast<int*>(out[7]);
-  const unsigned blocks = blocks_for(n);
   switch (mode) {
     case kC3:
-      ci_hybrid_jvp_kernel<kC3><<<blocks, kThreads, 0, s>>>(
-          n, P, Pt, x, xt, en, O, iters);
-      break;
+      return launch_jvp<kC3>(A, s);
     case kC4:
-      ci_hybrid_jvp_kernel<kC4><<<blocks, kThreads, 0, s>>>(
-          n, P, Pt, x, xt, en, O, iters);
-      break;
+      return launch_jvp<kC4>(A, s);
     case kMixed:
-      ci_hybrid_jvp_kernel<kMixed><<<blocks, kThreads, 0, s>>>(
-          n, P, Pt, x, xt, en, O, iters);
-      break;
+      return launch_jvp<kMixed>(A, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// What K1-T's launch chooses on the current device ("mixed"): out =
+// {threads a block, dynamic shared memory bytes a block, resident blocks
+// a SM, SMs}.  Returns a CUDA error code.
+extern "C" int ci_hybrid_solve_jvp_layout(int* out) {
+  int sms = 0, per_sm = 0;
+  const int err = jvp_resident<kMixed>(&sms, &per_sm);
+  if (err != cudaSuccess) return err;
+  out[0] = kJvpWarps * kLanes;
+  out[1] = static_cast<int>(kJvpSmemBytes);
+  out[2] = per_sm;
+  out[3] = sms;
+  return cudaSuccess;
 }
 
 #endif  // __CUDACC__

@@ -4,7 +4,9 @@ per-column (surfdata-driven) domain.
 
 Counterpart of ``elmkernels_tpu/data/params.py`` and ``snicar_data.py``
 (the reference's ``pft_data.h`` and ``snicar_data.h``), reading NetCDF
-classic through scipy.
+classic through scipy.  The readers are building blocks of ``Model``, not
+entry points: ``device=None`` builds host tensors (PyTorch's default
+device), and ``Model`` passes its resolved device.
 """
 
 from __future__ import annotations

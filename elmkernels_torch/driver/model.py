@@ -47,18 +47,7 @@ from elmkernels_torch.data.state import (AERO_DEP_KEYS, ModelState,
 from elmkernels_torch.driver import step as step_mod
 from elmkernels_torch.physics.photosynthesis import psn_mode_of
 from elmkernels_torch.utils.dates import Date, month_indices
-
-
-def resolve_device(device) -> torch.device:
-    """``None`` means the first CUDA device, which must exist."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "elmkernels_torch runs on a CUDA device and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "path on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+from elmkernels_torch.utils.device import resolve_device
 
 
 class ScanDiagnostics(NamedTuple):

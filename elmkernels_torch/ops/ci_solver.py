@@ -7,7 +7,8 @@ They replace the masked-batch ``hybrid_solve_plain`` of
 
 - :func:`ci_hybrid_solve` (K1) launches the solve;
 - :func:`ci_hybrid_solve_jvp` (K1-T) launches its tangent version, float64
-  only: the solve on (value, tangent) pairs;
+  only: the solve on (value, tangent) pairs, leaf by leaf on lanes that
+  take a new leaf as soon as theirs ends (:func:`jvp_layout`);
 - :class:`CiSolve` is the ``torch.autograd.Function`` the step calls: its
   forward launches K1, its ``jvp`` K1-T, so that ``torch.func.jvp`` through
   the step carries the tangent through the solve.  On CPU tensors it runs
@@ -90,10 +91,16 @@ ci_hybrid_solve.launches = 0
 
 
 def ci_hybrid_solve_jvp(x0_init, dx0, env: CiEnv, denv: CiEnv, mode: str,
-                        enabled):
+                        enabled, sched=None):
     """K1 and its tangent on the card, float64: returns ``(ci, PsnOut,
     iterations, dci, tangent PsnOut)``, what ``torch.func.jvp`` of
-    ``hybrid_solve_plain`` along ``(dx0, denv)`` gives."""
+    ``hybrid_solve_plain`` along ``(dx0, denv)`` gives.
+
+    ``sched``: the launch's counters, two zeroed int64 on the card
+    (allocated here when None).  Each launch has its own, so launches on
+    several streams do not share one; after the launch ``sched[1]`` holds
+    the evaluation steps its warps took (a step: one evaluation by every
+    lane that holds a leaf)."""
     x0, envs, en, prep = _inputs("ci_hybrid_solve_jvp", x0_init, env, mode,
                                  enabled, (torch.float64,))
     tangents.refuse("ci_hybrid_solve_jvp",
@@ -103,14 +110,20 @@ def ci_hybrid_solve_jvp(x0_init, dx0, env: CiEnv, denv: CiEnv, mode: str,
     outs = [torch.empty(n, dtype=torch.float64, device=dev)
             for _ in range(14)]
     iters = torch.empty(n, dtype=torch.int32, device=dev)
+    if sched is None:
+        sched = torch.zeros(2, dtype=torch.int64, device=dev)
+    elif (sched.device != dev or sched.dtype != torch.int64
+          or sched.shape != (2,)):
+        raise ValueError(f"ci_hybrid_solve_jvp: sched must be a [2] int64 "
+                         f"tensor on {dev}")
     fn = build.load("ci_hybrid_solve").ci_hybrid_solve_jvp_f64
     fn.argtypes = [ctypes.c_int, ctypes.c_longlong, _P, _P, _P, _P, _P, _P,
-                   _P, _P]
+                   _P, _P, _P]
     fn.restype = ctypes.c_int
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(_MODES[mode], n, _ptrs(envs), _ptrs(denvs), x0.data_ptr(),
              dx.data_ptr(), en.data_ptr(), _ptrs(outs[:7] + [iters]),
-             _ptrs(outs[7:]), stream)
+             _ptrs(outs[7:]), sched.data_ptr(), stream)
     build.check(err, "ci_hybrid_solve_jvp")
     ci_hybrid_solve_jvp.launches += 1
     return (outs[0], PsnOut(*outs[1:7]), iters, outs[7],
@@ -118,6 +131,19 @@ def ci_hybrid_solve_jvp(x0_init, dx0, env: CiEnv, denv: CiEnv, mode: str,
 
 
 ci_hybrid_solve_jvp.launches = 0
+
+
+def jvp_layout() -> dict:
+    """What K1-T's launch chooses on the current card: threads and dynamic
+    shared memory a block, resident blocks a SM, SMs (the persistent
+    grid is their product, capped at the chunks' need)."""
+    fn = build.load("ci_hybrid_solve").ci_hybrid_solve_jvp_layout
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    build.check(fn(out), "ci_hybrid_solve_jvp_layout")
+    keys = ("threads", "smem_bytes_per_block", "blocks_per_sm", "sms")
+    return dict(zip(keys, out))
 
 
 def _solve(x0, env, mode, enabled):

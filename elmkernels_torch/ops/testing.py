@@ -79,14 +79,44 @@ def ci_problem(n: int, seed: int, mode: str = "c3", dry_share=0.25):
     return x0, env, enabled
 
 
-def ci_problem_tensors(n: int, seed: int, mode: str, dtype, device):
+def ci_problem_tensors(n: int, seed: int, mode: str, dtype, device,
+                       dry_share=0.25):
     """:func:`ci_problem` as tensors: (x0, CiEnv, enabled)."""
-    x0, env, enabled = ci_problem(n, seed, mode)
+    x0, env, enabled = ci_problem(n, seed, mode, dry_share)
 
     def t(a):
         return torch.tensor(a, dtype=dtype, device=device)
     return (t(x0), CiEnv(**{k: t(v) for k, v in env.items()}),
             torch.tensor(enabled, device=device))
+
+
+EVAL_KINDS = ("start", "secant", "overflow", "brent")
+
+
+def ci_eval_counts(x0, env: CiEnv, mode: str, enabled) -> dict:
+    """Residual evaluations each leaf's solve commits, by kind (the two
+    starting ones, secant steps, the overflow re-evaluation, Brent's
+    steps): {kind: int32 [n]}, counted from the plain solve's masks
+    (``hybrid_solve_plain(..., log=)``).  A leaf's values decide its
+    branches, so the tangent solve takes the same steps."""
+    from elmkernels_torch.physics.photosynthesis import hybrid_solve_plain
+    log = []
+    hybrid_solve_plain(x0, env, mode, enabled, log=log)
+    counts = {k: torch.zeros(x0.shape, dtype=torch.int32, device=x0.device)
+              for k in EVAL_KINDS}
+    for kind, mask in log:
+        counts[kind] += mask.to(torch.int32)
+    return counts
+
+
+def warp_efficiency(evals, lanes: int = 32) -> float:
+    """Lane evaluations over the lane slots of warps that hold ``lanes``
+    consecutive leaves each and run as long as their longest leaf:
+    sum(evals) / sum over warps of (lanes x the warp's largest)."""
+    n = evals.shape[0]
+    pad = torch.zeros((-n) % lanes, dtype=evals.dtype, device=evals.device)
+    per_warp = torch.cat([evals, pad]).view(-1, lanes).amax(1)
+    return float(evals.double().sum() / (lanes * per_warp.double().sum()))
 
 
 def ci_tangents(x0, env: CiEnv, seed: int):

@@ -144,7 +144,12 @@ class PsnOut(NamedTuple):
     an: torch.Tensor
 
 
-def _sel_out(mask, new: PsnOut, old: PsnOut) -> PsnOut:
+def _sel_out(mask, new: PsnOut, old: PsnOut, log=None,
+             kind: str = "") -> PsnOut:
+    """``new`` where ``mask`` (the leaves that commit this evaluation),
+    else ``old``; ``(kind, mask)`` is appended to ``log`` if one is given."""
+    if log is not None:
+        log.append((kind, mask))
     return PsnOut(*(torch.where(mask, n, o) for n, o in zip(new, old)))
 
 
@@ -202,24 +207,27 @@ def _any(mask) -> bool:
 
 
 def hybrid_solve_plain(x0_init, env: CiEnv, mode: str, enabled,
-                       out_init: PsnOut | None = None):
+                       out_init: PsnOut | None = None, log=None):
     """Masked-batch port of the reference's ``hybrid`` (lines 516-620) +
     ``brent`` (lines 395-511), the JAX package's ``hybrid_solve``.
-    Returns ``(ci, PsnOut, secant iterations per leaf)``."""
+    Returns ``(ci, PsnOut, secant iterations per leaf)``.  Given a list
+    ``log``, appends ``(kind, mask)`` for every residual evaluation, the
+    mask of the leaves that commit it; kind is "start", "secant",
+    "overflow" or "brent"."""
     eps, eps1, itmax = SECANT_EPS, SECANT_EPS1, SECANT_ITMAX
     if out_init is None:
         zero = torch.zeros_like(x0_init)
         out_init = PsnOut(zero, zero, zero, zero, zero, zero)
 
     f0, o = ci_func(x0_init, out_init, env, mode)
-    out = _sel_out(enabled, o, out_init)
+    out = _sel_out(enabled, o, out_init, log, "start")
     done = (~enabled) | (f0 == 0.0)
     xfin = x0_init
     minx, minf = x0_init, f0
 
     x1 = x0_init * 0.99
     f1, o = ci_func(x1, out, env, mode)
-    out = _sel_out(~done, o, out)
+    out = _sel_out(~done, o, out, log, "start")
     newly = (~done) & (f1 == 0.0)
     xfin = torch.where(newly, x1, xfin)
     done = done | newly
@@ -249,7 +257,7 @@ def hybrid_solve_plain(x0_init, env: CiEnv, mode: str, enabled,
         f0n = torch.where(act2, f1, f0)
         x1n = torch.where(act2, x, x1)
         f1e, o2 = ci_func(x1n, out, env, mode)
-        out = _sel_out(act2, o2, out)
+        out = _sel_out(act2, o2, out, log, "secant")
         f1n = torch.where(act2, f1e, f1)
         updm = act2 & (f1n < minf)
         minx = torch.where(updm, x1n, minx)
@@ -275,7 +283,7 @@ def hybrid_solve_plain(x0_init, env: CiEnv, mode: str, enabled,
 
     # overflow leaves: final evaluation at the minimum-f point (line 615)
     _, o_over = ci_func(minx, out, env, mode)
-    out = _sel_out(over, o_over, out)
+    out = _sel_out(over, o_over, out, log, "overflow")
 
     # ---- Brent phase for leaves that bracketed a root ----
     a, b, fa, fb = ba, bb, bfa, bfb
@@ -330,7 +338,7 @@ def hybrid_solve_plain(x0_init, env: CiEnv, mode: str, enabled,
         b_next = bb_ + step
 
         fbe, ob = ci_func(b_next, out, env, mode)
-        out = _sel_out(act2, ob, out)
+        out = _sel_out(act2, ob, out, log, "brent")
         fb_next = torch.where(act2, fbe, fb)
         hit = act2 & (fb_next == 0.0)
         xfin = torch.where(hit, b_next, xfin)

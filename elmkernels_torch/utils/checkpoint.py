@@ -23,6 +23,7 @@ import pathlib
 import torch
 
 from elmkernels_torch.data.state import ModelState
+from elmkernels_torch.utils.device import resolve_device
 
 # the reference's PrimaryVars restart subset (elm_state.h:17-48)
 PRIMARY_VARS = ("snl", "snow_depth", "frac_sno", "int_snow", "snw_rds",
@@ -62,11 +63,13 @@ def save(path, state: ModelState, mesh=None) -> None:
 def restore(path, like: ModelState | None = None, device=None,
             mesh=None) -> ModelState:
     """Read a checkpoint onto ``device`` (default: ``like``'s device, else
-    the CPU); on a mesh this rank's file, which must have been written for
-    the same block.  With ``like``, every field must have its shape and
+    the card, as ``Model`` resolves it: pass ``device="cpu"`` for the
+    CPU); on a mesh this rank's file, which must have been written for the
+    same block.  With ``like``, every field must have its shape and
     dtype."""
     if device is None:
-        device = like.t_grnd.device if like is not None else "cpu"
+        device = (like.t_grnd.device if like is not None
+                  else resolve_device(None))
     path = shard_path(path, mesh)
     data = torch.load(path, map_location=device, weights_only=True)
     written = data.pop(_SHARD_KEY, None)

@@ -96,24 +96,73 @@ def test_pdma_kernel_matches_plain_on_ice_sheet_systems(card, tmp_path,
                                atol=0)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("mode", ["c3", "c4", "mixed"])
-def test_ci_tangent_kernel_matches_plain(card, mode):
-    """K1-T against torch.func.jvp of the plain solve on 2 x 65,536 leaves,
-    a quarter of them dry-air leaves: values and tangents at rtol 1e-10
-    with equal iteration counts."""
+def _assert_tangent_kernel_is_plain(card, mode, n, dry_share, seed=13,
+                                    view=slice(None)):
     from elmkernels_torch.ops.ci_solver import ci_hybrid_solve_jvp
-    n = 2 * 65536
-    x0, env, en = testing.ci_problem_tensors(n, 13, mode, torch.float64,
-                                             card)
-    dx0, denv = testing.ci_tangents(x0, env, 17)
+    x0, env, en = testing.ci_problem_tensors(n, seed, mode, torch.float64,
+                                             card, dry_share=dry_share)
+    dx0, denv = testing.ci_tangents(x0, env, seed + 4)
+    x0, dx0, en = x0[view], dx0[view], en[view]
+    env = tpsn.CiEnv(*(v[view] for v in env))
+    denv = tpsn.CiEnv(*(v[view] for v in denv))
     ck, ok, ik, dck, dok = ci_hybrid_solve_jvp(x0, dx0, env, denv, mode, en)
     cp, op, ip, dcp, dop = tpsn.hybrid_solve_jvp_plain(x0, dx0, env, denv,
                                                        mode, en)
-    print(f"dry-air leaves: {float((env.rh_can < 0.011).double().mean()):.3f}")
     torch.testing.assert_close(ik, ip, rtol=0, atol=0)
     for a, b in zip((ck, *ok, dck, *dok), (cp, *op, dcp, *dop)):
-        torch.testing.assert_close(a, b, rtol=1e-10, atol=0, equal_nan=True)
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dry_share", [0.25, 1.0])
+@pytest.mark.parametrize("n", [2 * 65536, 2 * 262144])
+@pytest.mark.parametrize("mode", ["c3", "c4", "mixed"])
+def test_ci_tangent_kernel_matches_plain(card, mode, n, dry_share):
+    """K1-T against torch.func.jvp of the plain solve on 2 x 65,536 and
+    the sensitivity path's 2 x 262,144 leaves, a quarter or all of them
+    dry-air leaves: values and tangents bit for bit (NaNs where the plain
+    version has them) with equal iteration counts."""
+    _assert_tangent_kernel_is_plain(card, mode, n, dry_share)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_ci_tangent_kernel_edges(card, n):
+    """K1-T's chunks of 32 leaves: counts that leave a part chunk, fewer
+    leaves than a warp's lanes, and views one leaf into their storage
+    (``enabled`` off 4-byte alignment), bit for bit."""
+    _assert_tangent_kernel_is_plain(card, "mixed", n, 0.25)
+    _assert_tangent_kernel_is_plain(card, "mixed", n + 1, 0.25,
+                                    view=slice(1, None))
+
+
+@pytest.mark.cuda
+def test_ci_tangent_kernel_on_two_streams(card):
+    """Two K1-T launches that may overlap, one on each of two streams:
+    each launch claims its chunks from its own counters, so both are bit
+    for bit with the plain jvp, and each counts its own warps' steps."""
+    from elmkernels_torch.ops.ci_solver import ci_hybrid_solve_jvp
+    probs = []
+    for seed in (21, 23):
+        x0, env, en = testing.ci_problem_tensors(2 * 65536, seed, "mixed",
+                                                 torch.float64, card,
+                                                 dry_share=0.25)
+        dx0, denv = testing.ci_tangents(x0, env, seed + 4)
+        probs.append((x0, dx0, env, denv, "mixed", en))
+    streams = [torch.cuda.Stream(card) for _ in probs]
+    scheds = [torch.zeros(2, dtype=torch.int64, device=card) for _ in probs]
+    torch.cuda.synchronize(card)
+    got = []
+    for args, stream, sched in zip(probs, streams, scheds):
+        with torch.cuda.stream(stream):
+            got.append(ci_hybrid_solve_jvp(*args, sched=sched))
+    torch.cuda.synchronize(card)
+    for args, (ck, ok, ik, dck, dok), sched in zip(probs, got, scheds):
+        cp, op, ip, dcp, dop = tpsn.hybrid_solve_jvp_plain(*args)
+        torch.testing.assert_close(ik, ip, rtol=0, atol=0)
+        for a, b in zip((ck, *ok, dck, *dok), (cp, *op, dcp, *dop)):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+        assert int(sched[1]) > 0
 
 
 @pytest.mark.cuda

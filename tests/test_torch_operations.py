@@ -336,6 +336,23 @@ def test_checkpoint_resume_is_bit_for_bit(files, tmp_path):
         tckpt.restore(path, like=other.state)
 
 
+def test_restore_without_device_asks_for_a_card(stepped, tmp_path,
+                                                monkeypatch):
+    """With neither ``like`` nor ``device`` a checkpoint is read onto the
+    card, as ``Model`` resolves its device: without one it raises and
+    names ``device="cpu"``, never falling back to the CPU.  Asked for the
+    CPU, it reads the state that was saved."""
+    path = tmp_path / "ck.pt"
+    tckpt.save(path, stepped.model.state)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tckpt.restore(path)
+    st = tckpt.restore(path, device="cpu")
+    for k in st._fields:
+        got, want = getattr(st, k), getattr(stepped.model.state, k)
+        assert got.device.type == "cpu" and torch.equal(got, want), k
+
+
 # ---- the driver ------------------------------------------------------------
 
 def test_run_model_subprocess(files, tmp_path):
@@ -354,5 +371,5 @@ def test_run_model_subprocess(files, tmp_path):
     assert "0 validation failures" in out.stdout
     assert "history: 2 file(s)" in out.stdout
     assert len((tmp_path / "m.jsonl").read_text().splitlines()) == 3
-    st = tckpt.restore(tmp_path / "ck" / "step000002.pt")
+    st = tckpt.restore(tmp_path / "ck" / "step000002.pt", device="cpu")
     assert st.t_grnd.shape == (2,)
