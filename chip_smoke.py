@@ -9,6 +9,12 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 2. builds the CUDA kernels from ``elmkernels_torch/csrc`` (one ``nvcc``
    per source, all at once), prints ``ptxas``'s report (and fails if
    ``pdma_kernel`` spills) and the tile and stages K4's launch chose;
+   then, while this process holds no device memory, runs the capacity
+   probe's twin (``python -m elmkernels_torch.tools.capacity_probe``) at
+   2^20 columns of the global grid, a 24-step window from 1985-01-15:
+   ms/step, columns/s, errsol against its bound, the allocator's peak,
+   peak bytes a column and columns a card; where 2^20 does not fit, the
+   allocator's message, and the width halved until one fits;
 3. holds ``ci_hybrid_solve`` against its plain PyTorch version at
    2 x 262,144 leaves (c3 and mixed in float64 and float32, c4 in
    float64; mixed with traits that differ per leaf), and times the c3
@@ -23,7 +29,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    to 262,145 and on views off 16-byte alignment, and times each, its
    plain version and ``torch.linalg.solve`` at [262144, 21, 5];
 5. drives the main path: ``Model(ncol=262144)`` with the production flags
-   through one summer day (48 steps) with no timer installed, for ms/step,
+   through half a summer day (24 steps) with no timer installed, for ms/step,
    columns/s, the conservation contracts and each kernel's launches; then
    12 steps around noon again with each launch timed by CUDA events on the
    main path's own inputs (:class:`MainPathTimes`); then the same model
@@ -40,21 +46,26 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 7. loops, bit for bit: the heterogeneous global grid at 8,192 columns
    (``Model.from_surfdata`` with month-per-file NetCDF forcing, phenology
    and aerosol deposition, all written by ``elmkernels_torch.data.
-   synthetic``), 24 steps from one cold start by ``run``, ``run_scan``,
-   ``run_scan_series`` and ``run_windows(series=True, window=12)``: every
+   synthetic``), 12 steps from one cold start by ``run``, ``run_scan``,
+   ``run_scan_series`` and ``run_windows(series=True, window=6)``: every
    state field equal at atol 0, each loop's per-step diagnostics equal to
    the reductions of ``run``'s, and the ci solve run only in "mixed" mode;
    then the same ``run_windows`` split over ranks, each a subprocess of
    this script (``--shard-rank``): two ranks sharing the card on a gloo
-   group, then one rank on an NCCL group; every rank's block must equal
+   group, their state carry packed, then one rank on an NCCL group; every
+   rank's block must equal
    the unsharded final state bit for bit on every field and its global
    diagnostics the unsharded reductions (maxima exactly, means to rtol
    1e-12), with K1 and K4 launched (and timed) on every rank and their
-   first calls held against their plain versions;
+   first calls held against their plain versions; each of the three
+   device loops again with the packed carry (``Model(packed_carry=True)``),
+   equal to ``run`` bit for bit (state and diagnostics), its ms/step beside
+   the unpacked loop's and the bytes its carry copied a step; and one
+   packed carry update at 262,144 columns timed by CUDA events;
 8. the production loop at full width: ``Model.from_surfdata`` on the
    262,144-cell global grid with the synthetic forcing, ``run_windows(
-   nsteps=96, window=48, series=True)`` with no timer installed (ms/step,
-   columns/s, contracts, launches), the same 96 steps by ``run`` from a
+   nsteps=48, window=24, series=True)`` with no timer installed (ms/step,
+   columns/s, contracts, launches), the same 48 steps by ``run`` from a
    fresh model (the same state bit for bit, and its ms/step in the same
    call), then one 12-step window around noon under
    :class:`MainPathTimes`, whose first 16 ci solves (float32, "mixed",
@@ -66,12 +77,12 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    the 1 % highest-latitude columns ice sheet, half of them with
    elevation classes; ice and wetland unvegetated) and live snow aging on
    synthetic ``snicar_drdt`` tables, ``run_windows(series=True,
-   window=48)``, 96 steps from 1985-01-01 (ms/step, columns/s, contracts,
+   window=24)``, 48 steps from 1985-01-01 (ms/step, columns/s, contracts,
    columns and mean ``t_grnd`` per class, snow layers and aged radii,
    launches), then one timed 12-step window whose kept K1 and K4 calls
    are held against their plain versions;
 10. operations, on the production loop's grid: a ``RunConfig`` builds
-   the model, ``run_windows(series=True, window=48)`` runs 96 steps with a
+   the model, ``run_windows(series=True, window=24)`` runs 48 steps with a
    ``StepGuard`` checking each window, ``MetricsLogger`` lines and a
    ``HistoryWriter``; a checkpoint written after window 1 restores into a
    fresh model that runs window 2 to the same state bit for bit; a strict
@@ -92,20 +103,44 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ``run_jvp`` step from 12:00 UTC, where K1-T's leaves need the solve
    (:func:`sens_noon`: every launch timed, the first calls profiled and
    held bit for bit);
-12. the JAX package's entry points' twins, as subprocesses:
-   ``python -m elmkernels_torch.bench`` at its defaults, with
-   ``BENCH_HETERO=1`` and with ``BENCH_F32=1 BENCH_DAYS=1`` (each JSON line
-   printed beside the card line), ``elmkernels_torch.tools.long_run`` at
-   8,192 columns for 96 steps (resume bit for bit, no guard trip) and
-   ``elmkernels_torch.examples.run_single_column``;
-13. prints each phase's seconds, the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
+12. the bench twin as a user runs it, one run at a time, alone on the
+   card: ``python -m elmkernels_torch.bench`` at its defaults, with
+   ``BENCH_PACKED=1``, with ``BENCH_HETERO=1`` and with ``BENCH_F32=1
+   BENCH_DAYS=1`` (each JSON line printed beside the card line; the
+   global-grid bench times one day);
+13. then, started together as subprocesses (they share the card and the
+   host): ``elmkernels_torch.tools.long_run`` at 8,192 columns for 48
+   steps (resume bit for bit, no guard trip),
+   ``elmkernels_torch.examples.run_single_column``, and the twins of the
+   JAX package's last tools at the smallest depth that runs each through:
+   ``f32_check`` (64 columns, 12 steps, the float32 contracts),
+   ``mixed_canopy_drift`` (1,024 columns, one day, both seasons) and
+   ``weak_scaling`` (one rank: it says that it measures no scaling on one
+   card);
+14. the native reader (``elmkernels_torch/io/native.py``, built with g++
+   from ``elmkernels_torch/csrc/elmio.cc``): July and August month files
+   at the full width (262,144 cells on 512 x 512, 3-hourly, 1.82 GB each,
+   written once under ``build/ingest``) read by it and by scipy, every
+   variable in a 48-step window's slabs, equal at atol 0; a prefetched
+   open equal to a cold one; one window's reads timed by each reader;
+15. ingest: ``ingest_bench``'s files mode at 262,144 columns, in-process:
+   ``run_windows(series=True)`` from those files through the native
+   reader with next-month prefetch, in 12-step windows from 31 July 12:00
+   (the second timed window loads August on the host thread), against the
+   pre-staged
+   ``run_scan_series`` windows, bit for bit (pre-staged and overlapped
+   ms/step, their ratio, host assembly cold and warm; K1's and K4's
+   launches counted from 0 over it);
+16. prints each phase's seconds, the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
    per launch on the main path, ``prod_*`` the same on the production
    loop, ``land_*`` on the landunits phase, ``sens_*`` on the sensitivity
    path, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4;
    K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path,
    ``sens_noon_*`` from its noon step;
-   ``shard_*`` per rank of the sharded runs; ``pdma_solve_f32``'s entry
-   from the float32 path), the card line, and ``{"ok": true, ...}`` last.
+   ``shard_*`` per rank of the sharded runs; ``ingest_launches`` and
+   ``capacity_launches`` on the ingest path and the capacity run;
+   ``pdma_solve_f32``'s entry from the float32 path), the card line, and
+   ``{"ok": true, ...}`` last.
 
 ``python3 chip_smoke.py --k1t-profile`` runs K1-T's profile alone
 (:func:`k1t_profile_main`).
@@ -663,7 +698,9 @@ def timers(keep: int = 0, keep_pdma: int = 0):
 # the sharded phase: the loops phase's run_windows, its oracle saved here;
 # the runs (backend, ranks) and each subprocess's time limit
 SHARD_DIR = REPO / "build" / "sharded"
-SHARD_RUNS = (("gloo", 2), ("nccl", 1))
+# (backend, ranks, packed carry): the gloo ranks carry their state packed,
+# and their blocks must still equal the unpacked run's bit for bit
+SHARD_RUNS = (("gloo", 2, True), ("nccl", 1, False))
 SHARD_TIMEOUT_S = 600
 # the float32 path: the main path's model in float32, 12 steps at noon
 F32_NCOL, F32_STEPS = 262144, 12
@@ -672,14 +709,21 @@ F32_ERR_BOUND = 1e-3
 # the entry-point twins, each a subprocess with its time limit: the bench
 # at its defaults, on the global grid, and in float32 for a day; the long
 # run at the loops phase's width for two windows; the single-column demo
-BENCH_RUNS = ({}, {"BENCH_HETERO": "1"}, {"BENCH_F32": "1",
-                                          "BENCH_DAYS": "1"})
-LONG_RUN_ENV = {"LR_NCOL": "8192", "LR_STEPS": "96", "LR_WINDOW": "48"}
+# (BENCH_HETERO=1 timed one day, cut from two, and the long run 48 steps in
+# 24-step windows, cut from 96 in 48, to keep the script near 600 s)
+BENCH_RUNS = ({}, {"BENCH_PACKED": "1"}, {"BENCH_HETERO": "1",
+                                          "BENCH_DAYS": "1"},
+              {"BENCH_F32": "1", "BENCH_DAYS": "1"})
+LONG_RUN_ENV = {"LR_NCOL": "8192", "LR_STEPS": "48", "LR_WINDOW": "24"}
 TWIN_TIMEOUT_S = 600
+# the main path's steps from 1985-07-01 00:00 (cut from 48 to keep the
+# script near 600 s)
+MAIN_STEPS = 24
 LOOPS_NCOL = 8192
 LOOPS_GRID = (64, 128)       # the NetCDF forcing's (lat, lon) grid
-# 24 steps (cut from 48 to keep the script near 600 s)
-LOOPS_STEPS, LOOPS_WINDOW = 24, 12
+# 12 steps in 6-step windows (cut from 48, then 24, to keep the script near
+# 600 s)
+LOOPS_STEPS, LOOPS_WINDOW = 12, 6
 # the closed water ledger on the global grid: f64 rounding of the rain
 # terms reaches ~8e-9 mm on rainy columns, in the JAX package's step as
 # in the port's (tests/test_torch_scan.py::test_water_ledger_residual_is_
@@ -688,7 +732,9 @@ LOOPS_STEPS, LOOPS_WINDOW = 24, 12
 # inputs; the bound leaves 2.6 times the larger
 GLOBAL_LEDGER_BOUND = 2e-8
 PROD_NCOL = 262144
-PROD_STEPS, PROD_WINDOW = 96, 48
+# 48 steps in 24-step windows (cut from 96 in 48 to keep the script near
+# 600 s)
+PROD_STEPS, PROD_WINDOW = 48, 24
 # K1 is held against its plain version on the production loop's own
 # inputs of this many calls (the first step's canopy iterations), K4 of
 # this many (a step's each)
@@ -699,7 +745,7 @@ WINTER_STEPS, WINTER_MORE = 700, 48
 # the landunits phase: the landunit map's seed, and the production loop's
 # steps and window from 1985-01-01
 LAND_SEED = 0
-LAND_STEPS, LAND_WINDOW = 96, 48
+LAND_STEPS, LAND_WINDOW = 48, 24        # (cut from 96 in 48, as above)
 # the operations phase: the interface's steps against its twin (the JAX
 # package's tests/test_interface.py), and run_model's small JSON config
 IFACE_STEPS = 8
@@ -718,6 +764,33 @@ SENS_CI_KEPT, SENS_PDMA_KEPT = 4, 2
 # synthetic forcing's noon (its sun is down everywhere at 06:00-07:00)
 SENS_NOON_START_S, SENS_NOON_STEPS = 12 * 3600, 1
 SENS_MAX_LEFT_OUT = 0.01
+# the native reader and ingest phases: month files of the full width,
+# 262,144 cells on a 512 x 512 grid, 3-hourly, July and August 1985 (1.82
+# GB each), read by the port's reader and by scipy; ingest_bench's files
+# mode at that width, in windows of INGEST_WINDOW steps, INGEST_NWIN timed
+# windows a loop (the JAX script's 48 and 4, cut to keep the script near
+# 600 s)
+INGEST_NCOL, INGEST_NLON = 262144, 512
+INGEST_WINDOW, INGEST_NWIN = 12, 2
+# from 31 July 12:00: the second timed window is 1 August's, whose month
+# load (the file prefetched while July was read) runs on run_windows' host
+# thread while the first one computes
+INGEST_START = (1985, 7, 31, 12 * 3600)
+# a window of 48 steps spans 9 samples of 3-hourly forcing
+WINDOW_SAMPLES = 9
+# the packed carry's update, timed at the main path's width
+PACKED_NCOL, PACKED_REPS = 262144, 20
+# the capacity probe: the JAX probe's width, 2^20 columns, halved until it
+# fits; its window of CAP_STEPS steps (the JAX probe's 48, cut)
+CAP_NCOL, CAP_MIN_NCOL, CAP_STEPS = 1 << 20, 1 << 16, 24
+CAP_TIMEOUT_S = 900
+# the twins of the JAX package's tools, at the smallest depth that runs
+# each through: (module, arguments, environment)
+TOOL_RUNS = (
+    ("f32_check", ("--steps", "12"), {}),
+    ("mixed_canopy_drift", (), {"MCD_NCOL": "1024", "MCD_DAYS": "1",
+                                "MCD_WINDOW": "48"}),
+    ("weak_scaling", ("--devices", "1"), {}))
 # flops of one ci residual evaluation on (value, tangent) pairs: the 70 of
 # the value, and for the tangent 3 more per multiply or divide (~30), 1 per
 # add or subtract (~30), 2 per square root (3) and 3 per max/min (~6)
@@ -745,12 +818,18 @@ def check_loops(files, kernels: dict) -> dict:
                                    snicar_path=str(files[1]), **inputs)
 
     start = Date.from_ymd(1985, 7, 1)
+    def windows(m):
+        return m.run_windows(start, LOOPS_STEPS, window=LOOPS_WINDOW,
+                             series=True)
+
+    # name: (the loop, the model's packed_carry)
     loops = {
-        "run_scan": lambda m: m.run_scan(start, LOOPS_STEPS),
-        "run_scan_series": lambda m: m.run_scan_series(start, LOOPS_STEPS),
-        f"run_windows(series=True, window={LOOPS_WINDOW})":
-            lambda m: m.run_windows(start, LOOPS_STEPS, window=LOOPS_WINDOW,
-                                    series=True)}
+        "run_scan": (lambda m: m.run_scan(start, LOOPS_STEPS), False),
+        "run_scan_series": (lambda m: m.run_scan_series(start, LOOPS_STEPS),
+                            False),
+        f"run_windows(series=True, window={LOOPS_WINDOW})": (windows, False)}
+    loops.update({f"{name}, packed carry": (fn, True)
+                  for name, (fn, _) in list(loops.items())})
     res = dict(ncol=LOOPS_NCOL, steps=LOOPS_STEPS,
                forcing_grid=list(LOOPS_GRID), write_inputs_s=write_s,
                loops={})
@@ -772,8 +851,9 @@ def check_loops(files, kernels: dict) -> dict:
         ref = type(per_step[0])(*(torch.cat(v) for v in zip(*per_step)))
         res["loops"]["run"] = dict(ms_per_step=wall / LOOPS_STEPS * 1e3,
                                    launches=counts(kernels, "loops, run"))
-        for name, fn in loops.items():
+        for name, (fn, packed) in loops.items():
             m = model()
+            m.packed_carry = packed
             reset(kernels)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -789,11 +869,25 @@ def check_loops(files, kernels: dict) -> dict:
                 launches=counts(kernels, f"loops, {name}"),
                 state_fields_differing=state_diff,
                 diagnostics_differing=diag_diff)
+            if packed:
+                carry = m._carry
+                res["loops"][name].update(
+                    carry_buffers=[[str(b.dtype), list(b.shape)]
+                                   for b in carry.buffers],
+                    carry_updates=carry.updates,
+                    carry_bytes_per_step=carry.bytes_copied / carry.updates,
+                    state_views_of_carry=all(
+                        t.untyped_storage().data_ptr() in {
+                            b.untyped_storage().data_ptr()
+                            for b in carry.buffers} for t in m.state))
+                if not res["loops"][name]["state_views_of_carry"]:
+                    raise AssertionError("the packed state is not views "
+                                         "into its carry")
             if state_diff or diag_diff:
                 raise AssertionError(f"{name} differs from run: state "
                                      f"{state_diff}, diagnostics "
                                      f"{diag_diff}")
-            if name.startswith("run_windows"):
+            if name.startswith("run_windows") and not packed:
                 # the sharded phase's oracle: this loop's state and diags
                 torch.save(dict(
                     state={k: v.cpu() for k, v in m.state._asdict().items()},
@@ -868,7 +962,7 @@ def production_loop(files, inputs: dict, kernels: dict):
     if m.psn_mode != "mixed":
         raise AssertionError(f"production grid ran {m.psn_mode!r}")
 
-    # the same 96 steps by run, the per-step loop, from a fresh model: the
+    # the same PROD_STEPS by run, the per-step loop, from a fresh model: the
     # same state bit for bit at full width, and its ms/step in this call
     m_run = model()
     reset(kernels)
@@ -991,7 +1085,7 @@ class ColumnLedger:
 
 def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     """Phase 9: the production loop's grid with per-column land types and
-    live snow aging, 96 steps from 1985-01-01 with no timer installed,
+    live snow aging, LAND_STEPS from 1985-01-01 with no timer installed,
     then one 12-step window under the timers, whose kept K1 and K4 calls
     are held against their plain versions."""
     import torch
@@ -1133,7 +1227,7 @@ def state_diff(a, b) -> list:
 
 def operations(files, inputs: dict, kernels: dict) -> dict:
     """Phase 10: the operations layer at full width.  A RunConfig builds the
-    production loop's global-grid model; run_windows runs 96 steps with a
+    production loop's global-grid model; run_windows runs PROD_STEPS with a
     StepGuard checking each window, MetricsLogger lines and a
     HistoryWriter; a checkpoint after window 1 restores into a fresh model
     that runs window 2 to the same state bit for bit; a strict guard trips
@@ -1965,7 +2059,8 @@ def wait_all(procs, timeout_s: float, label: str) -> list:
     return outs
 
 
-def shard_rank(rank: int, nranks: int, port: int, backend: str) -> int:
+def shard_rank(rank: int, nranks: int, port: int, backend: str,
+               packed: bool) -> int:
     """One rank of the sharded phase (``chip_smoke.py --shard-rank``): its
     block of the loops phase's grid on this rank's card, from the
     unsharded initial state cut by ``shard_state``, the loops phase's
@@ -1986,7 +2081,8 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str) -> int:
     mesh = parallel.column_mesh(spec["ncol"])
     label = f"{backend} rank {rank} of {nranks}"
     model = Model.from_surfdata(spec["surfdata"], mesh.ncol, col0=mesh.col0,
-                                sharding=mesh, **spec["kw"])
+                                sharding=mesh, packed_carry=packed,
+                                **spec["kw"])
     initial = torch.load(SHARD_DIR / "initial.pt", weights_only=True)
     model.state = parallel.shard_state(mesh, ModelState(**initial))
     kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
@@ -2030,12 +2126,13 @@ def sharded_loops(files, loops: dict) -> dict:
                 **loops["inputs"]))))
     oracle = torch.load(SHARD_DIR / "oracle.pt", weights_only=True)
     out = {}
-    for backend, nranks in SHARD_RUNS:
+    for backend, nranks, packed in SHARD_RUNS:
         port = free_port()
         t0 = time.perf_counter()
         procs = [subprocess.Popen(
             [sys.executable, str(pathlib.Path(__file__).resolve()),
-             "--shard-rank", str(r), str(nranks), str(port), backend],
+             "--shard-rank", str(r), str(nranks), str(port), backend,
+             str(int(packed))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             env=dict(__import__("os").environ, LOCAL_RANK=str(r)))
             for r in range(nranks)]
@@ -2066,8 +2163,8 @@ def sharded_loops(files, loops: dict) -> dict:
                 k4_equal=got["k4"]["equal"],
                 state_fields_differing=state_diff,
                 diagnostics_differing=diag_diff))
-        res = dict(backend=backend, ranks=nranks, ncol=LOOPS_NCOL,
-                   steps=LOOPS_STEPS, window=LOOPS_WINDOW,
+        res = dict(backend=backend, ranks=nranks, packed_carry=packed,
+                   ncol=LOOPS_NCOL, steps=LOOPS_STEPS, window=LOOPS_WINDOW,
                    wall_s_with_start=wall, per_rank=ranks)
         phase(f"sharded loops, {backend}: " + json.dumps(res))
         covered = sum(r["block"][1] - r["block"][0] for r in ranks)
@@ -2081,10 +2178,9 @@ def sharded_loops(files, loops: dict) -> dict:
 
 
 def entry_twins(card: str) -> dict:
-    """The JAX package's entry points' twins, as a user runs them:
-    ``python -m elmkernels_torch.bench`` (BENCH_RUNS), the long run with
-    its resume check, and the single-column demo.  Each bench line is
-    printed beside the card line; the float32 bench's K4 launches are
+    """The bench twin, ``python -m elmkernels_torch.bench`` (BENCH_RUNS), as
+    a user runs it, one run at a time, alone on the card.  Each bench line
+    is printed beside the card line; the float32 bench's K4 launches are
     ``pdma_solve_f32``'s."""
     import os
     res = {"bench": []}
@@ -2112,37 +2208,258 @@ def entry_twins(card: str) -> dict:
     if not (f32["pdma_solve_f32"] and not f32["pdma_solve"]):
         raise AssertionError(f"the float32 bench did not run K4 in float32: "
                              f"{f32}")
+    return res
 
-    out_dir = REPO / "build" / "longrun"
+
+def packed_update_cost() -> dict:
+    """The packed carry's cost a step at the main path's width: the bytes
+    one :meth:`PackedCarry.update` copies (every field of a step's new
+    state) and its device ms, by CUDA events over ``PACKED_REPS``
+    updates."""
+    import torch
+    from elmkernels_torch.data.state import cold_start
+    from elmkernels_torch.utils.packing import PackedCarry
+    carry = PackedCarry(cold_start(PACKED_NCOL, device="cuda"))
+    new = type(carry.state)(*(t + 0 for t in carry.state))
+    nbytes = carry.nbytes_per_step(new)
+    carry.update(new)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    for _ in range(PACKED_REPS):
+        carry.update(new)
+    b.record()
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b) / PACKED_REPS
+    res = dict(ncol=PACKED_NCOL, fields=len(carry.template),
+               buffers=[[str(t.dtype), list(t.shape)] for t in carry.buffers],
+               bytes_per_update=nbytes, ms_per_update=ms,
+               bound_ms=2 * nbytes / HBM_BYTES_PER_S * 1e3,
+               equal=all(torch.equal(x, y) for x, y in zip(carry.state,
+                                                           new)))
+    phase("packed carry, one update at full width: " + json.dumps(res))
+    if not res["equal"]:
+        raise AssertionError("the packed carry's update lost a field")
+    return res
+
+
+def native_reader() -> dict:
+    """The native reader at full width: the July and August month files
+    (262,144 cells on 512 x 512, 3-hourly, written once) read by the
+    port's reader and by scipy, every variable window slab by window slab
+    (``WINDOW_SAMPLES`` samples, a 48-step window's), equal at atol 0; a
+    prefetched open equal to a cold one on each variable's first and last
+    slabs; and one window's reads timed by each reader."""
+    import numpy as np
+    from scipy.io import netcdf_file
+    from elmkernels_torch.data import netcdf
+    from elmkernels_torch.io import native
+    from elmkernels_torch.tools import ingest_bench
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "elmkernels_torch.tools.long_run"], cwd=REPO,
-        env=dict(os.environ, LR_OUT=str(out_dir), **LONG_RUN_ENV),
-        capture_output=True, text=True, timeout=TWIN_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"long run exited {proc.returncode}:\n"
-                             f"{proc.stdout}\n{proc.stderr[-4000:]}")
-    summary = json.loads(proc.stdout.strip().splitlines()[-1])
-    res["long_run"] = dict(summary, wall_s_with_start=wall)
+    lib = native.build()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base, nlat = ingest_bench.forcing_files(INGEST_NCOL, INGEST_NLON)
+    res = dict(library=str(lib.relative_to(REPO)), build_s=build_s,
+               write_or_find_files_s=time.perf_counter() - t0,
+               grid=[nlat, INGEST_NLON], months={})
+    paths = [f"{base}1985-{m:02d}.nc" for m in (7, 8)]
+    names = ("DTIME",) + ingest_bench.FORCING_VARS
+    for path in paths:
+        t0 = time.perf_counter()
+        nf, sf = netcdf.open_native(path), netcdf_file(path, mmap=True)
+        try:
+            slabs, unequal = 0, []
+            for v in names:
+                shape = nf.shape(v)
+                for t in range(0, shape[0], WINDOW_SAMPLES - 1):
+                    start = (t,) + (0,) * (len(shape) - 1)
+                    count = (min(WINDOW_SAMPLES, shape[0] - t),) + shape[1:]
+                    a = netcdf.read_var(nf, v, start=start, count=count)
+                    b = netcdf.read_var(sf, v, start=start, count=count)
+                    slabs += 1
+                    if not (a.dtype == b.dtype and np.array_equal(a, b)):
+                        unequal.append((v, t))
+        finally:
+            nf.close()
+            sf.close()
+        res["months"][pathlib.Path(path).name] = dict(
+            bytes=pathlib.Path(path).stat().st_size, slabs=slabs,
+            unequal=unequal, s=time.perf_counter() - t0)
+    # a prefetched open against a cold one: every variable's first and
+    # last window slabs
+    t0 = time.perf_counter()
+    netcdf.prefetch(paths[0])
+    prefetch_unequal = []
+    with netcdf.open_native(paths[0]) as warm, \
+            netcdf.open_native(paths[0]) as cold:
+        for v in names:
+            shape = warm.shape(v)
+            for t in (0, shape[0] - WINDOW_SAMPLES):
+                start = (t,) + (0,) * (len(shape) - 1)
+                count = (WINDOW_SAMPLES,) + shape[1:]
+                if not np.array_equal(warm.read(v, start, count),
+                                      cold.read(v, start, count)):
+                    prefetch_unequal.append((v, t))
+    res.update(prefetch_unequal=prefetch_unequal,
+               prefetch_check_s=time.perf_counter() - t0,
+               window=ingest_bench.window_reads(paths[0], INGEST_NCOL,
+                                                WINDOW_SAMPLES))
+    phase("native reader at full width: " + json.dumps(res))
+    bad = [m for m, r in res["months"].items() if r["unequal"]]
+    if bad or prefetch_unequal or not res["window"]["reads_equal"]:
+        raise AssertionError(f"the native reader differs from scipy: "
+                             f"{bad} {prefetch_unequal} {res['window']}")
+    return res
+
+
+def ingest(kernels: dict) -> dict:
+    """ingest_bench's files mode at full width (262,144 columns from the
+    native reader phase's month files): ``run_windows(series=True)`` from
+    the files, prefetching the next month, against the pre-staged
+    ``run_scan_series`` windows, bit for bit; this slice's full-width
+    path, its K1 and K4 launches counted from 0 over it."""
+    from elmkernels_torch.tools import ingest_bench
+    reset(kernels)
+    rec = ingest_bench.bench_files(INGEST_NCOL, INGEST_WINDOW, INGEST_NWIN,
+                                   nlon=INGEST_NLON, start=INGEST_START)
+    launches = counts(kernels, "ingest path")
+    res = dict(rec, launches=launches,
+               overlapped_over_prestaged=(rec["overlapped_files_ms"]
+                                          / rec["prestaged_ms"]))
+    phase("ingest, month files at full width: " + json.dumps(res))
+    if not (rec["bit_identical"] and rec["window_reads_equal"]):
+        raise AssertionError(f"ingest from files differs: {rec}")
+    return res
+
+
+def _launch_note(stderr: str) -> dict:
+    line = next((ln for ln in stderr.splitlines()
+                 if ln.startswith("# launches: ")), None)
+    return json.loads(line[12:]) if line else {}
+
+
+def capacity() -> dict:
+    """The capacity probe's twin as a user runs it, at 2^20 columns; where
+    they do not fit, the allocator's message is kept and the width halved
+    until one fits."""
+    import os
+    runs = []
+    ncol = CAP_NCOL
+    while True:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "elmkernels_torch.tools.capacity_probe"],
+            cwd=REPO, capture_output=True, text=True, timeout=CAP_TIMEOUT_S,
+            env=dict(os.environ, CAP_NCOL=str(ncol), CAP_STEPS=str(CAP_STEPS)))
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode not in (0, 3) or not lines:
+            raise AssertionError(f"capacity probe at {ncol} exited "
+                                 f"{proc.returncode}:\n{proc.stdout}\n"
+                                 f"{proc.stderr[-4000:]}")
+        rec = dict(json.loads(lines[-1]), wall_s_with_start=(
+            time.perf_counter() - t0), launches=_launch_note(proc.stderr),
+            notes=[ln for ln in proc.stderr.splitlines()
+                   if ln.startswith("#")])
+        runs.append(rec)
+        phase(f"capacity probe at {ncol} columns: " + json.dumps(rec))
+        if rec["fits"]:
+            break
+        if ncol // 2 < CAP_MIN_NCOL:
+            raise AssertionError(f"no width from {CAP_NCOL} down to "
+                                 f"{CAP_MIN_NCOL} fits: {runs}")
+        ncol //= 2
+    last = runs[-1]
+    if not (last["errsol_max"] <= last["errsol_bound"]
+            and last["errh2o_led_max"] < GLOBAL_LEDGER_BOUND
+            and all(last["launches"].get(k) for k in ("ci_hybrid_solve",
+                                                      "pdma_solve"))):
+        raise AssertionError(f"capacity run broke a contract: {last}")
+    return dict(runs=runs, fits_ncol=last["ncol"])
+
+
+def concurrent_twins() -> dict:
+    """The long-run and single-column twins and the twins of the JAX
+    package's last tools (``TOOL_RUNS``), each a subprocess as a user runs
+    it, all started together: they share the card and the host, so the
+    times they print are not each one's alone (the benches run alone
+    before them).  The long run must resume bit for bit with no guard
+    trip, the demo print its 100 steps, ``f32_check`` pass, the drift runs
+    stay finite with a closed ledger and ``weak_scaling`` say that one
+    card measures no scaling; any failure fails the run."""
+    import os
+    out_dir = REPO / "build" / "twins"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    jobs = {"long_run": (["elmkernels_torch.tools.long_run"], dict(
+                LR_OUT=str(REPO / "build" / "longrun"), **LONG_RUN_ENV)),
+            "single_column": (["elmkernels_torch.examples.run_single_column"],
+                              {})}
+    for name, args, env in TOOL_RUNS:
+        jobs[name] = ([f"elmkernels_torch.tools.{name}", *args], env)
+    procs, done = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, (args, env) in jobs.items():
+            with open(out_dir / f"{name}.out", "w") as fo, \
+                    open(out_dir / f"{name}.err", "w") as fe:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-m", *args], cwd=REPO, stdout=fo,
+                    stderr=fe, env=dict(os.environ, **env))
+        for name, proc in procs.items():
+            left = TWIN_TIMEOUT_S - (time.perf_counter() - t0)
+            try:
+                proc.wait(timeout=max(1.0, left))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"{name} outlasted {TWIN_TIMEOUT_S} s")
+            done[name] = time.perf_counter() - t0
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    res = {}
+    for name, proc in procs.items():
+        out = (out_dir / f"{name}.out").read_text()
+        err = (out_dir / f"{name}.err").read_text()
+        if proc.returncode != 0:
+            raise AssertionError(f"{name} exited {proc.returncode}:\n"
+                                 f"{out[-4000:]}\n{err[-4000:]}")
+        res[name] = dict(stdout=out, notes=[ln for ln in err.splitlines()
+                                            if ln.startswith("#")],
+                         done_after_s=done[name])
+
+    summary = json.loads(res["long_run"]["stdout"].strip().splitlines()[-1])
+    res["long_run"] = dict(summary, done_after_s=done["long_run"])
     phase("long-run twin: " + json.dumps(res["long_run"]))
-    if not (summary["resume_bit_identical"]
-            and summary["guard_failures"] == 0):
-        raise AssertionError(f"the long run failed: {summary}")
-
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "elmkernels_torch.examples.run_single_column"],
-        cwd=REPO, capture_output=True, text=True, timeout=TWIN_TIMEOUT_S)
-    lines = proc.stdout.strip().splitlines()
-    res["single_column"] = dict(
-        exit=proc.returncode, lines=len(lines), first=lines[:1],
-        last=lines[-1:], wall_s_with_start=time.perf_counter() - t0)
+    lines = res["single_column"]["stdout"].strip().splitlines()
+    res["single_column"] = dict(lines=len(lines), first=lines[:1],
+                                last=lines[-1:],
+                                done_after_s=done["single_column"])
     phase("single-column twin: " + json.dumps(res["single_column"]))
-    if proc.returncode != 0 or len(lines) != 101 or not lines[-1].startswith(
-            "final errsol_max="):
-        raise AssertionError(f"the single-column demo failed:\n"
-                             f"{proc.stdout[-2000:]}\n{proc.stderr[-2000:]}")
+    for name, _, _ in TOOL_RUNS:
+        out = res[name].pop("stdout")
+        res[name]["out"] = json.loads(
+            out if name == "mixed_canopy_drift"
+            else out.strip().splitlines()[-1])
+        phase(f"tool twin {name}: " + json.dumps(res[name]))
+    rows = res["mixed_canopy_drift"]["out"]["results"]
+    checks = dict(
+        long_run=(summary["resume_bit_identical"]
+                  and summary["guard_failures"] == 0),
+        single_column=(len(lines) == 101
+                       and lines[-1].startswith("final errsol_max=")),
+        f32_check=res["f32_check"]["out"]["ok"],
+        mixed_canopy_drift=all(
+            r["finite"] and r["errh2o_led_max"] < GLOBAL_LEDGER_BOUND
+            for r in rows.values() if "finite" in r),
+        weak_scaling=(len(res["weak_scaling"]["out"]) == 1
+                      and any("no scaling" in n for n in
+                              res["weak_scaling"]["notes"])))
+    phase(f"concurrent twins: {time.perf_counter() - t0:.1f} s, "
+          + json.dumps(checks))
+    if not all(checks.values()):
+        raise AssertionError(f"a twin failed its checks: {checks}")
     return res
 
 
@@ -2247,6 +2564,10 @@ def main() -> int:
     phase("K4 pdma_kernel launch layout: " + json.dumps(pdma.layout()))
     phase("K4 pdma_kernel<float> launch layout: "
           + json.dumps(pdma.layout(torch.float32)))
+    lap("build")
+    # first, while this process holds no device memory but its context
+    cap = capacity()
+    lap("capacity")
 
     # the main path's production flags run the canopy loop, and so the ci
     # solve, in float32 (mixed_canopy): its numbers go in the kernels line
@@ -2261,7 +2582,7 @@ def main() -> int:
     k4 = check_pdma(262144)
     k4f = check_pdma(262144, torch.float32)
     entry_overhead()
-    lap("build and kernel checks")
+    lap("kernel checks")
 
     files = synthetic_files()
 
@@ -2269,7 +2590,7 @@ def main() -> int:
                 "pdma_solve": pdma.pdma_solve}
     # end-to-end numbers from a run with no timer installed; the kernels'
     # times per launch from 12 steps around noon under the timers
-    main_run, launches, _ = drive(262144, 7, 48, files, "main path",
+    main_run, launches, _ = drive(262144, 7, MAIN_STEPS, files, "main path",
                                   wrappers)
     lap("main path")
     t1, t4 = timers(keep_pdma=PDMA_KEPT)
@@ -2292,6 +2613,8 @@ def main() -> int:
     lap("winter aging")
     loops = check_loops(files, wrappers)
     lap("loops")
+    packed_update_cost()
+    lap("packed carry")
     shard = sharded_loops(files, loops)
     lap("sharded loops")
     inputs = global_inputs()
@@ -2306,7 +2629,13 @@ def main() -> int:
     on_sens, sens_launches = sens["on_path"], sens["launches"]
     lap("sensitivity")
     twins = entry_twins(card)
-    lap("entry-point twins")
+    lap("bench twins")
+    concurrent_twins()
+    lap("concurrent twins")
+    native_reader()
+    lap("native reader")
+    ing = ingest(wrappers)
+    lap("ingest")
 
     def numbers(name, test):
         m, p, g = on_path[name], on_prod[name], on_land[name]
@@ -2347,6 +2676,12 @@ def main() -> int:
                  "max_rel_tangent"],
              **numbers("pdma_solve", k4)),
     ]
+    # this slice's full-width path (ingest from month files) and the
+    # capacity probe's run also launch K1 and K4
+    for k in kernels:
+        k.update(ingest_launches=ing["launches"][k["name"]],
+                 capacity_ncol=cap["fits_ncol"],
+                 capacity_launches=cap["runs"][-1]["launches"][k["name"]])
     # K4 in float32 runs on the float32 path (and the float32 bench): its
     # launches and per-launch times are that path's
     t = f32["on_path"]
@@ -2406,5 +2741,6 @@ if __name__ == "__main__":
         sys.exit(k1t_profile_main())
     if sys.argv[1:2] == ["--shard-rank"]:
         rank, nranks, port = (int(a) for a in sys.argv[2:5])
-        sys.exit(shard_rank(rank, nranks, port, sys.argv[5]))
+        sys.exit(shard_rank(rank, nranks, port, sys.argv[5],
+                            sys.argv[6] == "1"))
     sys.exit(main())

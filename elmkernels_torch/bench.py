@@ -33,6 +33,9 @@ them.  Environment knobs, as in the JAX bench:
   BENCH_WARM    override warm_start alone (default follows BENCH_MIXED)
   BENCH_MIXED_CANOPY  override mixed_canopy alone (default follows
                 BENCH_MIXED)
+  BENCH_PACKED  1: the packed state carry (``Model(packed_carry=True)``,
+                one [ncol, K] buffer per dtype, ``utils/packing.py``);
+                default 0
   BENCH_HETERO  1: the synthetic global grid through
                 ``Model.from_surfdata``; default 0: the reference site
   BENCH_PLATFORM  ``cpu``: run on the CPU (``device="cpu"``); default
@@ -40,9 +43,8 @@ them.  Environment knobs, as in the JAX bench:
   BENCH_TRACE   a path: a ``torch.profiler`` trace (Chrome JSON) of the
                 trace window is written there
 
-``BENCH_PACKED`` and ``BENCH_COMPILE_EFFORT`` (the JAX package's packed
-scan carry and XLA's compile effort) mean nothing here and are refused.
-Exit 2 on a refused knob, and, as in the JAX bench, when the production
+``BENCH_COMPILE_EFFORT`` (XLA's compile effort) means nothing here and is
+refused.  Exit 2 on a refused knob, and, as in the JAX bench, when the production
 flags in float64 break the batch-scaled shortwave contract
 (``utils/guard.py:errsol_bound``).
 """
@@ -59,9 +61,7 @@ import torch
 METRIC = "full-step gridcell-columns/s per chip"
 STEPS_PER_DAY = 48
 # the JAX bench's knobs that have no counterpart in eager PyTorch
-REFUSED = {"BENCH_PACKED": "the packed scan carry is not ported (an eager "
-                           "loop has no scan carry to pack)",
-           "BENCH_COMPILE_EFFORT": "nothing is compiled by XLA here"}
+REFUSED = {"BENCH_COMPILE_EFFORT": "nothing is compiled by XLA here"}
 
 
 def _flag(name: str, default: str) -> bool:
@@ -71,7 +71,7 @@ def _flag(name: str, default: str) -> bool:
 def _refused() -> str | None:
     for name, why in REFUSED.items():
         val = os.environ.get(name, "")
-        if val and not (name == "BENCH_PACKED" and val == "0"):
+        if val:
             return f"{name}={val} is refused: {why}"
     platform = os.environ.get("BENCH_PLATFORM", "")
     if platform not in ("", "cpu", "cuda", "gpu"):
@@ -106,11 +106,13 @@ def main() -> int:
     warm = _flag("BENCH_WARM", "1" if mixed else "0")
     mixed_can = _flag("BENCH_MIXED_CANOPY", "1" if mixed else "0")
     hetero = _flag("BENCH_HETERO", "0")
+    packed = _flag("BENCH_PACKED", "0")
     device = "cpu" if os.environ.get("BENCH_PLATFORM") == "cpu" else None
 
     pft, snicar = synthetic.parameter_files()
     kw = dict(pft_path=pft, snicar_path=snicar, mixed_radiation=mixed,
-              warm_start=warm, mixed_canopy=mixed_can, device=device,
+              warm_start=warm, mixed_canopy=mixed_can,
+              packed_carry=packed, device=device,
               dtype=torch.float32 if f32 else torch.float64)
     if hetero:
         surfdata = synthetic.global_surfdata(ncol)
@@ -181,7 +183,9 @@ def main() -> int:
           f"{' mixed-radiation' if mixed else ''}"
           f"{' warm-start' if warm else ''}"
           f"{' mixed-canopy' if mixed_can else ''}"
-          f"{' hetero' if hetero else ''}  device={name}", file=sys.stderr)
+          f"{' hetero' if hetero else ''}"
+          f"{' packed-carry' if packed else ''}  device={name}",
+          file=sys.stderr)
     wtimes = [max(stamps[i] - stamps[i - 1] - sync_s, 0.0)
               for i in range(3, nwin)]
     day_totals = [sum(wtimes[d * wpd:(d + 1) * wpd]) for d in range(ndays)]

@@ -61,11 +61,18 @@ class RunConfig:
     mixed_radiation: bool = True
     warm_start: bool = True
     mixed_canopy: bool = True
-    # the JAX package's packed scan carry: not ported, refused when set
+    # carry the state of the device loops (run_scan, run_scan_series,
+    # run_windows) in one [ncol, K] buffer per dtype, the state's fields
+    # views into them (utils/packing.py): the same results bit for bit,
+    # fixed addresses for the carry
     packed_carry: bool = False
     # torch device: None is the first CUDA device, "cpu" the plain path
     device: str | None = None
-    # conservation guard thresholds (None disables a check)
+    # conservation guard thresholds (None disables a check).  The JAX
+    # package's default, kept: on the synthetic 262,144-column global grid
+    # the reference's unclosed water view reads 0.1224 mm in the first
+    # window, above 0.1, so a config over that grid sets errh2o_max to
+    # null and guards the closed ledger instead, as tools/long_run.py does
     errh2o_max: float | None = 0.1    # mm/step
     errh2osno_max: float | None = 1e-6
     # bounds the mixed-radiation contract (errsol ~1e-6 W/m2); a pure-f64
@@ -84,10 +91,6 @@ class RunConfig:
     def make_model(self):
         import torch
         from elmkernels_torch.driver.model import Model
-        if self.packed_carry:
-            raise NotImplementedError(
-                "packed_carry is not ported to elmkernels_torch yet; run "
-                "with packed_carry=false")
         kw: dict[str, Any] = dict(
             dtime=self.dtime, pft_path=self.pft_path,
             snicar_path=self.snicar_path,
@@ -98,7 +101,7 @@ class RunConfig:
             elm_correct_seb=self.elm_correct_seb,
             mixed_radiation=self.mixed_radiation,
             warm_start=self.warm_start, mixed_canopy=self.mixed_canopy,
-            device=self.device,
+            packed_carry=self.packed_carry, device=self.device,
             dtype=torch.float64 if self.f64 else torch.float32)
         if self.surfdata_path is not None:
             return Model.from_surfdata(self.surfdata_path, self.ncol, **kw)

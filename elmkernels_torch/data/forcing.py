@@ -10,7 +10,8 @@ forcing interval (reference ``atm_data.h:23-78``).
 
 - :class:`SyntheticForcing` — analytic diurnal/seasonal cycles.
 - :class:`NetCDFForcing` — the reference's month-per-file layout
-  (``basenameYYYY-MM.nc``), read by hyperslab through scipy.
+  (``basenameYYYY-MM.nc``), read by hyperslab through the native reader,
+  the next month loaded on its background thread.
 """
 
 from __future__ import annotations
@@ -200,6 +201,9 @@ class NetCDFForcing:
         self.lat_r = np.asarray(lat_r)
         self.lon_r = np.asarray(lon_r)
         self._cache: dict[tuple[int, int], dict] = {}
+        # (path, open native file) of the month after the last one loaded:
+        # its bridge rows were read from it, and its own load takes it
+        self._next_file = None
         self.qbot_is_rh = self._probe_humidity()
         # ship the series payload at SOURCE precision: variables stored
         # on disk as NC_FLOAT with no scale/offset packing carry exactly
@@ -224,10 +228,11 @@ class NetCDFForcing:
     def _path(self, year: int, month: int) -> str:
         return f"{self.basename}{year:04d}-{month:02d}.nc"
 
-    def _read_cells(self, path: str, vname: str) -> np.ndarray:
+    def _read_cells(self, path: str, vname: str, f) -> np.ndarray:
         """Read this host's [t, col0:col0+ncol) shard of a forcing
-        variable as (t, cell) regardless of the file's dim order
-        (reference ``atm_data_impl.hh:219-245``).
+        variable from ``path``, open in the native reader as ``f``, as
+        (t, cell) regardless of the file's dim order (reference
+        ``atm_data_impl.hh:219-245``).
 
         The read is a per-host HYPERSLAB, not full-grid-then-slice
         (reference rank-local start/count reads, ``read_input.cc:52-87``
@@ -239,7 +244,7 @@ class NetCDFForcing:
         read bytes scale with ncol_local, not the global grid.
         """
         dims = netcdf.get_var_dimnames(path, vname)
-        shape = netcdf.get_dimensions(path, vname)
+        shape = f.shape(vname)
         taxes = [i for i, d in enumerate(dims)
                  if d.lower() in ("dtime", "time")]
         if len(taxes) != 1:
@@ -264,11 +269,21 @@ class NetCDFForcing:
             j1 = (self.col0 + self.ncol - 1) // kminor
             start[other[0]] = j0
             count[other[0]] = j1 - j0 + 1
-        arr = netcdf.read_var(path, vname, start=start, count=count)
+        arr = netcdf.read_var(f, vname, start=start, count=count)
         arr = np.moveaxis(arr, taxis, 0)
         arr = arr.reshape(arr.shape[0], -1)
         off = self.col0 - j0 * kminor
         return arr[:, off:off + self.ncol]
+
+    def _open_month(self, path: str):
+        """``path`` open in the native reader: the file the last load kept
+        for it, or a prefetched or cold open."""
+        if self._next_file is not None:
+            kept, self._next_file = self._next_file, None
+            if kept[0] == path:
+                return kept[1]
+            kept[1].close()
+        return netcdf.open_native(path)
 
     def _load_month(self, year: int, month: int) -> dict:
         key = (year, month)
@@ -278,44 +293,54 @@ class NetCDFForcing:
         names = dict(self.VAR_NAMES)
         if self.qbot_is_rh:
             names["qbot"] = "RH"
-        data = {"dtime": netcdf.read_var(path, "DTIME")}
-        # the series layout's fixed-window padding (ntfix) assumes ONE
-        # uniform sample interval across all months; validate each
-        # loaded month against the probed interval so a mixed-cadence
-        # file set fails loudly instead of silently varying the payload's
-        # shape from window to window
-        if len(data["dtime"]) > 1:
-            dt_month = float(data["dtime"][1] - data["dtime"][0]) * 86400.0
-            if abs(dt_month - self.dt_forcing) > 1e-6 * self.dt_forcing:
-                raise ValueError(
-                    f"{path}: DTIME spacing {dt_month:.1f}s differs from "
-                    f"the file set's probed interval "
-                    f"{self.dt_forcing:.1f}s; month files must share one "
-                    f"uniform forcing cadence")
-        for k, vname in names.items():
-            data[k] = self._read_cells(path, vname)
-        # which variables this month stores as exact f32 (on-disk
-        # NC_FLOAT, no scale/offset packing) — the set of vars whose
-        # cached f64 rows can be demoted back to f32 losslessly for
-        # source-precision series shipping
-        data["f32_exact"] = frozenset(
-            k for k, vname in names.items()
-            if netcdf.var_packing(path, vname) == ("f4", 1.0, 0.0))
+        ny, nm = (year, month + 1) if month < 12 else (year + 1, 1)
+        npath = self._path(ny, nm)
+        has_bridge = os.path.exists(npath)
+        if has_bridge and (self._next_file is None
+                           or self._next_file[0] != npath):
+            # the next month loads on the reader's thread while this one
+            # is read; its bridge rows below take it
+            netcdf.prefetch(npath)
+        with self._open_month(path) as f:
+            data = {"dtime": netcdf.read_var(f, "DTIME")}
+            # the series layout's fixed-window padding (ntfix) assumes ONE
+            # uniform sample interval across all months; validate each
+            # loaded month against the probed interval so a mixed-cadence
+            # file set fails loudly instead of silently varying the
+            # payload's shape from window to window
+            if len(data["dtime"]) > 1:
+                dt_month = (float(data["dtime"][1] - data["dtime"][0])
+                            * 86400.0)
+                if abs(dt_month - self.dt_forcing) > 1e-6 * self.dt_forcing:
+                    raise ValueError(
+                        f"{path}: DTIME spacing {dt_month:.1f}s differs "
+                        f"from the file set's probed interval "
+                        f"{self.dt_forcing:.1f}s; month files must share "
+                        f"one uniform forcing cadence")
+            for k, vname in names.items():
+                data[k] = self._read_cells(path, vname, f)
+            # which variables this month stores as exact f32 (on-disk
+            # NC_FLOAT, no scale/offset packing) — the set of vars whose
+            # cached f64 rows can be demoted back to f32 losslessly for
+            # source-precision series shipping
+            data["f32_exact"] = frozenset(
+                k for k, vname in names.items()
+                if netcdf.var_packing(f, vname) == ("f4", 1.0, 0.0))
         # bridge the month boundary: append the next month's first sample
         # so the last in-month interval has its right bracket (reference
         # windows are continuous in global time, atm_data_impl.hh:100-130)
-        ny, nm = (year, month + 1) if month < 12 else (year + 1, 1)
-        npath = self._path(ny, nm)
-        data["has_bridge"] = os.path.exists(npath)
-        if data["has_bridge"]:
+        data["has_bridge"] = has_bridge
+        if has_bridge:
             dt = (data["dtime"][1] - data["dtime"][0]
                   if len(data["dtime"]) > 1 else 1.0)
             data["dtime"] = np.concatenate(
                 [data["dtime"], [data["dtime"][-1] + dt]])
+            g = self._open_month(npath)
             for k, vname in names.items():
-                nxt = self._read_cells(npath, vname)[:1]
+                nxt = self._read_cells(npath, vname, g)[:1]
                 data[k] = np.concatenate([data[k], nxt], axis=0)
-            netcdf.prefetch(npath)
+            # kept open for the next month's own load
+            self._next_file = (npath, g)
         self._cache[key] = data
         # keep at most two months resident (double-buffer semantics)
         if len(self._cache) > 2:
@@ -357,7 +382,10 @@ class NetCDFForcing:
             files = sorted(glob.glob(self.basename + "*.nc"))
             if not files:
                 raise FileNotFoundError(f"{self.basename}*.nc: no files")
-            dt = netcdf.read_var(files[0], "DTIME")
+            # the header and one small variable, through scipy's map: the
+            # native reader would load the whole month for them
+            dt = netcdf.mapped(files[0],
+                               lambda f: netcdf.read_var(f, "DTIME"))
             self._dt_forcing = (float(dt[1] - dt[0]) * 86400.0
                                 if len(dt) > 1 else 86400.0)
         return self._dt_forcing

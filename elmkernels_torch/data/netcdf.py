@@ -1,8 +1,13 @@
-"""NetCDF-classic reading and writing through scipy (the port's own copy
-of what it needs from ``elmkernels_tpu/data/netcdf_io.py``).
+"""NetCDF-classic reading and writing (the port's own copy of what it
+needs from ``elmkernels_tpu/data/netcdf_io.py``).
 
-Hyperslab reads map the file (``mmap=True``) and copy out only the slice,
-so a per-host read of a few rows does not load the whole variable.
+As in the JAX package, :func:`read_var` and :func:`var_packing` given a
+path read through the native reader (:mod:`elmkernels_torch.io.native`,
+which picks up a file :func:`prefetch` loaded); given an open scipy
+``netcdf_file`` they read through scipy.  Headers (dimension names and
+shapes, variable lookup) are read through scipy with the file mapped
+(``mmap=True``), which parses the header and touches no data.  Writing is
+scipy's.
 """
 
 from __future__ import annotations
@@ -28,9 +33,31 @@ def mapped(path, fn):
 
 
 def prefetch(path) -> None:
-    """Warm ``path`` while the device computes.  The JAX package does this
-    on a native reader's thread; the port has no native reader yet, so
-    this does nothing."""
+    """Load ``path`` on the native reader's background thread while the
+    device computes; a later native open of the same ``str(path)`` takes
+    it."""
+    from elmkernels_torch.io import native
+    native.prefetch(path)
+
+
+def open_native(path):
+    """``path`` open in the native reader (a prefetched load of the same
+    ``str(path)`` if there is one); close it, or use it in a ``with``."""
+    from elmkernels_torch.io import native
+    return native.NativeNetCDF(path)
+
+
+def _read_native(f, name: str, start, count) -> np.ndarray:
+    """A hyperslab from an open native file, scale then offset applied as
+    the JAX package applies them (``netcdf_io.py:39-48``)."""
+    arr = f.read(name, start=start, count=count)
+    scale = f.attr(name, "scale_factor")
+    off = f.attr(name, "add_offset")
+    if scale is not None and scale != 1.0:
+        arr = arr * scale
+    if off is not None and off != 0.0:
+        arr = arr + off
+    return arr
 
 
 def _read(v, start, count) -> np.ndarray:
@@ -48,24 +75,37 @@ def _read(v, start, count) -> np.ndarray:
 def read_var(path_or_file, name: str, start=None, count=None) -> np.ndarray:
     """Read (a hyperslab of) a variable as float64, applying its
     scale/offset attributes (reference ``read_netcdf.hh:43-130``).
-    ``path_or_file`` is a path or an open scipy ``netcdf_file``."""
+    ``path_or_file`` is a path (read by the native reader), a file
+    :func:`open_native` opened, or an open scipy ``netcdf_file``."""
     if hasattr(path_or_file, "variables"):
         return _read(path_or_file.variables[name], start, count)
-    return mapped(path_or_file,
-                  lambda f: _read(f.variables[name], start, count))
+    if hasattr(path_or_file, "attr"):
+        return _read_native(path_or_file, name, start, count)
+    with open_native(path_or_file) as f:
+        return _read_native(f, name, start, count)
 
 
-def var_packing(path, name: str) -> tuple[str, float, float]:
+# on-disk NetCDF type ids of the float types
+_NC_DTYPE = {5: "f4", 6: "f8"}
+
+
+def var_packing(path_or_file, name: str) -> tuple[str, float, float]:
     """On-disk storage of a variable: (numpy dtype string, scale, offset),
     the dtype ``"other"`` for non-float storage.  A variable stored as
     NC_FLOAT with no packing carries exactly 32 bits a value, so it can be
-    shipped as float32 and promoted after use, bit for bit."""
-    def get(f):
-        v = f.variables[name]
-        return ({"f": "f4", "d": "f8"}.get(v.typecode(), "other"),
-                float(getattr(v, "scale_factor", 1.0)),
-                float(getattr(v, "add_offset", 0.0)))
-    return mapped(path, get)
+    shipped as float32 and promoted after use, bit for bit.  Reads a path
+    (or a file :func:`open_native` opened) by the native reader."""
+    if not hasattr(path_or_file, "attr"):
+        with open_native(path_or_file) as f:
+            return var_packing(f, name)
+    f = path_or_file
+    if f.var_type(name) < 0:
+        raise KeyError(name)
+    scale = f.attr(name, "scale_factor")
+    off = f.attr(name, "add_offset")
+    return (_NC_DTYPE.get(f.var_type(name), "other"),
+            1.0 if scale is None else float(scale),
+            0.0 if off is None else float(off))
 
 
 def get_dimensions(path, name: str) -> tuple[int, ...]:
@@ -106,3 +146,21 @@ def write_nc(path, dims: dict, variables: dict,
             v[:] = arr
             for aname, aval in (attrs or {}).get(vname, {}).items():
                 setattr(v, aname, aval)
+
+
+def reshape_and_write_grid_cell(path, cell_vars: dict, nlat: int,
+                                nlon: int) -> None:
+    """(t, cell) arrays back to (t, lat, lon) files, and (cell,) arrays to
+    (lat, lon): the reference's test-input writer
+    (``read_input.hh:280-309``), used to cut per-cell inputs from gridded
+    data."""
+    dims = {"time": None, "lat": nlat, "lon": nlon}
+    variables = {}
+    for name, arr in cell_vars.items():
+        arr = np.asarray(arr)
+        if arr.ndim == 2:  # (t, cell)
+            variables[name] = (("time", "lat", "lon"),
+                               arr.reshape(arr.shape[0], nlat, nlon))
+        else:  # (cell,)
+            variables[name] = (("lat", "lon"), arr.reshape(nlat, nlon))
+    write_nc(path, dims, variables)

@@ -22,6 +22,12 @@ The three device loops copy from pinned memory when the model is on a
 card, and reduce each step's diagnostics on the device
 (:class:`ScanDiagnostics`).
 
+``Model(..., packed_carry=True)`` carries the state of the three device
+loops in one ``[ncol, K]`` buffer per dtype (:mod:`elmkernels_torch.utils.
+packing`): the same results bit for bit, the carry at fixed addresses for
+the life of the model.  The state's fields are then views into those
+buffers, which the next device loop overwrites: clone what is kept.
+
 ``Model(ncol=mesh.ncol, col0=mesh.col0, sharding=mesh)``, with ``mesh``
 from :func:`elmkernels_torch.parallel.column_mesh`, runs one rank's block
 of a column axis split over a ``torch.distributed`` group.  The step is
@@ -48,6 +54,7 @@ from elmkernels_torch.driver import step as step_mod
 from elmkernels_torch.physics.photosynthesis import psn_mode_of
 from elmkernels_torch.utils.dates import Date, month_indices
 from elmkernels_torch.utils.device import resolve_device
+from elmkernels_torch.utils.packing import PackedCarry, template_of
 
 
 class ScanDiagnostics(NamedTuple):
@@ -155,7 +162,9 @@ class Model:
     selects per column, and non-soil columns cold-start from the
     reference's init kernels).  ``elm_correct_snow_aging=True`` ages the
     snow grains from the ``snicar_drdt`` tables at ``snow_aging_path``.
-    The flags default to the JAX ``Model``'s production defaults."""
+    The flags default to the JAX ``Model``'s production defaults.
+    ``packed_carry=True`` packs the device loops' state carry (module
+    docstring)."""
     ncol: int
     dtime: float = 1800.0
     vtype: int | list | tuple = 12
@@ -195,6 +204,9 @@ class Model:
     elm_correct_seb: bool = False
     warm_start: bool = True
     mixed_canopy: bool = True
+    # carry the device loops' state in one [ncol, K] buffer per dtype
+    # (utils/packing.py); run, the per-step loop, is left unpacked
+    packed_carry: bool = False
     device: object = None
     dtype: torch.dtype = torch.float64
 
@@ -259,6 +271,7 @@ class Model:
             topo_slope_raw=self.topo_slope_raw, topo_std=self.topo_std,
             dtype=dt, device=dev)
         self.state = cold_start(self.ncol, dt, dev)
+        self._carry = None
         if self.het_ltype or self.land.ltype not in (c.ISTSOIL, c.ISTCROP):
             self.state = self._ltype_cold_start(self.state)
         lat_r = self.params.lat_r.cpu().numpy()
@@ -447,16 +460,41 @@ class Model:
         """:meth:`host_windows` on the device, in one set of copies."""
         return self._put(self._pin(self.host_windows(start, nsteps)))
 
+    def _packed(self) -> PackedCarry | None:
+        """With ``packed_carry``: ``self.state`` made the model's packed
+        carry, whose buffers are allocated at the first device loop and
+        kept while the state's shapes and dtypes hold (a state set from
+        outside is copied into them); else None."""
+        if not self.packed_carry:
+            return None
+        carry = self._carry
+        if carry is None or carry.template != template_of(self.state):
+            carry = self._carry = PackedCarry(self.state)
+        elif self.state is not carry.state:
+            carry.update(self.state)
+        self.state = carry.state
+        return carry
+
+    def _loop_step(self, carry, forc: StepForcing, phen: StepPhenology):
+        """One step of a device loop: its reductions, taken before a
+        packed carry's buffers take the new state."""
+        red = self._step_diags(self._step(forc, phen))
+        if carry is not None:
+            carry.update(self.state)
+            self.state = carry.state
+        return red
+
     def _scan(self, payload, poll=None) -> ScanDiagnostics:
         """The steps of a per-step stack payload, sliced on the device;
         ``poll()`` runs after each step."""
         forc, phen = payload
+        carry = self._packed()
         out = []
         for k in range(forc.tbot.shape[0]):
             f = StepForcing(*(None if v is None else self._promote(v[k])
                               for v in forc))
             p = StepPhenology(*(self._promote(v[k]) for v in phen))
-            out.append(self._step_diags(self._step(f, p)))
+            out.append(self._loop_step(carry, f, p))
             if poll is not None:
                 poll()
         return self._window_diags(out)
@@ -534,6 +572,7 @@ class Model:
         def pair(a, i):
             return self._promote(a[i:i + 2])
 
+        carry = self._packed()
         out = []
         for k, (i, j) in enumerate(zip(idx1, pidx)):
             aero = None
@@ -550,7 +589,7 @@ class Model:
                 wt1=pwt1[k], wt2=pwt2[k], mlai=row(phen_uniq.mlai, j),
                 msai=row(phen_uniq.msai, j), mhtop=row(phen_uniq.mhtop, j),
                 mhbot=row(phen_uniq.mhbot, j))
-            out.append(self._step_diags(self._step(forc, phen)))
+            out.append(self._loop_step(carry, forc, phen))
             if poll is not None:
                 poll()
         return self._window_diags(out)

@@ -2,7 +2,7 @@
 
     python -m elmkernels_torch.tools.profile_step [--ncol 262144] [--steps 4]
         [--loop {run,series,windows}] [--window 4]
-        [--grid {uniform,global,landunits}] [--out profile.json]
+        [--grid {uniform,global,landunits}] [--packed] [--out profile.json]
 
 Builds a model with the production flags from synthetic input files
 (written under ``build/``): ``--grid uniform`` is ``Model(ncol)``, one PFT
@@ -11,7 +11,9 @@ ncol-cell global grid (per-column PFTs, phenology and aerosol-deposition
 files, synthetic forcing); ``--grid landunits`` is that grid with
 per-column landunit types (``synthetic.landunit_map``, seed 0: soil, crop,
 wetland and ice sheet; ice and wetland unvegetated) and live snow aging
-on synthetic ``snicar_drdt`` tables.  It runs two warm-up summer steps, then
+on synthetic ``snicar_drdt`` tables; ``--packed`` gives the model the packed
+state carry (``Model(packed_carry=True)``, which the ``series`` and
+``windows`` loops use).  It runs two warm-up summer steps, then
 ``--steps`` steps from noon of July 1 under ``torch.profiler`` (CPU and
 CUDA activities): ``--loop run`` through ``Model.advance`` (each step's
 inputs built on the host and copied), ``--loop series`` through
@@ -119,6 +121,8 @@ def main(argv=None) -> int:
     ap.add_argument("--window", type=int, default=4)
     ap.add_argument("--grid", choices=("uniform", "global", "landunits"),
                     default="uniform")
+    ap.add_argument("--packed", action="store_true",
+                    help="the packed state carry (series and windows loops)")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
 
@@ -167,10 +171,11 @@ def main(argv=None) -> int:
                 sd.vtype, ltype).tolist(), elm_correct_snow_aging=True,
                 snow_aging_path=str(aging))
         model = Model.from_surfdata(surfdata, args.ncol, pft_path=str(pft),
-                                    snicar_path=str(snicar), **inputs)
+                                    snicar_path=str(snicar),
+                                    packed_carry=args.packed, **inputs)
     else:
         model = Model(ncol=args.ncol, pft_path=str(pft),
-                      snicar_path=str(snicar))
+                      snicar_path=str(snicar), packed_carry=args.packed)
     # noon of July 1 (step 24), after two warm-up steps
     date = Date.from_ymd(1985, 7, 1)
     date.increment_seconds(22 * 1800)
@@ -260,7 +265,8 @@ def main(argv=None) -> int:
     top = sorted(dev_ms, key=dev_ms.get, reverse=True)[:20]
     res = dict(
         device=torch.cuda.get_device_name(0), card=card, ncol=args.ncol,
-        steps=n, loop=args.loop, grid=args.grid, psn_mode=model.psn_mode,
+        steps=n, loop=args.loop, grid=args.grid, packed=args.packed,
+        psn_mode=model.psn_mode,
         ms_per_step=wall / n * 1e3,
         columns_per_s=args.ncol * n / wall,
         device_busy_share=busy_us / (wall * 1e6),

@@ -49,12 +49,21 @@ def shard_path(path, mesh=None) -> pathlib.Path:
     return path.with_name(f"{path.name}.rank{mesh.rank}-of-{mesh.nranks}")
 
 
+def _own(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where it is a view into a larger buffer (a
+    packed carry's, ``utils/packing.py``): ``torch.save`` writes a view's
+    whole storage, and the file holds each field on its own."""
+    whole = (t.is_contiguous() and t.storage_offset() == 0
+             and t.untyped_storage().nbytes() == t.numel() * t.element_size())
+    return t if whole else t.clone(memory_format=torch.contiguous_format)
+
+
 def save(path, state: ModelState, mesh=None) -> None:
     """Write ``state`` to the file ``path`` (its directory is made); on a
     mesh, this rank's block to its own file, :func:`shard_path`."""
     path = shard_path(path, mesh)
     path.parent.mkdir(parents=True, exist_ok=True)
-    data = state._asdict()
+    data = {k: _own(v) for k, v in state._asdict().items()}
     if mesh is not None:
         data[_SHARD_KEY] = _shard(mesh)
     torch.save(data, path)

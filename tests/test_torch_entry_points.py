@@ -57,7 +57,7 @@ def test_bench_prints_one_json_line(knobs):
     assert "per-step:" in res.stderr and "device=cpu" in res.stderr
 
 
-@pytest.mark.parametrize("knob", [dict(BENCH_PACKED="1"),
+@pytest.mark.parametrize("knob", [dict(BENCH_COMPILE_EFFORT="1.0"),
                                   dict(BENCH_COMPILE_EFFORT="-1.0"),
                                   dict(BENCH_PLATFORM="tpu")])
 def test_bench_refuses_knobs_without_meaning(knob):

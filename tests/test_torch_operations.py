@@ -131,10 +131,11 @@ def test_config_make_model_on_cpu(files, monkeypatch):
     assert m.dtype == torch.float64 and m.mixed_canopy is False
     d = m.advance(cfg.start_date())
     assert bool(torch.isfinite(d.errh2o).all())
-    with pytest.raises(NotImplementedError, match="packed_carry"):
-        tconfig.RunConfig(packed_carry=True, device="cpu",
-                          pft_path=files[0],
-                          snicar_path=files[1]).make_model()
+    # the packed carry is ported: the config builds a packed model
+    mp = tconfig.RunConfig(packed_carry=True, device="cpu",
+                           pft_path=files[0],
+                           snicar_path=files[1]).make_model()
+    assert mp.packed_carry is True and m.packed_carry is False
     # float32 runs on the card too (K4 has a float32 instantiation): with
     # no device named, the model asks for a card, which the CPU has not
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
