@@ -43,7 +43,18 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    pinned grain radius) and in a ``Model(elm_correct_snow_aging=True)``
    given a copy of the state, whose layered columns' radii must age
    within [SNW_RDS_MIN, SNW_RDS_MAX];
-7. loops, bit for bit: the heterogeneous global grid at 8,192 columns
+7. reference formats: the main path's model built from the synthetic
+   optics written as the reference's SnowOptics text fixture
+   (``ops.testing.write_snow_optics_text``) and from the same tables as
+   NetCDF, 12 steps of each from 1985-07-01 12:00 by ``run_windows(
+   series=True)``: tables, state and diagnostics equal bit for bit, the
+   main path's contracts, K1's and K4's launches; then 4 steps of the
+   text-optics model under :class:`MainPathTimes`, K1 and K4 held against
+   their plain versions on the calls kept; then ``snicar_ad_rt`` with
+   each flag against its half of ``snicar_ad_rt_both``, bit for bit, at
+   262,144 columns of seeded snow (0-5 layers) and of the winter path's
+   state tiled, each sweep timed;
+8. loops, bit for bit: the heterogeneous global grid at 8,192 columns
    (``Model.from_surfdata`` with month-per-file NetCDF forcing, phenology
    and aerosol deposition, all written by ``elmkernels_torch.data.
    synthetic``), 12 steps from one cold start by ``run``, ``run_scan``,
@@ -62,7 +73,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    equal to ``run`` bit for bit (state and diagnostics), its ms/step beside
    the unpacked loop's and the bytes its carry copied a step; and one
    packed carry update at 262,144 columns timed by CUDA events;
-8. the production loop at full width: ``Model.from_surfdata`` on the
+9. the production loop at full width: ``Model.from_surfdata`` on the
    262,144-cell global grid with the synthetic forcing, ``run_windows(
    nsteps=48, window=24, series=True)`` with no timer installed (ms/step,
    columns/s, contracts, launches), the same 48 steps by ``run`` from a
@@ -72,7 +83,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    per-leaf traits) and first pentadiagonal solves are then held against
    their plain versions on the same inputs (K4's also on the main path's
    timed steps);
-9. landunits: the production loop's grid and flags with per-column land
+10. landunits: the production loop's grid and flags with per-column land
    types (``synthetic.landunit_map``: ~84 % soil, 10 % crop, 5 % wetland,
    the 1 % highest-latitude columns ice sheet, half of them with
    elevation classes; ice and wetland unvegetated) and live snow aging on
@@ -81,7 +92,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    columns and mean ``t_grnd`` per class, snow layers and aged radii,
    launches), then one timed 12-step window whose kept K1 and K4 calls
    are held against their plain versions;
-10. operations, on the production loop's grid: a ``RunConfig`` builds
+11. operations, on the production loop's grid: a ``RunConfig`` builds
    the model, ``run_windows(series=True, window=24)`` runs 48 steps with a
    ``StepGuard`` checking each window, ``MetricsLogger`` lines and a
    ``HistoryWriter``; a checkpoint written after window 1 restores into a
@@ -91,7 +102,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    against a twin on its own providers (rtol 1e-9, atol 1e-12), then the
    NaN-forcing recovery round trip, equal to a twin bit for bit; and
    ``python -m elmkernels_torch.run_model`` runs a small JSON config;
-11. sensitivity: the global grid under the exact flags, ``run_jvp`` for 2
+12. sensitivity: the global grid under the exact flags, ``run_jvp`` for 2
    steps from 1985-07-01 06:00 seeded by ``tbot`` (untimed: its ms/step
    against the primal's, the launches of K1, K1-T and K4) and by
    ``watsat`` (under the timers); tangents finite; the primal unchanged by
@@ -103,12 +114,12 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ``run_jvp`` step from 12:00 UTC, where K1-T's leaves need the solve
    (:func:`sens_noon`: every launch timed, the first calls profiled and
    held bit for bit);
-12. the bench twin as a user runs it, one run at a time, alone on the
+13. the bench twin as a user runs it, one run at a time, alone on the
    card: ``python -m elmkernels_torch.bench`` at its defaults, with
    ``BENCH_PACKED=1``, with ``BENCH_HETERO=1`` and with ``BENCH_F32=1
    BENCH_DAYS=1`` (each JSON line printed beside the card line; the
    global-grid bench times one day);
-13. then, started together as subprocesses (they share the card and the
+14. then, started together as subprocesses (they share the card and the
    host): ``elmkernels_torch.tools.long_run`` at 8,192 columns for 48
    steps (resume bit for bit, no guard trip),
    ``elmkernels_torch.examples.run_single_column``, and the twins of the
@@ -117,13 +128,13 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ``mixed_canopy_drift`` (1,024 columns, one day, both seasons) and
    ``weak_scaling`` (one rank: it says that it measures no scaling on one
    card);
-14. the native reader (``elmkernels_torch/io/native.py``, built with g++
+15. the native reader (``elmkernels_torch/io/native.py``, built with g++
    from ``elmkernels_torch/csrc/elmio.cc``): July and August month files
    at the full width (262,144 cells on 512 x 512, 3-hourly, 1.82 GB each,
    written once under ``build/ingest``) read by it and by scipy, every
    variable in a 48-step window's slabs, equal at atol 0; a prefetched
    open equal to a cold one; one window's reads timed by each reader;
-15. ingest: ``ingest_bench``'s files mode at 262,144 columns, in-process:
+16. ingest: ``ingest_bench``'s files mode at 262,144 columns, in-process:
    ``run_windows(series=True)`` from those files through the native
    reader with next-month prefetch, in 12-step windows from 31 July 12:00
    (the second timed window loads August on the host thread), against the
@@ -131,12 +142,13 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ``run_scan_series`` windows, bit for bit (pre-staged and overlapped
    ms/step, their ratio, host assembly cold and warm; K1's and K4's
    launches counted from 0 over it);
-16. prints each phase's seconds, the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
+17. prints each phase's seconds, the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
    per launch on the main path, ``prod_*`` the same on the production
    loop, ``land_*`` on the landunits phase, ``sens_*`` on the sensitivity
    path, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4;
    K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path,
    ``sens_noon_*`` from its noon step;
+   ``refformats_*`` on the reference formats phase's text-optics model;
    ``shard_*`` per rank of the sharded runs; ``ingest_launches`` and
    ``capacity_launches`` on the ingest path and the capacity run;
    ``pdma_solve_f32``'s entry from the float32 path), the card line, and
@@ -385,9 +397,12 @@ def clone(tree):
     return tree
 
 
-def check_ci_on_path(kept, tol: float, label: str) -> dict:
+def check_ci_on_path(kept, tol: float, label: str,
+                     per_leaf_traits: bool = True) -> dict:
     """ci_hybrid_solve's results on a path's own inputs (the calls a
-    MainPathTimes kept) against hybrid_solve_plain on the same inputs."""
+    MainPathTimes kept) against hybrid_solve_plain on the same inputs;
+    with ``per_leaf_traits`` (a heterogeneous grid's path) the traits must
+    differ between leaves."""
     import torch
     from elmkernels_torch.physics import photosynthesis as psn
     worst, worst_abs, eq, n, modes = 0.0, 0.0, 1.0, 0, {}
@@ -415,7 +430,8 @@ def check_ci_on_path(kept, tol: float, label: str) -> dict:
                max_abs=worst_abs, equal_iters=eq, same_nan=same_nan)
     phase("K1 ci_hybrid_solve vs plain on the path's inputs: "
           + json.dumps(res))
-    if not (varying and same_nan and worst <= tol and eq >= 0.999):
+    if not (kept and (varying or not per_leaf_traits) and same_nan
+            and worst <= tol and eq >= 0.999):
         raise AssertionError(f"ci_hybrid_solve disagrees with its plain "
                              f"version on the {label}: {res}")
     return res
@@ -742,6 +758,14 @@ PROD_CI_KEPT = 16
 PDMA_KEPT = 2
 # the winter path runs this many steps further, pinned and aging
 WINTER_STEPS, WINTER_MORE = 700, 48
+# the reference formats phase: the main path's model on the SnowOptics
+# text optics and on the same tables as NetCDF, REFFORMATS_STEPS steps from
+# 1985-07-01 12:00 by run_windows(series=True), then REFFORMATS_TIMED
+# steps of the text-optics model under the timers (K1 held on the first
+# REFFORMATS_CI_KEPT calls); the single-flag SNICAR sweeps at the same
+# width, on seeded snow of 0-5 layers and on the winter path's state tiled
+REFFORMATS_NCOL = 262144
+REFFORMATS_STEPS, REFFORMATS_TIMED, REFFORMATS_CI_KEPT = 12, 4, 4
 # the landunits phase: the landunit map's seed, and the production loop's
 # steps and window from 1985-01-01
 LAND_SEED = 0
@@ -798,7 +822,7 @@ CI_FUNC_JVP_FLOPS = 214
 
 
 def check_loops(files, kernels: dict) -> dict:
-    """Phase 7: the four time loops on the heterogeneous grid, bit for
+    """Phase 8: the four time loops on the heterogeneous grid, bit for
     bit, from one cold start."""
     import torch
     from elmkernels_torch.data import synthetic
@@ -908,7 +932,7 @@ def check_loops(files, kernels: dict) -> dict:
 
 
 def production_loop(files, inputs: dict, kernels: dict):
-    """Phase 8: ``run_windows`` over the 262,144-column global grid, with
+    """Phase 9: ``run_windows`` over the 262,144-column global grid, with
     no timer installed, then one 12-step window under the timers.
     ``inputs`` are :func:`global_inputs`."""
     import torch
@@ -999,6 +1023,160 @@ def production_loop(files, inputs: dict, kernels: dict):
     return res, launches, on_prod
 
 
+def snicar_inputs_of(state, ncol: int, seed: int) -> dict:
+    """A model state's snow as SNICAR's inputs, tiled to ``ncol`` columns,
+    with a seeded sun height (about a tenth below the horizon) and soil
+    albedo, keyed by ``snicar_ad_rt``'s argument names."""
+    import torch
+    from elmkernels_torch import constants as c
+    from elmkernels_torch.physics import surface_albedo as sa
+    reps = -(-ncol // state.snl.shape[0])
+
+    def tile(t):
+        return t.repeat((reps,) + (1,) * (t.dim() - 1))[:ncol].contiguous()
+    cnc = [tile(getattr(state, f"cnc_{k}")) for k in
+           ("bcphi", "bcpho", "dst1", "dst2", "dst3", "dst4")]
+    land = c.LandType(ltype=c.ISTSOIL, ctype=1, vtype=12)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = state.h2osno.dtype
+
+    def u(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen,
+                                           device="cuda", dtype=dt)
+    return dict(coszen=u(-0.1, 1.0, ncol), h2osno=tile(state.h2osno),
+                snl=tile(state.snl), h2osoi_liq=tile(state.h2osoi_liq),
+                h2osoi_ice=tile(state.h2osoi_ice),
+                snw_rds=tile(state.snw_rds), albsoi=u(0.05, 0.4, ncol, 2),
+                mss_cnc_aer=sa.init_timestep(
+                    land, torch.zeros_like(cnc[0][:, 0]),
+                    *cnc).mss_cnc_aer_in_fdb)
+
+
+def reference_formats(files, snowy_state, kernels: dict) -> dict:
+    """The reference formats phase: the main path's model built from the
+    synthetic optics written as the reference's SnowOptics text fixture
+    and from the same tables as NetCDF, REFFORMATS_STEPS steps of each by
+    ``run_windows(series=True)``, held equal bit for bit (tables, state,
+    diagnostics) under the main path's contracts, with the kernels'
+    launches counted from 0 over the text-optics run; then
+    REFFORMATS_TIMED steps of it under the timers, K1 and K4 held against
+    their plain versions on the calls kept; then ``snicar_ad_rt`` with
+    each flag against its half of ``snicar_ad_rt_both``, bit for bit, at
+    the same width on seeded snow of 0-5 layers and on ``snowy_state``
+    (the winter path's) tiled.  Returns the phase's numbers and the timed
+    steps' per-launch summaries."""
+    import torch
+    from elmkernels_torch import constants as c
+    from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.ops import testing
+    from elmkernels_torch.physics import snow_snicar as sn
+    from elmkernels_torch.utils.dates import Date
+    from elmkernels_torch.utils.guard import errsol_bound
+    text = files[1].with_name("SnowOptics_synthetic.txt")
+    testing.write_snow_optics_text(text)
+    start = Date.from_ymd(1985, 7, 1)
+    start.increment_seconds(24 * 1800)
+    res = dict(label="reference formats", ncol=REFFORMATS_NCOL,
+               steps=REFFORMATS_STEPS, loop="run_windows(series=True)",
+               card=card_line())
+    models = {}
+    for optics, path in (("text", text), ("netcdf", files[1])):
+        t0 = time.perf_counter()
+        m = Model(ncol=REFFORMATS_NCOL, pft_path=str(files[0]),
+                  snicar_path=str(path))
+        build_s = time.perf_counter() - t0
+        reset(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = m.run_windows(start.copy(), REFFORMATS_STEPS,
+                          window=REFFORMATS_STEPS, series=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        models[optics] = (m, d)
+        res[optics] = dict(
+            snicar_path=path.name, model_build_s=build_s, wall_s=wall,
+            ms_per_step=wall / REFFORMATS_STEPS * 1e3,
+            columns_per_s=REFFORMATS_NCOL * REFFORMATS_STEPS / wall,
+            launches=counts(kernels, f"reference formats, {optics} optics"))
+    (mt, dt), (mn, dn) = models["text"], models["netcdf"]
+    res.update(
+        tables_differing=[k for k in mt.snicar._fields if not torch.equal(
+            getattr(mt.snicar, k), getattr(mn.snicar, k))],
+        state_fields_differing=[k for k in mt.state._fields if not
+                                torch.equal(getattr(mt.state, k),
+                                            getattr(mn.state, k))],
+        diagnostics_differing=[k for k in dt._fields if not torch.equal(
+            getattr(dt, k), getattr(dn, k))],
+        finite=finite(mt.state), errh2o_led=dt.errh2o_led_max.max().item(),
+        errlon=dt.errlon_max.max().item(), errsol=dt.errsol_max.max().item(),
+        errsol_bound=errsol_bound(REFFORMATS_NCOL, REFFORMATS_STEPS),
+        max_canopy_iters=int(dt.niters_canopy_max.max().item()))
+    del mn, dn, models
+    if (res["tables_differing"] or res["state_fields_differing"]
+            or res["diagnostics_differing"]):
+        raise AssertionError(f"the text-optics run differs from the "
+                             f"NetCDF-optics run: {res}")
+    check_contracts("reference formats", res)
+
+    later = start.copy()
+    later.increment_seconds(REFFORMATS_STEPS * int(mt.dtime))
+    t1, t4 = timers(keep=REFFORMATS_CI_KEPT, keep_pdma=PDMA_KEPT)
+    with t1, t4:
+        reset(kernels)
+        mt.run_windows(later, REFFORMATS_TIMED, window=REFFORMATS_TIMED,
+                       series=True)
+        timed = counts(kernels, "reference formats, timed")
+    on_path = timed_summaries(t1, t4, timed, "reference formats")
+    res["k1"] = check_ci_on_path(t1.kept, 1e-5, "reference formats",
+                                 per_leaf_traits=False)
+    res["k4"] = check_pdma_on_path(t4.kept, "reference formats")
+    del t1, t4
+
+    # the single-flag sweeps against the stacked one, on the text optics
+    seeded = testing.snicar_problem(REFFORMATS_NCOL, 11)
+    inputs = {"seeded snow, 0-5 layers": {
+                  k: torch.as_tensor(v, device="cuda")
+                  for k, v in seeded.items()},
+              "winter path, tiled": snicar_inputs_of(
+                  snowy_state, REFFORMATS_NCOL, 12)}
+    land = c.LandType(ltype=c.ISTSOIL, ctype=1, vtype=12)
+    res["snicar_ad_rt"] = {}
+    for label, a in inputs.items():
+        args = [a[k] for k in ("coszen", "h2osno", "snl", "h2osoi_liq",
+                               "h2osoi_ice", "snw_rds", "albsoi",
+                               "mss_cnc_aer")]
+        both = sn.snicar_ad_rt_both(land, *args, mt.snicar)
+        out = dict(snow_layers={int(n): int((a["snl"] == n).sum().item())
+                                for n in range(c.NLEVSNO + 1)},
+                   active_columns=int(((a["coszen"] > 0.0)
+                                       & (a["h2osno"] > sn.MIN_SNW))
+                                      .sum().item()))
+        for flag, half in zip((1, 2), both):
+            one = sn.snicar_ad_rt(land, flag, *args, mt.snicar)
+            out[f"flag{flag}_equal"] = all(
+                torch.equal(getattr(one, k), getattr(half, k))
+                for k in one._fields)
+            out[f"flag{flag}_max_abs"] = max(
+                (getattr(one, k) - getattr(half, k)).abs().max().item()
+                for k in one._fields)
+        out["both_ms"] = cuda_ms(
+            lambda: sn.snicar_ad_rt_both(land, *args, mt.snicar), 3)
+        out["single_flags_ms"] = cuda_ms(
+            lambda: [sn.snicar_ad_rt(land, f, *args, mt.snicar)
+                     for f in (1, 2)], 3)
+        res["snicar_ad_rt"][label] = out
+        if not (out["flag1_equal"] and out["flag2_equal"]
+                and any(out["snow_layers"][n]
+                        for n in range(1, c.NLEVSNO + 1))):
+            raise AssertionError(f"snicar_ad_rt differs from its half of "
+                                 f"snicar_ad_rt_both on {label}: {out}")
+    if not all(res["snicar_ad_rt"]["seeded snow, 0-5 layers"]["snow_layers"]
+               [n] for n in range(c.NLEVSNO + 1)):
+        raise AssertionError("the seeded snow lacks a layer count")
+    phase("reference formats: " + json.dumps(res))
+    return res, on_path
+
+
 def global_inputs() -> dict:
     """The 262,144-cell global grid's surfdata, phenology and deposition
     files, written once for the production and landunits phases: their
@@ -1084,7 +1262,7 @@ class ColumnLedger:
 
 
 def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
-    """Phase 9: the production loop's grid with per-column land types and
+    """Phase 10: the production loop's grid with per-column land types and
     live snow aging, LAND_STEPS from 1985-01-01 with no timer installed,
     then one 12-step window under the timers, whose kept K1 and K4 calls
     are held against their plain versions."""
@@ -1226,7 +1404,7 @@ def state_diff(a, b) -> list:
 
 
 def operations(files, inputs: dict, kernels: dict) -> dict:
-    """Phase 10: the operations layer at full width.  A RunConfig builds the
+    """Phase 11: the operations layer at full width.  A RunConfig builds the
     production loop's global-grid model; run_windows runs PROD_STEPS with a
     StepGuard checking each window, MetricsLogger lines and a
     HistoryWriter; a checkpoint after window 1 restores into a fresh model
@@ -1770,7 +1948,7 @@ def k1t_timer(keep: int):
 
 
 def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
-    """Phase 11: the tangent-linear model on the 262,144-column global
+    """Phase 12: the tangent-linear model on the 262,144-column global
     grid under the exact flags, 2 steps from 1985-07-01 06:00: run_jvp
     seeded by tbot (untimed: ms/step against the primal, launches) and by
     watsat (under the timers: K1-T and K4 per launch, kept calls); the
@@ -2609,8 +2787,12 @@ def main() -> int:
         raise AssertionError("winter path made no snow layers")
     lap("winter path")
     winter_aging(winter_model, files, wrappers)
+    snowy = clone(winter_model.state)
     del winter_model
     lap("winter aging")
+    refformats, on_ref = reference_formats(files, snowy, wrappers)
+    del snowy
+    lap("reference formats")
     loops = check_loops(files, wrappers)
     lap("loops")
     packed_update_cost()
@@ -2655,7 +2837,12 @@ def main() -> int:
                     prod_share_of_bound=p["share_of_bound"],
                     land_launches=land_launches[name], land_ms=g["ms"],
                     land_bound_ms=g["bound_ms"],
-                    land_share_of_bound=g["share_of_bound"])
+                    land_share_of_bound=g["share_of_bound"],
+                    refformats_launches=refformats["text"]["launches"][name],
+                    refformats_ms=on_ref[name]["ms"],
+                    refformats_bound_ms=on_ref[name]["bound_ms"],
+                    refformats_share_of_bound=on_ref[name][
+                        "share_of_bound"])
 
     kernels = [
         dict(name="ci_hybrid_solve", route="cuda",

@@ -8,10 +8,14 @@ every run-level knob lives in one dataclass, loaded from JSON (or YAML,
 where PyYAML is installed) and overridden from the command line.
 
 Against the JAX package's: ``platform`` is ``device`` (``None`` is the
-first CUDA device, ``"cpu"`` the plain PyTorch path), ``f64`` selects the
-model's dtype, and ``pft_path``/``snicar_path`` have no default (the port
-knows no reference data directory; ``elmkernels_torch.data.synthetic``
-writes synthetic files).
+first CUDA device, ``"cpu"`` the plain PyTorch path) and ``f64`` selects
+the model's dtype.  ``pft_path``/``snicar_path`` default to the files the
+JAX package's do, the reference's ``clm_params_c180524.nc`` and
+``SnowOptics_IN.txt`` (``driver.model.DEFAULT_PFT_PATH`` and
+``DEFAULT_SNICAR_PATH``), in the directory named by the environment
+variable ``ELM_INPUT_DATA_DIR`` (else the working directory); a
+``snicar_path`` not ending in ``.nc`` is read as the SnowOptics text
+fixture.  ``elmkernels_torch.data.synthetic`` writes synthetic files.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ import dataclasses
 import json
 import pathlib
 from typing import Any
+
+from elmkernels_torch.driver.model import (DEFAULT_PFT_PATH,
+                                           DEFAULT_SNICAR_PATH)
 
 
 @dataclasses.dataclass
@@ -36,9 +43,9 @@ class RunConfig:
     vtype: int = 12
     lat_deg: float = 71.323
     lon_deg: float = 203.3886
-    # clm_params and snicar_optics NetCDFs; the model needs both
-    pft_path: str | None = None
-    snicar_path: str | None = None
+    # clm_params NetCDF; snicar_optics NetCDF or SnowOptics text fixture
+    pft_path: str = DEFAULT_PFT_PATH
+    snicar_path: str = DEFAULT_SNICAR_PATH
     # snicar_drdt snow-aging tables; required by elm_correct_snow_aging
     snow_aging_path: str | None = None
     # surfdata NetCDF of a heterogeneous per-column grid

@@ -89,16 +89,17 @@ def read_var(path_or_file, name: str, start=None, count=None) -> np.ndarray:
 _NC_DTYPE = {5: "f4", 6: "f8"}
 
 
-def var_packing(path_or_file, name: str) -> tuple[str, float, float]:
+def var_packing(path, name: str) -> tuple[str, float, float]:
     """On-disk storage of a variable: (numpy dtype string, scale, offset),
     the dtype ``"other"`` for non-float storage.  A variable stored as
     NC_FLOAT with no packing carries exactly 32 bits a value, so it can be
-    shipped as float32 and promoted after use, bit for bit.  Reads a path
-    (or a file :func:`open_native` opened) by the native reader."""
-    if not hasattr(path_or_file, "attr"):
-        with open_native(path_or_file) as f:
+    shipped as float32 and promoted after use, bit for bit.  Reads
+    ``path`` (or a file :func:`open_native` opened) by the native
+    reader."""
+    if not hasattr(path, "attr"):
+        with open_native(path) as f:
             return var_packing(f, name)
-    f = path_or_file
+    f = path
     if f.var_type(name) < 0:
         raise KeyError(name)
     scale = f.attr(name, "scale_factor")

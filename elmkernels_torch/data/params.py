@@ -4,12 +4,16 @@ per-column (surfdata-driven) domain.
 
 Counterpart of ``elmkernels_tpu/data/params.py`` and ``snicar_data.py``
 (the reference's ``pft_data.h`` and ``snicar_data.h``), reading NetCDF
-classic through scipy.  The readers are building blocks of ``Model``, not
-entry points: ``device=None`` builds host tensors (PyTorch's default
-device), and ``Model`` passes its resolved device.
+classic through scipy.  The SNICAR optics come from a
+snicar_optics_5bnd*.nc or from the reference's SnowOptics text fixture
+(:func:`load_snicar_from_text`).  The readers are building blocks of
+``Model``, not entry points: ``device=None`` builds host tensors
+(PyTorch's default device), and ``Model`` passes its resolved device.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -21,8 +25,24 @@ from elmkernels_torch.data.state import ModelParams
 from elmkernels_torch.physics import init_state as ini
 from elmkernels_torch.physics import soil_texture as stx
 from elmkernels_torch.physics.photosynthesis import PFTPsnParams
-from elmkernels_torch.physics.snow_snicar import IDX_MIE_SNW_MX, SnicarTables
+from elmkernels_torch.data.soil_data import ALBDRY_20, ALBSAT_20  # noqa: F401
+from elmkernels_torch.physics.snow_hydrology import (IDX_RHOS_MAX,
+                                                     IDX_T_MAX, IDX_TGRD_MAX)
+from elmkernels_torch.physics.snow_snicar import (IDX_BC_NCLRDS_MAX,
+                                                  IDX_BCINT_ICERDS_MAX,
+                                                  IDX_MIE_SNW_MX,
+                                                  SnicarTables)
 from elmkernels_torch.physics.surface_albedo import PFTAlbParams
+from elmkernels_torch.utils.golden import GoldenFile
+
+# extents of the SNICAR and snow-aging tables (reference snow_snicar.h:27-36;
+# the JAX package's data/snicar_data.py)
+NUMRAD_SNW = c.NUMRAD_SNW           # spectral bands
+N_BC_NCLRDS = IDX_BC_NCLRDS_MAX + 1
+N_BCINT_ICERDS = IDX_BCINT_ICERDS_MAX + 1
+N_AGING_T = IDX_T_MAX + 1
+N_AGING_TGRD = IDX_TGRD_MAX + 1
+N_AGING_RHOS = IDX_RHOS_MAX + 1
 
 PSN_PARAM_NAMES = ["fnr", "act25", "kcha", "koha", "cpha", "vcmaxha",
                    "jmaxha", "tpuha", "lmrha", "vcmaxhd", "jmaxhd", "tpuhd",
@@ -117,6 +137,20 @@ def load_pft_alb(path, vtype: int, dtype=torch.float64,
         xl=v("xl"))
 
 
+def load_pft_roots(path, vtype: int) -> tuple[float, float]:
+    """(roota_par, rootb_par) of one PFT."""
+    f = open_nc(path)
+    return (float(f.variables["roota_par"][vtype]),
+            float(f.variables["rootb_par"][vtype]))
+
+
+def load_pft_displar_z0mr(path, vtype: int) -> tuple[float, float]:
+    """(displar, z0mr) of one PFT."""
+    f = open_nc(path)
+    return (float(f.variables["displar"][vtype]),
+            float(f.variables["z0mr"][vtype]))
+
+
 # SNICAR optics: table slot -> (candidate file variable names, hyperslab
 # shape); the first candidate is the reference's file name
 # (initialize_elm_kokkos.cc:23-60, snicar_data_impl.hh:55-131)
@@ -126,28 +160,30 @@ SNICAR_VARS = {}
 for _slot, _fname in _AER.items():
     for _p in ("ss_alb", "asm_prm", "ext_cff_mss"):
         SNICAR_VARS[f"{_p}_{_slot}"] = ([f"{_p}_{_fname}", f"{_p}_{_slot}"],
-                                        (c.NUMRAD_SNW,))
+                                        (NUMRAD_SNW,))
 for _kind in ("drc", "dfs"):
     for _p in ("ss_alb", "asm_prm", "ext_cff_mss"):
         SNICAR_VARS[f"{_p}_snw_{_kind}"] = (
             [f"{_p}_ice_{_kind}", f"{_p}_snw_{_kind}"],
-            (c.NUMRAD_SNW, IDX_MIE_SNW_MX))
+            (NUMRAD_SNW, IDX_MIE_SNW_MX))
 for _slot, _legacy in (("bc1", "bcint"), ("bc2", "bcext")):
     for _p in ("ss_alb", "asm_prm", "ext_cff_mss"):
         SNICAR_VARS[f"{_p}_{_slot}"] = (
             [f"{_p}_bc_mam", f"{_p}_{_legacy}", f"{_p}_{_slot}"],
-            (10, c.NUMRAD_SNW))
-SNICAR_VARS["bcenh"] = (["bcint_enh_mam", "bcenh"], (8, 10, c.NUMRAD_SNW))
+            (N_BC_NCLRDS, NUMRAD_SNW))
+SNICAR_VARS["bcenh"] = (["bcint_enh_mam", "bcenh"],
+                        (N_BCINT_ICERDS, N_BC_NCLRDS, NUMRAD_SNW))
 
 
-def _read_slab(f, names, shape, path) -> np.ndarray:
-    """The start-0 hyperslab ``shape`` of the first of ``names`` in the
-    open file ``f``, as float64: the reference reads fixed-count
-    hyperslabs (``snicar_data_impl.hh:65-160``), ignoring extra extent."""
-    name = next((n for n in names if n in f.variables), None)
+def _read_slab(variables, names, shape, path) -> np.ndarray:
+    """The start-0 hyperslab ``shape`` of the first of ``names`` in
+    ``variables`` (an open file's, or a dict of arrays), as float64: the
+    reference reads fixed-count hyperslabs (``snicar_data_impl.hh:65-160``),
+    ignoring extra extent."""
+    name = next((n for n in names if n in variables), None)
     if name is None:
         raise KeyError(f"{path}: none of {names} present")
-    arr = np.asarray(f.variables[name][:], np.float64)
+    arr = np.asarray(variables[name][:], np.float64)
     if arr.ndim != len(shape) or any(
             a < want for a, want in zip(arr.shape, shape)):
         raise ValueError(f"{path}:{name}: shape {arr.shape} does not "
@@ -155,20 +191,49 @@ def _read_slab(f, names, shape, path) -> np.ndarray:
     return arr[tuple(slice(0, s) for s in shape)]
 
 
+def snicar_slots(variables, path="") -> dict:
+    """{table slot: float64 array} from a snicar_optics file's variables
+    (or a dict of arrays under the same names), by :data:`SNICAR_VARS`."""
+    return {slot: _read_slab(variables, names, shape, path)
+            for slot, (names, shape) in SNICAR_VARS.items()}
+
+
+def _tables(slots: dict, dtype, device) -> SnicarTables:
+    return SnicarTables(**{
+        slot: torch.tensor(a, dtype=dtype, device=device)
+        for slot, a in slots.items()})
+
+
 def read_snicar_data(path, dtype=torch.float64, device=None) -> SnicarTables:
     """SNICAR optics from a snicar_optics_5bnd*.nc: fixed start-0
     hyperslabs, as the reference reads them."""
-    f = open_nc(path)
-    return SnicarTables(**{
-        slot: torch.tensor(_read_slab(f, names, shape, path), dtype=dtype,
-                           device=device)
-        for slot, (names, shape) in SNICAR_VARS.items()})
+    return _tables(snicar_slots(open_nc(path).variables, path), dtype,
+                   device)
+
+
+def load_snicar_from_text(path, dtype=torch.float64,
+                          device=None) -> SnicarTables:
+    """SNICAR optics from the reference's SnowOptics text fixture
+    (``SnowOptics_IN.txt``, the same tables as snicar_optics_5bnd*.nc):
+    block ``NSTEP 0``, one line per table, its slot name (a
+    :class:`SnicarTables` field) then its values in C order.  The file
+    gives no shapes: each table must hold exactly its hyperslab's count."""
+    block = GoldenFile(str(path)).state(0)
+    slots = {}
+    for slot, (_, shape) in SNICAR_VARS.items():
+        if slot not in block:
+            raise KeyError(f"{path}: no table {slot}")
+        vals = np.asarray(block[slot], np.float64).reshape(-1)
+        if vals.size != math.prod(shape):
+            raise ValueError(f"{path}: table {slot} holds {vals.size} "
+                             f"values, not the {math.prod(shape)} of "
+                             f"shape {shape}")
+        slots[slot] = vals.reshape(shape)
+    return _tables(slots, dtype, device)
 
 
 # extents of the snow-aging tables over (T, dT/dz, rho) bins
-# (reference snow_snicar.h:27-36: idx_T_max + 1, idx_Tgrd_max + 1,
-# idx_rhos_max + 1)
-SNOW_AGING_SHAPE = (11, 31, 8)
+SNOW_AGING_SHAPE = (N_AGING_T, N_AGING_TGRD, N_AGING_RHOS)
 SNOW_AGING_VARS = ("tau", "kappa", "drdsdt0")
 
 
@@ -176,8 +241,8 @@ def read_snowrds_data(path) -> tuple:
     """The snow-aging tables (tau, kappa, drdsdt0), [11, 31, 8] float64
     numpy arrays, from a snicar_drdt_bst*.nc (reference
     ``read_snowrds_data``, ``snicar_data_impl.hh:134-160``)."""
-    f = open_nc(path)
-    return tuple(_read_slab(f, [name], SNOW_AGING_SHAPE, path)
+    variables = open_nc(path).variables
+    return tuple(_read_slab(variables, [name], SNOW_AGING_SHAPE, path)
                  for name in SNOW_AGING_VARS)
 
 
@@ -185,13 +250,11 @@ def default_snow_aging_tables():
     """Placeholder snow-aging tables [11, 31, 8]: inert under the
     reference's double clamp (``elm_correct_snow_aging=False``), which
     pins every radius to SNW_RDS_MIN whatever the tables hold."""
-    i = np.arange(11)[:, None, None]
-    j = np.arange(31)[None, :, None]
-    k = np.arange(8)[None, None, :]
+    i, j, k = np.ix_(*(np.arange(n) for n in SNOW_AGING_SHAPE))
     tau = 1000.0 + 30.0 * i + 10.0 * j + 50.0 * k + 0.0 * (i + j + k)
     kappa = 1.0 + 0.02 * i + 0.005 * j + 0.01 * k
     drdt0 = 1.0 + 0.05 * i + 0.01 * j + 0.02 * k
-    return tuple(np.broadcast_to(t, (11, 31, 8)).copy()
+    return tuple(np.broadcast_to(t, SNOW_AGING_SHAPE).copy()
                  for t in (tau, kappa, drdt0))
 
 
@@ -224,6 +287,7 @@ def _per_column_profile(val, ncol: int, nlev: int, name: str, dtype,
 def default_params(ncol: int, pft_path, vtype=12, lat_deg=71.323,
                    lon_deg=203.3886, soil_color=15, pct_sand=40.0,
                    pct_clay=20.0, organic=10.0, mxsoil_color: int = 20,
+                   organic_max: float | None = None,
                    snowage_tables=None, ltype=c.ISTSOIL,
                    topo_slope_raw=0.070044865858546,
                    topo_std=3.96141847422387,
@@ -236,8 +300,10 @@ def default_params(ncol: int, pft_path, vtype=12, lat_deg=71.323,
     ``ltype`` each take a scalar or an [ncol] array, for a
     surfdata-driven heterogeneous grid (reference
     ``initialize_elm_kokkos.cc:267-340``, ``soil_data_impl.hh:139-241``).
-    ``snowage_tables`` is a (tau, kappa, drdsdt0) triple from
-    :func:`read_snowrds_data`; None keeps the placeholder tables."""
+    ``organic_max`` None reads it from ``pft_path`` (reference
+    ``soil_data_impl.hh:230-241``).  ``snowage_tables`` is a (tau, kappa,
+    drdsdt0) triple from :func:`read_snowrds_data`; None keeps the
+    placeholder tables."""
     vt = np.asarray(vtype, np.int64)
     heterog = vt.ndim > 0
     if heterog and vt.shape != (ncol,):
@@ -255,8 +321,10 @@ def default_params(ncol: int, pft_path, vtype=12, lat_deg=71.323,
 
     # soil texture -> hydraulic/thermal constants
     zsoi2 = t(ZSOI_SOIL).expand(ncol, c.NLEVGRND)
+    if organic_max is None:
+        organic_max = soil_data.read_organic_max(pft_path)
     hyd = stx.init_soil_hydraulics(
-        soil_data.read_organic_max(pft_path), prof(pct_sand, "pct_sand"),
+        organic_max, prof(pct_sand, "pct_sand"),
         prof(pct_clay, "pct_clay"), prof(organic, "organic"), zsoi2)
 
     lt = np.asarray(ltype, np.int64)

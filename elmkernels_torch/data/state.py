@@ -78,6 +78,18 @@ class ModelState(NamedTuple):
     def mss(self) -> dict:
         return {k: getattr(self, "mss_" + k) for k in AERO_SPECIES}
 
+    @property
+    def cnc(self) -> dict:
+        return {k: getattr(self, "cnc_" + k) for k in AERO_SPECIES}
+
+    def with_mss(self, mss: dict, cnc: dict | None = None) -> "ModelState":
+        """This state with the aerosol masses ``mss`` (and concentrations
+        ``cnc``), {species: [ncol, nlevsno]}, replaced."""
+        kw = {"mss_" + k: v for k, v in mss.items()}
+        if cnc is not None:
+            kw.update({"cnc_" + k: v for k, v in cnc.items()})
+        return self._replace(**kw)
+
 
 class ModelParams(NamedTuple):
     """Static per-column parameters + lookup tables."""

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
+import os
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -55,6 +56,26 @@ from elmkernels_torch.physics.photosynthesis import psn_mode_of
 from elmkernels_torch.utils.dates import Date, month_indices
 from elmkernels_torch.utils.device import resolve_device
 from elmkernels_torch.utils.packing import PackedCarry, template_of
+
+
+# The parameter files the JAX package's Model reads by default: the
+# reference's clm_params NetCDF and its SnowOptics text fixture, in the
+# reference's input data directory (its build's INPUT_DATA_DIR).  The port
+# takes that directory from the environment variable ELM_INPUT_DATA_DIR,
+# else the working directory.
+INPUT_DATA_DIR = os.environ.get("ELM_INPUT_DATA_DIR", "")
+DEFAULT_PFT_PATH = os.path.join(INPUT_DATA_DIR, "clm_params_c180524.nc")
+DEFAULT_SNICAR_PATH = os.path.join(INPUT_DATA_DIR, "SnowOptics_IN.txt")
+
+
+def _parameter_file(path) -> str:
+    """``path`` as a string; a missing file raises, naming it."""
+    if path is None or not os.path.isfile(path):
+        raise FileNotFoundError(
+            f"parameter file {str(path)!r} not found "
+            f"(elmkernels_torch.data.synthetic.parameter_files() writes "
+            f"synthetic ones)")
+    return str(path)
 
 
 class ScanDiagnostics(NamedTuple):
@@ -150,13 +171,16 @@ class Model:
     """A batch of independent land columns and the step.
 
     ``pft_path`` is a clm_params NetCDF and ``snicar_path`` a
-    snicar_optics_5bnd NetCDF (``elmkernels_torch.data.synthetic`` writes
-    synthetic ones).  ``vtype`` is one PFT for every column or an [ncol]
-    sequence: per-column traits are gathered from the clm_params trait
-    matrix, and the photosynthesis runs ``"mixed"`` when C3 and C4 PFTs
-    meet (reference ``initialize_elm_kokkos.cc:374-431``).  The site
-    fields take a scalar or an [ncol] array (texture: also [ncol,
-    nlevsoi]); :meth:`from_surfdata` fills them from a surfdata file.
+    snicar_optics_5bnd NetCDF or, for any path not ending in ``.nc``, the
+    reference's SnowOptics text fixture; they default to the reference's
+    files, :data:`DEFAULT_PFT_PATH` and :data:`DEFAULT_SNICAR_PATH`
+    (``elmkernels_torch.data.synthetic`` writes synthetic ones).
+    ``vtype`` is one PFT for every column or an [ncol] sequence:
+    per-column traits are gathered from the clm_params trait matrix, and
+    the photosynthesis runs ``"mixed"`` when C3 and C4 PFTs meet
+    (reference ``initialize_elm_kokkos.cc:374-431``).  The site fields
+    take a scalar or an [ncol] array (texture: also [ncol, nlevsoi]);
+    :meth:`from_surfdata` fills them from a surfdata file.
     ``ltype`` is one landunit type for the domain or an [ncol] sequence
     (mixed soil/crop/ice/wetland batches: each landunit branch then
     selects per column, and non-soil columns cold-start from the
@@ -168,8 +192,8 @@ class Model:
     ncol: int
     dtime: float = 1800.0
     vtype: int | list | tuple = 12
-    pft_path: str | None = None
-    snicar_path: str | None = None
+    pft_path: str = DEFAULT_PFT_PATH
+    snicar_path: str = DEFAULT_SNICAR_PATH
     lat_deg: float | np.ndarray = 71.323
     lon_deg: float | np.ndarray = 203.3886
     ltype: int | np.ndarray = 1
@@ -224,10 +248,8 @@ class Model:
                 raise ValueError(f"device {self.device} is not the "
                                  f"mesh's {mesh.device}")
         self.device = resolve_device(self.device)
-        if self.pft_path is None or self.snicar_path is None:
-            raise ValueError("Model needs pft_path and snicar_path "
-                             "(elmkernels_torch.data.synthetic writes "
-                             "synthetic ones)")
+        pft_path = _parameter_file(self.pft_path)
+        snicar_path = _parameter_file(self.snicar_path)
         dev, dt = self.device, self.dtype
         vt = np.asarray(self.vtype, np.int64)
         lt = np.asarray(self.ltype, np.int64)
@@ -245,15 +267,15 @@ class Model:
                 "placeholder tables are inert only under the reference's "
                 "double clamp)")
         if vt.ndim == 0:
-            self.psnveg = params_mod.load_pft_psn(self.pft_path, int(vt),
+            self.psnveg = params_mod.load_pft_psn(pft_path, int(vt),
                                                   dt, dev)
-            self.albveg = params_mod.load_pft_alb(self.pft_path, int(vt),
+            self.albveg = params_mod.load_pft_alb(pft_path, int(vt),
                                                   dt, dev)
         else:
             if vt.shape != (self.ncol,):
                 raise ValueError(
                     f"vtype shape {vt.shape} != ({self.ncol},)")
-            table = params_mod.load_pft_table(self.pft_path)
+            table = params_mod.load_pft_table(pft_path)
             self.psnveg = params_mod.gather_pft_psn(table, vt, dt, dev)
             self.albveg = params_mod.gather_pft_alb(table, vt, dt, dev)
         # the domain's LandType keeps an int; a per-column ltype rides in
@@ -261,9 +283,13 @@ class Model:
         self.land = c.LandType(ltype=c.ISTSOIL if self.het_ltype
                                else int(lt), ctype=1, vtype=int(vt.flat[0]))
         self.psn_mode = psn_mode_of(self.psnveg)
-        self.snicar = params_mod.read_snicar_data(self.snicar_path, dt, dev)
+        if snicar_path.endswith(".nc"):
+            self.snicar = params_mod.read_snicar_data(snicar_path, dt, dev)
+        else:
+            self.snicar = params_mod.load_snicar_from_text(snicar_path, dt,
+                                                           dev)
         self.params = params_mod.default_params(
-            self.ncol, self.pft_path, vt, self.lat_deg, self.lon_deg,
+            self.ncol, pft_path, vt, self.lat_deg, self.lon_deg,
             soil_color=self.soil_color, pct_sand=self.pct_sand,
             pct_clay=self.pct_clay, organic=self.organic,
             mxsoil_color=self.mxsoil_color,

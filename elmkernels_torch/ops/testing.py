@@ -1,13 +1,15 @@
-"""Seeded inputs for holding the kernels against their plain versions.
+"""Seeded inputs for holding the kernels against their plain versions, and
+the reference-format files of the tests and ``chip_smoke.py``.
 
 The ci solve's inputs are drawn in the ranges the canopy loop gives them
 (leaf boundary-layer conductance, electron transport, Rubisco capacity,
 respiration, CO2/O2 partial pressures), with a share of leaves pushed to
 the edges where the secant search brackets a root (Brent) or runs out of
 iterations.  The pentadiagonal systems are diagonally dominant with 0-5
-identity-padded snow rows, like the soil/snow temperature system.  Numbers
-come from ``numpy.random.default_rng(seed)``, so the CPU tests and the
-card draw the same inputs.
+identity-padded snow rows, like the soil/snow temperature system.  The
+SNICAR inputs hold columns with 0-5 snow layers.  Numbers come from
+``numpy.random.default_rng(seed)``, so the CPU tests and the card draw the
+same inputs.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from elmkernels_torch import constants as c
 from elmkernels_torch.physics.photosynthesis import CiEnv
 
 
@@ -150,3 +153,51 @@ def pdma_problem(ncol: int, seed: int):
     lhs[rows] = np.array([0.0, 0.0, 1.0, 0.0, 0.0])
     rhs[rows] = 0.0
     return lhs, rhs
+
+
+def snicar_problem(ncol: int, seed: int) -> dict:
+    """The inputs of a SNICAR sweep as float64 numpy arrays (``snl``
+    int32), keyed by ``snicar_ad_rt``'s argument names: column ``i`` has
+    ``i % 6`` snow layers; a snowless column holds 0-5 mm of snow (some
+    none, some below MIN_SNW); about a tenth of the sun is below the
+    horizon."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform
+    nsno = c.NLEVSNO
+    snl = (np.arange(ncol) % 6).astype(np.int32)
+    active = np.arange(nsno)[None, :] >= nsno - snl[:, None]
+    ice = np.zeros((ncol, c.NLEVTOT))
+    liq = np.zeros((ncol, c.NLEVTOT))
+    ice[:, :nsno] = np.where(active, u(0.5, 40.0, (ncol, nsno)), 0.0)
+    liq[:, :nsno] = np.where(active & (u(0, 1, (ncol, nsno)) < 0.5),
+                             u(0.0, 2.0, (ncol, nsno)), 0.0)
+    ice[:, nsno:] = u(0.0, 300.0, (ncol, c.NLEVGRND))
+    liq[:, nsno:] = u(0.0, 300.0, (ncol, c.NLEVGRND))
+    snw_rds = np.where(active, u(c.SNW_RDS_MIN, c.SNW_RDS_MAX,
+                                 (ncol, nsno)), 0.0)
+    bare = u(0.0, 5.0, ncol) * (u(0, 1, ncol) < 0.8)
+    bare = np.where(u(0, 1, ncol) < 0.05, 1.0e-31, bare)
+    h2osno = np.where(snl > 0, (ice + liq)[:, :nsno].sum(axis=1), bare)
+    mss = np.exp(u(np.log(1.0e-12), np.log(1.0e-5),
+                   (ncol, nsno, c.SNO_NBR_AER)))
+    return dict(coszen=u(-0.1, 1.0, ncol), h2osno=h2osno, snl=snl,
+                h2osoi_liq=liq, h2osoi_ice=ice, snw_rds=snw_rds,
+                albsoi=u(0.05, 0.4, (ncol, 2)),
+                mss_cnc_aer=np.where(active[:, :, None], mss, 0.0))
+
+
+def write_snow_optics_text(path, slots: dict | None = None) -> None:
+    """The SNICAR optics ``slots`` ({SnicarTables field: array}; the
+    synthetic optics by default) as the reference's SnowOptics text
+    fixture: ``NSTEP 0``, then one line per table, its field name and its
+    values in C order, each as ``repr(float)``, so that reading them back
+    gives the same float64 bits."""
+    from elmkernels_torch.data import params, synthetic
+    if slots is None:
+        slots = params.snicar_slots(synthetic.snicar_tables(), "synthetic")
+    lines = ["NSTEP 0"]
+    for name, arr in slots.items():
+        vals = np.asarray(arr, np.float64).reshape(-1)
+        lines.append(" ".join([name, *map(repr, vals.tolist())]))
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")

@@ -222,3 +222,19 @@ def forcing_height(land: c.LandType, veg_active, frac_veg_nosno, z0m, z0mg,
     q = forc_hgt_q_patch + add
     thm = forc_t + 0.0098 * t
     return ForcingHeightOut(u, t, q, thm)
+
+
+class InitEnergyFluxesOut(NamedTuple):
+    eflx_sh_tot: torch.Tensor
+    eflx_lh_tot: torch.Tensor
+    eflx_sh_veg: torch.Tensor
+    qflx_evap_tot: torch.Tensor
+    qflx_evap_veg: torch.Tensor
+    qflx_tran_veg: torch.Tensor
+
+
+def init_energy_fluxes(land: c.LandType, ncol_like) -> InitEnergyFluxesOut:
+    """Zero the per-step energy fluxes, shaped like ``ncol_like``.
+    Reference: ``canopy_temperature_impl.hh:298-327``."""
+    z = torch.zeros_like(ncol_like)
+    return InitEnergyFluxesOut(z, z, z, z, z, z)

@@ -28,6 +28,11 @@ def column_water_mass_tracked(h2ocan, h2osno, h2osfc, h2osoi_ice,
                         + h2osoi_liq[..., c.NLEVSNO:], dim=-1))
 
 
+def dh2o_dt(begwb, endwb, dtime):
+    """The column water's rate of change (reference lines 18-22)."""
+    return (endwb - begwb) / dtime
+
+
 def column_water_balance_error(begwb, endwb, hydrology_source_sink,
                                forc_rain, forc_snow, qflx_evap_tot,
                                qflx_snwcp_ice, dtime):

@@ -45,6 +45,17 @@ def safe_div(num, den, cond=None, fill=0.0):
     return torch.where(cond, num / den_safe, fill)
 
 
+def safe_sqrt(x):
+    """sqrt with its input clamped to >= 0."""
+    return torch.sqrt(torch.clamp(x, min=0.0))
+
+
+def safe_pow(x, p):
+    """x**p with x clamped to >= 0 (the reference takes pow of guarded
+    positives)."""
+    return torch.clamp(x, min=0.0) ** p
+
+
 def safe_tanh(x):
     """tanh with its input clamped to |x| <= 40 and output to [-1, 1]
     (bit-identical to plain tanh in f64; kept for parity with the JAX

@@ -28,6 +28,13 @@ from elmkernels_torch.physics.math_utils import (const, gather_layers,
                                                  levels, rdiv, safe_div,
                                                  take_layer)
 
+# the snow-aging tables' last indices over (T, dT/dz, rho) (reference
+# snow_snicar.h detail:: lines 34-39); data/params.py sizes the tables
+# from them
+IDX_T_MAX = 10
+IDX_TGRD_MAX = 30
+IDX_RHOS_MAX = 7
+
 _NSNO = c.NLEVSNO
 _SCAVENGING = dict(bcphi=0.20, bcpho=0.03, dst1=0.02, dst2=0.02, dst3=0.01,
                    dst4=0.01)

@@ -365,6 +365,39 @@ def _promote(*xs):
     return [x.to(dt) for x in xs]
 
 
+def snicar_ad_rt(land: c.LandType, flg_slr_in: int, coszen, h2osno, snl,
+                 h2osoi_liq, h2osoi_ice, snw_rds, albsoi, mss_cnc_aer,
+                 tables: SnicarTables,
+                 weight_dtype=torch.float64) -> SnicarOut:
+    """One SNICAR-AD sweep over the 5 bands for direct (``flg_slr_in=1``)
+    or diffuse (``flg_slr_in=2``) incident light: the reference's call
+    chain ``init_timestep`` -> ``snow_aerosol_mie_params`` ->
+    ``snow_radiative_transfer_solver`` -> ``snow_albedo_radiation_factor``
+    (``snow_snicar_impl.hh:7-771``).  The step runs both flags at once by
+    :func:`snicar_ad_rt_both`, which gives each flag's result bit for bit.
+
+    h2osoi_liq/ice are [ncol, NLEVTOT]; snw_rds is [ncol, NLEVSNO];
+    mss_cnc_aer is [ncol, NLEVSNO, SNO_NBR_AER]."""
+    if flg_slr_in not in (1, 2):
+        raise ValueError(f"flg_slr_in must be 1 (direct) or 2 (diffuse), "
+                         f"not {flg_slr_in!r}")
+    direct = flg_slr_in == 1
+    nbnd = c.NUMRAD_SNW
+    dev = coszen.device
+    band_id_b = torch.arange(nbnd, device=dev)
+    is_drc_b = torch.full((nbnd,), direct, device=dev)
+    kind = "drc" if direct else "dfs"
+    snw_ss, snw_asm, snw_ext = (getattr(tables, f"{p}_snw_{kind}") for p in
+                                ("ss_alb", "asm_prm", "ext_cff_mss"))
+    albout_lcl, flx_abs_lcl, mu_not, snw_rds_lcl, snl_top, active = \
+        _snicar_core(band_id_b, is_drc_b, snw_ss, snw_asm, snw_ext,
+                     coszen, h2osno, snl, h2osoi_liq, h2osoi_ice, snw_rds,
+                     albsoi, mss_cnc_aer, tables)
+    return _radiation_factor(direct, albout_lcl, flx_abs_lcl, mu_not,
+                             snw_rds_lcl, snl_top, coszen, h2osno, albsoi,
+                             active, weight_dtype)
+
+
 def snicar_ad_rt_both(land: c.LandType, coszen, h2osno, snl, h2osoi_liq,
                       h2osoi_ice, snw_rds, albsoi, mss_cnc_aer,
                       tables: SnicarTables,

@@ -56,9 +56,10 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _after(start, dtime: float, nsteps: int):
+def date_start(start, dtime: float, window: int):
+    """The date ``window`` steps of ``dtime`` seconds after ``start``."""
     d = start.copy()
-    d.increment_seconds(int(dtime) * nsteps)
+    d.increment_seconds(int(dtime) * window)
     return d
 
 
@@ -215,7 +216,7 @@ def bench_files(ncol: int, window: int, nwin: int, device=None,
           f"window={window} device={dev}", file=sys.stderr)
 
     # pre-staged: the next nwin windows' payloads on the device first
-    date = _after(start, m_pre.dtime, window)
+    date = date_start(start, m_pre.dtime, window)
     staged = []
     for _ in range(nwin):
         idx1, pidx, pinned = m_pre._pin_series(
@@ -235,7 +236,7 @@ def bench_files(ncol: int, window: int, nwin: int, device=None,
     m_ovl.run_scan_series(start, window)      # the same first window
     _sync(dev)
     t0 = time.perf_counter()
-    m_ovl.run_windows(_after(start, m_ovl.dtime, window), nwin * window,
+    m_ovl.run_windows(date_start(start, m_ovl.dtime, window), nwin * window,
                       window=window, series=True)
     _sync(dev)
     t_ovl = (time.perf_counter() - t0) / (nwin * window)
@@ -283,7 +284,7 @@ def bench_synthetic(ncol: int, window: int, nwin: int, device=None) -> dict:
           f"window={window} device={dev}", file=sys.stderr)
 
     # pre-staged: every window's stacks on the device before the clock
-    date = _after(start, model.dtime, window)
+    date = date_start(start, model.dtime, window)
     stacks = []
     for _ in range(nwin):
         stacks.append(model.stack_windows(date, window))

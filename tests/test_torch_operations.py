@@ -109,17 +109,32 @@ def test_config_cli_overrides(tmp_path):
 
 
 def test_config_fields_match_jax():
-    """The same knobs with the same defaults, but the three the port
-    changes: ``platform`` is ``device``, and the parameter files have no
-    default (no reference data directory)."""
+    """The same knobs with the same defaults, but ``platform``, which is
+    ``device``.  The parameter files default to the JAX package's files:
+    in the directory that ``ELM_INPUT_DATA_DIR`` names, so that with the
+    directory of the JAX package's defaults no default differs."""
     import dataclasses
+    import os
     from elmkernels_tpu.config import RunConfig as JRunConfig
     tf = {f.name: f.default for f in dataclasses.fields(tconfig.RunConfig)}
     jf = {f.name: f.default for f in dataclasses.fields(JRunConfig)}
     assert set(tf) - {"device"} == set(jf) - {"platform"}
+    assert tf["device"] is None
+    files = ("pft_path", "snicar_path")
+    for k in files:
+        assert os.path.basename(tf[k]) == os.path.basename(jf[k]), k
+    code = ("import dataclasses, json; from elmkernels_torch.config import "
+            "RunConfig; print(json.dumps({f.name: f.default for f in "
+            "dataclasses.fields(RunConfig) if f.name in ('pft_path', "
+            "'snicar_path')}))")
+    env = dict(os.environ,
+               ELM_INPUT_DATA_DIR=os.path.dirname(jf["pft_path"]))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    tf.update(json.loads(out.stdout))
     differ = {k for k in jf if k in tf and jf[k] != tf[k]}
-    assert differ == {"pft_path", "snicar_path"}
-    assert tf["pft_path"] is None and tf["device"] is None
+    assert differ == set(), differ
 
 
 def test_config_make_model_on_cpu(files, monkeypatch):

@@ -125,7 +125,8 @@ CASES = {
     "physics.surface_resistance": ["calc_soilevap_stress"],
     "driver.step": ["advance", "surface_phase", "flux_phase", "column_phase"],
     "data.params": ["default_params", "default_snow_aging_tables",
-                    "load_pft_alb", "load_pft_psn"],
+                    "load_pft_alb", "load_pft_displar_z0mr", "load_pft_psn",
+                    "load_pft_roots"],
     "data.state": ["cold_start"],
 }
 
