@@ -15,27 +15,34 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ms/step, columns/s, errsol against its bound, the allocator's peak,
    peak bytes a column and columns a card; where 2^20 does not fit, the
    allocator's message, and the width halved until one fits;
-3. holds ``ci_hybrid_solve`` against its plain PyTorch version at
+3. holds ``ci_hybrid_solve`` (K1) against its plain PyTorch version at
    2 x 262,144 leaves (c3 and mixed in float64 and float32, c4 in
    float64; mixed with traits that differ per leaf), and times the c3
-   float32 case, the main path's mode and type, on that test problem;
+   float32 and float64 cases on that test problem;
    holds ``ci_hybrid_solve_jvp`` (K1-T) bit for bit against
    ``torch.func.jvp`` of the plain solve on 2 x 262,144 "mixed" leaves at
    dry shares 0.25 and 1.0 and profiles it there (:func:`k1t_profile`:
    ms, bound, evaluations a leaf by kind, warp efficiency, the f64 pipe's
    floor; registers, spills and resident blocks from a probe build);
+   holds ``canopy_stability`` (K2, the canopy stability loop with the ci
+   solve inlined) bit for bit against ``stability_iteration_plain`` at
+   262,144 columns of seeded inputs in each mode and type, cold and warm
+   started (:func:`k2_test_phase`: K2's ms against its bound, the plain
+   loop's wall and device ms, K2's registers and spills);
 4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
    against their plain versions bit for bit at ten column counts from 1
    to 262,145 and on views off 16-byte alignment, and times each, its
    plain version and ``torch.linalg.solve`` at [262144, 21, 5];
 5. drives the main path: ``Model(ncol=262144)`` with the production flags
    through half a summer day (24 steps) with no timer installed, for ms/step,
-   columns/s, the conservation contracts and each kernel's launches; then
-   12 steps around noon again with each launch timed by CUDA events on the
-   main path's own inputs (:class:`MainPathTimes`); then the same model
-   in float32 (``dtype=torch.float32``) 12 steps at noon, each
-   ``pdma_solve_f32`` launch timed and its first calls held against the
-   plain version bit for bit (errsol and errlon under 1e-3, as
+   columns/s, the conservation contracts and each kernel's launches: K2
+   once a step, K4, and no K1 (K2 inlines it); then 12 steps around noon
+   again with each launch timed by CUDA events on the main path's own
+   inputs (:class:`MainPathTimes`), K2's first calls held against the
+   plain loop bit for bit; then the same model in float32
+   (``dtype=torch.float32``) 12 steps at noon, each K2 and
+   ``pdma_solve_f32`` launch timed and their first calls held against the
+   plain versions bit for bit (errsol and errlon under 1e-3, as
    ``tests/test_f32_drift.py``);
 6. drives ``Model(ncol=8192)`` through 700 January steps, long enough for
    the synthetic forcing to build snow layers (they form after ~550), then
@@ -48,10 +55,11 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    (``ops.testing.write_snow_optics_text``) and from the same tables as
    NetCDF, 12 steps of each from 1985-07-01 12:00 by ``run_windows(
    series=True)``: tables, state and diagnostics equal bit for bit, the
-   main path's contracts, K1's and K4's launches; then 4 steps of the
-   text-optics model under :class:`MainPathTimes`, K1 and K4 held against
-   their plain versions on the calls kept; then ``snicar_ad_rt`` with
-   each flag against its half of ``snicar_ad_rt_both``, bit for bit, at
+   main path's contracts, K2's (once a step) and K4's launches; then 4
+   steps of the text-optics model under :class:`MainPathTimes`, K2 and K4
+   held against their plain versions on the calls kept; then
+   ``snicar_ad_rt`` with each flag against its half of
+   ``snicar_ad_rt_both``, bit for bit, at
    262,144 columns of seeded snow (0-5 layers) and of the winter path's
    state tiled, each sweep timed;
 8. loops, bit for bit: the heterogeneous global grid at 8,192 columns
@@ -60,14 +68,14 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    synthetic``), 12 steps from one cold start by ``run``, ``run_scan``,
    ``run_scan_series`` and ``run_windows(series=True, window=6)``: every
    state field equal at atol 0, each loop's per-step diagnostics equal to
-   the reductions of ``run``'s, and the ci solve run only in "mixed" mode;
+   the reductions of ``run``'s, and K2 run only in "mixed" mode;
    then the same ``run_windows`` split over ranks, each a subprocess of
    this script (``--shard-rank``): two ranks sharing the card on a gloo
    group, their state carry packed, then one rank on an NCCL group; every
    rank's block must equal
    the unsharded final state bit for bit on every field and its global
    diagnostics the unsharded reductions (maxima exactly, means to rtol
-   1e-12), with K1 and K4 launched (and timed) on every rank and their
+   1e-12), with K2 and K4 launched (and timed) on every rank and their
    first calls held against their plain versions; each of the three
    device loops again with the packed carry (``Model(packed_carry=True)``),
    equal to ``run`` bit for bit (state and diagnostics), its ms/step beside
@@ -79,10 +87,10 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    columns/s, contracts, launches), the same 48 steps by ``run`` from a
    fresh model (the same state bit for bit, and its ms/step in the same
    call), then one 12-step window around noon under
-   :class:`MainPathTimes`, whose first 16 ci solves (float32, "mixed",
-   per-leaf traits) and first pentadiagonal solves are then held against
-   their plain versions on the same inputs (K4's also on the main path's
-   timed steps);
+   :class:`MainPathTimes`, whose first K2 calls (float32, "mixed",
+   per-column traits) and first pentadiagonal solves are then held
+   against their plain versions on the same inputs (K4's also on the main
+   path's timed steps);
 10. landunits: the production loop's grid and flags with per-column land
    types (``synthetic.landunit_map``: ~84 % soil, 10 % crop, 5 % wetland,
    the 1 % highest-latitude columns ice sheet, half of them with
@@ -90,7 +98,7 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    synthetic ``snicar_drdt`` tables, ``run_windows(series=True,
    window=24)``, 48 steps from 1985-01-01 (ms/step, columns/s, contracts,
    columns and mean ``t_grnd`` per class, snow layers and aged radii,
-   launches), then one timed 12-step window whose kept K1 and K4 calls
+   launches), then one timed 12-step window whose kept K2 and K4 calls
    are held against their plain versions;
 11. operations, on the production loop's grid: a ``RunConfig`` builds
    the model, ``run_windows(series=True, window=24)`` runs 48 steps with a
@@ -104,13 +112,15 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    ``python -m elmkernels_torch.run_model`` runs a small JSON config;
 12. sensitivity: the global grid under the exact flags, ``run_jvp`` for 2
    steps from 1985-07-01 06:00 seeded by ``tbot`` (untimed: its ms/step
-   against the primal's, the launches of K1, K1-T and K4) and by
+   against the primal's, the launches of K1, K1-T and K4, and none of K2:
+   a differentiated step runs the plain canopy loop) and by
    ``watsat`` (under the timers); tangents finite; the primal unchanged by
    seeding; the ``tbot`` tangents of four fluxes against central
    differences (h = 1e-3 K, rtol 2e-3, atol 1e-4) on the columns where
    the perturbed runs take the same solver iterations and are smooth; the
-   first kept K1-T and K4 tangent calls against their plain versions
-   (K1-T bit for bit) and K1-T's profile on its kept calls; then one
+   first kept K1 calls, K1-T and K4 tangent calls against their plain
+   versions (K1 and K1-T bit for bit) and K1-T's profile on its kept
+   calls; then one
    ``run_jvp`` step from 12:00 UTC, where K1-T's leaves need the solve
    (:func:`sens_noon`: every launch timed, the first calls profiled and
    held bit for bit);
@@ -140,14 +150,15 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    (the second timed window loads August on the host thread), against the
    pre-staged
    ``run_scan_series`` windows, bit for bit (pre-staged and overlapped
-   ms/step, their ratio, host assembly cold and warm; K1's and K4's
+   ms/step, their ratio, host assembly cold and warm; K2's and K4's
    launches counted from 0 over it);
 17. prints each phase's seconds, the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
    per launch on the main path, ``prod_*`` the same on the production
    loop, ``land_*`` on the landunits phase, ``sens_*`` on the sensitivity
    path, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4;
-   K1-T's entry, ``ci_hybrid_solve_jvp``, from the sensitivity path,
-   ``sens_noon_*`` from its noon step;
+   K2's entry, ``canopy_stability``, from the main path (``f32_*`` on the
+   float32 path, ``test_cases`` each mode and type); K1's and K1-T's
+   entries from the sensitivity path, ``sens_noon_*`` from its noon step;
    ``refformats_*`` on the reference formats phase's text-optics model;
    ``shard_*`` per rank of the sharded runs; ``ingest_launches`` and
    ``capacity_launches`` on the ingest path and the capacity run;
@@ -187,10 +198,32 @@ PDMA_ROWS = 21
 # main path's widths) and on offset views at PDMA_MISALIGNED_NCOLS
 PDMA_NCOLS = (1, 2, 3, 63, 64, 65, 8192, 8193, 262144, 262145)
 PDMA_MISALIGNED_NCOLS = (65, 262144)
+# K2's operations a pass the columns commit, besides its ci evaluations:
+# the aerodynamic chain (~70), the two leaves' set-up (~200), the flux chain
+# (~90), qsat (~25) and the Monin-Obukhov update (~30), counting each
+# arithmetic operation, square root and transcendental call as one; and
+# the outputs' recompute once a vegetated column (~180)
+K2_PASS_FLOPS = 415
+K2_FINAL_FLOPS = 180
+# K2's test problems (ops.testing.canopy_problem): the width, the seed,
+# and the reps of its timing; the plain loop's device time is profiled in
+# the configurations the model runs, (mode, type, warm start): the
+# production flags' on the global grid and the exact flags' (profiling
+# all twelve took ~140 s of the script)
+K2_NCOL, K2_SEED, K2_REPS = 262144, 2024, 10
+K2_PROFILED = (("mixed", "float32", True), ("mixed", "float64", False))
+# the main-path phases keep this many of K2's calls (one a step) and hold
+# them against the plain loop
+K2_KEPT = 2
+# kernels that a step running K2 must not launch: K2 inlines the ci solve
+INLINED_IN_K2 = ("ci_hybrid_solve",)
 # the main-path timing holds the card this many clock cycles before each
 # timed call: >= 1 ms at the H100's highest SM clock, MAX_SM_HZ
 GUARD_CYCLES = 2_000_000
 MAX_SM_HZ = 1.98e9
+# K2's wrapper lays out ~90 tensors on the host before its launch (~1.5 ms
+# on the card's host), so its timer holds the card longer: >= 5 ms
+K2_GUARD_CYCLES = 10_000_000
 
 
 def phase(msg: str) -> None:
@@ -269,26 +302,31 @@ def ci_bound(x0, env, mode, enabled):
 class MainPathTimes:
     """Times every call of a kernel's entry point, ``module.attr``, while
     installed in its place (``with``): a CUDA event pair around each call,
-    and the call's bound from its own inputs by ``bound(args, out)`` ->
-    (bytes ms, operations ms).  The callers import the entry point at call
+    and the call's bound from its own inputs by ``bound(call, out)`` ->
+    (bytes ms, operations ms), ``call`` being the call's arguments: their
+    tuple, or their dict where the entry point is called by keyword (K2's,
+    by ``stability_iteration``).  The callers import the entry point at call
     time, so replacing the module's attribute reaches them.  The entry
     point counts its launches on itself by its module-level name, which
     then names this object: ``launches`` passes through to the original.
 
-    ``prepare(args)`` lays the inputs out as the kernel takes them
+    ``prepare(call)`` lays the inputs out as the kernel takes them
     (contiguous) before the timed call, with the same values, so that the
     entry point's own layout copies fall outside the event pair.  Before
     each call the card is held by ``torch.cuda._sleep`` for GUARD_CYCLES,
     so that the host has queued the kernel before the start event is
     reached: the pair then times the card's work, not the host's Python
-    between the events.  A call whose host side outlasted the guard is
-    ``late`` and left out of the times.  The inputs and results of the
-    first ``keep`` calls are kept (copies), for holding the kernel against
-    its plain version on the path's own inputs afterwards."""
+    between the events (``guard_cycles``: GUARD_CYCLES, or K2_GUARD_CYCLES
+    for K2's wrapper, which takes longer).  A call whose host side outlasted
+    the guard is ``late`` and left out of the times.  The inputs and
+    results of the first ``keep`` calls are kept (copies), for holding the
+    kernel against its plain version on the path's own inputs
+    afterwards."""
 
-    def __init__(self, module, attr: str, bound, prepare=lambda args: args,
-                 keep: int = 0):
+    def __init__(self, module, attr: str, bound, prepare=lambda call: call,
+                 keep: int = 0, guard_cycles: int = GUARD_CYCLES):
         self.module, self.attr = module, attr
+        self.guard_cycles = guard_cycles
         self.bound, self.prepare = bound, prepare
         self.orig = getattr(module, attr)
         self.calls = []
@@ -302,20 +340,20 @@ class MainPathTimes:
     def launches(self, n: int) -> None:
         self.orig.launches = n
 
-    def __call__(self, *args):
+    def __call__(self, *args, **kwargs):
         import torch
-        args = self.prepare(args)
+        call = self.prepare(kwargs if kwargs else args)
         h0 = time.perf_counter()
-        torch.cuda._sleep(GUARD_CYCLES)
+        torch.cuda._sleep(self.guard_cycles)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = self.orig(*args)
+        out = self.orig(**call) if kwargs else self.orig(*call)
         stop.record()
         host_s = time.perf_counter() - h0
-        self.calls.append((start, stop, host_s, self.bound(args, out)))
+        self.calls.append((start, stop, host_s, self.bound(call, out)))
         if len(self.kept) < self.keep:
-            self.kept.append((clone(args), clone(out)))
+            self.kept.append((clone(call), clone(out)))
         return out
 
     def __enter__(self):
@@ -330,7 +368,7 @@ class MainPathTimes:
         calls that were not late."""
         import torch
         torch.cuda.synchronize()
-        guard_s = GUARD_CYCLES / MAX_SM_HZ
+        guard_s = self.guard_cycles / MAX_SM_HZ
         on_time = [c for c in self.calls if c[2] <= guard_s]
         if not on_time:
             raise AssertionError(f"{self.attr}: every timed call outlasted "
@@ -387,22 +425,25 @@ def check_ci(n: int, mode: str, dtype, tol: float, time_it: bool):
 
 
 def clone(tree):
-    """A copy of every tensor of a (nested) tuple; other leaves pass."""
+    """A copy of every tensor of a (nested) tuple or dict; other leaves
+    pass."""
     import torch
     if isinstance(tree, torch.Tensor):
         return tree.clone()
     if isinstance(tree, tuple):
         vals = [clone(v) for v in tree]
         return type(tree)(*vals) if hasattr(tree, "_fields") else tuple(vals)
+    if isinstance(tree, dict):
+        return {k: clone(v) for k, v in tree.items()}
     return tree
 
 
-def check_ci_on_path(kept, tol: float, label: str,
-                     per_leaf_traits: bool = True) -> dict:
+def check_ci_on_path(kept, label: str) -> dict:
     """ci_hybrid_solve's results on a path's own inputs (the calls a
-    MainPathTimes kept) against hybrid_solve_plain on the same inputs;
-    with ``per_leaf_traits`` (a heterogeneous grid's path) the traits must
-    differ between leaves."""
+    MainPathTimes kept) against hybrid_solve_plain on the same inputs, bit
+    for bit with equal iteration counts.  K1 runs on the sensitivity path
+    only, the heterogeneous grid: the traits must differ between
+    leaves."""
     import torch
     from elmkernels_torch.physics import photosynthesis as psn
     worst, worst_abs, eq, n, modes = 0.0, 0.0, 1.0, 0, {}
@@ -430,8 +471,8 @@ def check_ci_on_path(kept, tol: float, label: str,
                max_abs=worst_abs, equal_iters=eq, same_nan=same_nan)
     phase("K1 ci_hybrid_solve vs plain on the path's inputs: "
           + json.dumps(res))
-    if not (kept and (varying or not per_leaf_traits) and same_nan
-            and worst <= tol and eq >= 0.999):
+    if not (kept and varying and same_nan and worst == 0.0
+            and eq == 1.0):
         raise AssertionError(f"ci_hybrid_solve disagrees with its plain "
                              f"version on the {label}: {res}")
     return res
@@ -456,6 +497,237 @@ def check_pdma_on_path(kept, label: str) -> dict:
         raise AssertionError(f"pdma_solve differs from its plain version "
                              f"on the {label}: {res}")
     return res
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaNs in the same places."""
+    import torch
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a, 0.0),
+                                torch.nan_to_num(b, 0.0)))
+
+
+def k2_layout(call: dict) -> dict:
+    """K2's inputs laid out as its wrapper takes them, with the same
+    values: every trait and [ncol] input expanded and contiguous, layer 0
+    of the canopy-layer inputs, frac_veg_nosno in the loop's type, so that
+    the wrapper's own copies fall outside the event pair."""
+    from elmkernels_torch.ops import canopy
+    call = dict(call)
+    n, dtype = call["t_grnd"].shape[0], call["t_grnd"].dtype
+    call["p"] = type(call["p"])(*(t.expand(n).contiguous()
+                                  for t in call["p"]))
+    for k in canopy.IN_FIELDS[:-1]:    # fveg is frac_veg_nosno, below
+        t = call[k]
+        if t.ndim == 2:
+            t = t[:, 0]
+        call[k] = t.expand(n).contiguous()
+    call["frac_veg_nosno"] = call["frac_veg_nosno"].to(dtype)
+    return call
+
+
+def k2_bound(call: dict, out):
+    """(bytes ms, operations ms) of one K2 launch.  Bytes: each [ncol]
+    input read once (the traits where they differ between columns; of
+    ``t_soisno`` the two layers the loop reads, the top snow and the top
+    soil layer; the ci carry where warm started), each output written
+    once.  Operations: the passes the columns commit (K2_PASS_FLOPS each),
+    each vegetated column's recompute (K2_FINAL_FLOPS), and the ci
+    evaluations of the day leaves' solves, CI_FUNC_FLOPS each: two
+    starting ones a leaf and pass, and the secant iterations (the overflow
+    and Brent's evaluations are not counted)."""
+    from elmkernels_torch.ops import canopy
+    t = call["t_grnd"]
+    n, item = t.shape[0], t.element_size()
+    varying = sum(1 for v in call["p"]
+                  if v.ndim and bool((v != v.reshape(-1)[0]).any()))
+    warm = call.get("warm_start") and call.get("ci_prev") is not None
+    values = (len(canopy.IN_FIELDS) + 2 + varying + 2 * bool(warm)
+              + len(canopy.OUT_FIELDS) + 2)
+    nbytes = n * (values * item + 4 + 1 + 4 + 2 * 4)
+    itlef = out.itlef.long()
+    day = sum((call[k].reshape(n, -1)[:, 0] > 0).long()
+              for k in ("parsun_z", "parsha_z"))
+    evals = 2 * int((itlef * day).sum()) + int(out.psn_iters.long().sum())
+    ops = (int(itlef.sum()) * K2_PASS_FLOPS
+           + int((call["frac_veg_nosno"] != 0).sum()) * K2_FINAL_FLOPS
+           + evals * CI_FUNC_FLOPS)
+    dtype = str(t.dtype).replace("torch.", "")
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            ops / PEAK_FLOPS[dtype] * 1e3)
+
+
+def k2_compare(got, want) -> tuple:
+    """(fields of K2's result that differ from the plain loop's, largest
+    absolute difference of a floating field)."""
+    differing, worst = [], 0.0
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or not same_bits(a, b):
+            differing.append(f)
+        if a.is_floating_point():
+            fin = a.isfinite() & b.isfinite()
+            if bool(fin.any()):
+                worst = max(worst, (a - b)[fin].abs().max().item())
+    return differing, worst
+
+
+def check_k2_on_path(kept, label: str) -> dict:
+    """K2's results on a path's own inputs (the calls a MainPathTimes
+    kept) against stability_iteration_plain on the same inputs, bit for
+    bit: every output, the iteration counts and the ci carry, NaNs in the
+    same places."""
+    import torch
+    from elmkernels_torch.physics.canopy_fluxes import \
+        stability_iteration_plain
+    differing, worst, n, modes, cap, vegetated = set(), 0.0, 0, {}, 0, 0
+    for call, got in kept:
+        want = stability_iteration_plain(**call)
+        torch.cuda.synchronize()
+        diff, w = k2_compare(got, want)
+        differing.update(diff)
+        worst = max(worst, w)
+        key = (f"{call['psn_mode']} "
+               f"{str(call['t_grnd'].dtype).replace('torch.', '')}")
+        modes[key] = modes.get(key, 0) + 1
+        n += call["t_grnd"].shape[0]
+        vegetated += int((call["frac_veg_nosno"] != 0).sum())
+        cap = max(cap, int((got.itlef == 41).sum()))
+    res = dict(label=label, calls=len(kept), columns=n,
+               vegetated_columns=vegetated, modes=modes,
+               columns_at_the_cap=cap, differing_fields=sorted(differing),
+               max_abs=worst)
+    phase("K2 canopy_stability vs plain on the path's inputs: "
+          + json.dumps(res))
+    if not kept or differing:
+        raise AssertionError(f"canopy_stability differs from its plain "
+                             f"version on the {label}: {res}")
+    return res
+
+
+def device_ms(fn) -> tuple:
+    """(device ms of the kernels and copies ``fn()`` launches, launches),
+    from one run under torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return (sum(e.time_range.end - e.time_range.start for e in evs) / 1e3,
+            len(evs))
+
+
+def k2_test_phase() -> dict:
+    """K2 against stability_iteration_plain on seeded inputs
+    (``ops.testing.canopy_problem``: bare columns, soybean, night leaves,
+    Newton steps over 1 K, Monin-Obukhov sign flips, columns held at the
+    cap) at K2_NCOL columns in each mode and type, cold and warm started,
+    bit for bit; on each, K2's device ms a launch (CUDA events) against
+    its bound and the plain loop's wall ms (host clock to a synchronize),
+    and in K2_PROFILED the plain loop's device ms (torch.profiler); K2's
+    registers and spills from ``ptxas``."""
+    import torch
+    from elmkernels_torch.ops import build, canopy, testing
+    from elmkernels_torch.physics.canopy_fluxes import \
+        stability_iteration_plain
+    report = build.ptxas_report("canopy_stability")
+    regs = {}
+    for fn, body in re.findall(r"Compiling entry function '([^']*canopy_"
+                               r"kernel[^']*)'[^\n]*\n(.*?)(?=Compiling|\Z)",
+                               report, re.S):
+        inst = re.search(r"canopy_kernelI([fd])Li(\d)", fn)
+        name = (f"{'float32' if inst.group(1) == 'f' else 'float64'} "
+                f"{('c3', 'c4', 'mixed')[int(inst.group(2))]}")
+        r = re.search(r"Used (\d+) registers", body)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       body)
+        regs[name] = dict(registers=int(r.group(1)) if r else None,
+                          spill_bytes=(int(sp.group(1)) + int(sp.group(2)))
+                          if sp else None)
+    phase("K2 canopy_kernel registers and spills (ptxas): "
+          + json.dumps(regs))
+    if len(regs) != 6:
+        raise AssertionError(f"ptxas reported {len(regs)} of K2's 6 "
+                             f"kernels: {report[-2000:]}")
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        for mode in ("c3", "c4", "mixed"):
+            for warm in (False, True):
+                args = testing.canopy_problem(K2_NCOL, K2_SEED, mode, dtype,
+                                              warm, device="cuda")
+                got = canopy.canopy_stability(**args)
+                want = stability_iteration_plain(**args)
+                torch.cuda.synchronize()
+                differing, worst = k2_compare(got, want)
+                res = dict(mode=mode, dtype=str(dtype).replace("torch.", ""),
+                           warm_start=warm, differing_fields=differing,
+                           max_abs=worst,
+                           max_itlef=int(got.itlef.max()),
+                           columns_at_the_cap=int((got.itlef == 41).sum()),
+                           bare_columns=int((args["frac_veg_nosno"] == 0)
+                                            .sum()),
+                           passes=int(got.itlef.long().sum()),
+                           secant_iterations=int(got.psn_iters.long().sum()))
+                res["ms"] = cuda_ms(lambda: canopy.canopy_stability(**args),
+                                    K2_REPS)
+                t0 = time.perf_counter()
+                stability_iteration_plain(**args)
+                torch.cuda.synchronize()
+                res["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+                res["plain_device_ms"] = res["plain_launches"] = None
+                if (mode, res["dtype"], warm) in K2_PROFILED:
+                    res["plain_device_ms"], res["plain_launches"] = \
+                        device_ms(lambda: stability_iteration_plain(**args))
+                t_bytes, t_ops = k2_bound(args, got)
+                res["bound_ms"] = max(t_bytes, t_ops)
+                res["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                   else "operations")
+                res["share_of_bound"] = res["bound_ms"] / res["ms"]
+                phase("K2 canopy_stability vs plain: " + json.dumps(res))
+                if differing:
+                    raise AssertionError(f"canopy_stability differs from "
+                                         f"its plain version: {res}")
+                cases.append(res)
+    if not all(c["columns_at_the_cap"] and c["bare_columns"]
+               for c in cases):
+        raise AssertionError(f"a K2 test problem lacks the cap or bare "
+                             f"columns: {cases}")
+    return dict(cases=cases, registers=regs)
+
+
+class K2ModeSpy:
+    """Counts the photosynthesis modes ``canopy_stability`` is called with
+    while installed in its module's place (``with``); ``launches`` passes
+    through to the wrapper."""
+
+    def __init__(self, module):
+        self.module = module
+        self.orig = module.canopy_stability
+        self.modes = {}
+
+    @property
+    def launches(self) -> int:
+        return self.orig.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self.orig.launches = n
+
+    def __call__(self, **kwargs):
+        mode = kwargs["psn_mode"]
+        self.modes[mode] = self.modes.get(mode, 0) + 1
+        return self.orig(**kwargs)
+
+    def __enter__(self):
+        self.module.canopy_stability = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.canopy_stability = self.orig
 
 
 def pdma_bound(ncol: int, dtype: str = "float64"):
@@ -557,49 +829,28 @@ def entry_overhead(reps: int = 200) -> dict:
     return res
 
 
-class ModeSpy:
-    """Counts the photosynthesis modes ``ci_hybrid_solve`` is called with
-    while installed in its module's place (``with``); ``launches`` passes
-    through to the wrapper."""
-
-    def __init__(self, module):
-        self.module = module
-        self.orig = module.ci_hybrid_solve
-        self.modes = {}
-
-    @property
-    def launches(self) -> int:
-        return self.orig.launches
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        self.orig.launches = n
-
-    def __call__(self, x0, env, mode, enabled):
-        self.modes[mode] = self.modes.get(mode, 0) + 1
-        return self.orig(x0, env, mode, enabled)
-
-    def __enter__(self):
-        self.module.ci_hybrid_solve = self
-        return self
-
-    def __exit__(self, *exc):
-        self.module.ci_hybrid_solve = self.orig
-
-
 def reset(kernels: dict) -> None:
     for fn in kernels.values():
         fn.launches = 0
 
 
-def counts(kernels: dict, label: str) -> dict:
+def counts(kernels: dict, label: str, steps: int | None = None) -> dict:
     """Each kernel's launches since ``reset``; fails if one of them was
-    not launched."""
+    not launched, or, where K2 runs the canopy loop, if K1 (inlined in it)
+    was, and, given the run's ``steps``, unless K2 launched once a step."""
     launches = {name: fn.launches for name, fn in kernels.items()}
     for name, count in launches.items():
-        if count == 0:
+        if name in INLINED_IN_K2 and "canopy_stability" in launches:
+            if count:
+                raise AssertionError(f"kernel {name}, inlined in K2, was "
+                                     f"launched {count} times on the "
+                                     f"{label}")
+        elif count == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label}")
+    if steps is not None and launches.get("canopy_stability") != steps:
+        raise AssertionError(f"K2 launched {launches} times in {steps} "
+                             f"steps on the {label}, not once a step")
     return launches
 
 
@@ -659,8 +910,8 @@ def run_checked(model, start, nsteps: int, label: str, kernels: dict,
     model.run(start, nsteps, cb)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = (counts(kernels, label) if require_launches else
-                {name: fn.launches for name, fn in kernels.items()})
+    launches = (counts(kernels, label, steps=nsteps) if require_launches
+                else {name: fn.launches for name, fn in kernels.items()})
     st = model.state
     snl_max = int(st.snl.max().item())
     # steady rate: steps after the first (which loads the kernels)
@@ -679,35 +930,46 @@ def run_checked(model, start, nsteps: int, label: str, kernels: dict,
     return res, launches
 
 
-def timed_summaries(t1, t4, launches: dict, label: str) -> dict:
-    """Per-launch times of a timed run; every launch must have been
-    timed."""
-    on_path = {"ci_hybrid_solve": t1.summary(), "pdma_solve": t4.summary()}
+def timed_summaries(t2, t4, launches: dict, label: str) -> dict:
+    """Per-launch times of a timed run; every launch of K2 and K4 must
+    have been timed."""
+    on_path = {"canopy_stability": t2.summary(), "pdma_solve": t4.summary()}
     phase(f"kernels on the {label}: " + json.dumps(on_path))
     for name, count in launches.items():
-        if count != on_path[name]["calls"]:
+        if name in on_path and count != on_path[name]["calls"]:
             raise AssertionError(f"{name}: {count} launches but "
                                  f"{on_path[name]['calls']} timed calls")
     return on_path
 
 
-def timers(keep: int = 0, keep_pdma: int = 0):
-    """MainPathTimes of K1 and K4, for ``with``; they keep the inputs and
-    results of their first ``keep`` and ``keep_pdma`` calls."""
-    from elmkernels_torch.ops import ci_solver, pdma
+def ci_layout(args):
+    """K1's inputs laid out as its wrapper takes them: the plain loop may
+    hand the ci solve constant CiEnv fields as expanded scalars, which the
+    wrapper would copy inside the event pair."""
+    x0, env, mode, enabled = args
+    return (x0.contiguous(), type(env)(*(t.contiguous() for t in env)),
+            mode, enabled.contiguous())
 
-    # the canopy loop may hand the ci solve constant CiEnv fields as
-    # expanded scalars, which its wrapper would copy inside the event pair
-    def ci_layout(args):
-        x0, env, mode, enabled = args
-        return (x0.contiguous(), type(env)(*(t.contiguous() for t in env)),
-                mode, enabled.contiguous())
 
-    return (MainPathTimes(ci_solver, "ci_hybrid_solve",
-                          lambda a, out: ci_bound(*a),
-                          ci_layout, keep=keep),
-            MainPathTimes(pdma, "pdma_solve",
-                          lambda a, out: pdma_bound(a[0].shape[0]),
+def k1_timer(keep: int = 0):
+    """MainPathTimes of K1 (on the sensitivity path, the only one that
+    still launches it), keeping its first ``keep`` calls."""
+    from elmkernels_torch.ops import ci_solver
+    return MainPathTimes(ci_solver, "ci_hybrid_solve",
+                         lambda a, out: ci_bound(*a), ci_layout, keep=keep)
+
+
+def timers(keep: int = 0, keep_pdma: int = 0, f32_pdma: bool = False):
+    """MainPathTimes of K2 and K4 (``pdma_solve_f32`` with ``f32_pdma``),
+    for ``with``; they keep the inputs and results of their first ``keep``
+    and ``keep_pdma`` calls."""
+    from elmkernels_torch.ops import canopy, pdma
+    name, dtype = (("pdma_solve_f32", "float32") if f32_pdma
+                   else ("pdma_solve", "float64"))
+    return (MainPathTimes(canopy, "canopy_stability", k2_bound, k2_layout,
+                          keep=keep, guard_cycles=K2_GUARD_CYCLES),
+            MainPathTimes(pdma, name,
+                          lambda a, out: pdma_bound(a[0].shape[0], dtype),
                           keep=keep_pdma))
 
 
@@ -751,21 +1013,19 @@ PROD_NCOL = 262144
 # 48 steps in 24-step windows (cut from 96 in 48 to keep the script near
 # 600 s)
 PROD_STEPS, PROD_WINDOW = 48, 24
-# K1 is held against its plain version on the production loop's own
-# inputs of this many calls (the first step's canopy iterations), K4 of
-# this many (a step's each)
-PROD_CI_KEPT = 16
+# K4 is held against its plain version on the production loop's own
+# inputs of this many calls (a step's each); K2 of K2_KEPT
 PDMA_KEPT = 2
 # the winter path runs this many steps further, pinned and aging
 WINTER_STEPS, WINTER_MORE = 700, 48
 # the reference formats phase: the main path's model on the SnowOptics
 # text optics and on the same tables as NetCDF, REFFORMATS_STEPS steps from
 # 1985-07-01 12:00 by run_windows(series=True), then REFFORMATS_TIMED
-# steps of the text-optics model under the timers (K1 held on the first
-# REFFORMATS_CI_KEPT calls); the single-flag SNICAR sweeps at the same
-# width, on seeded snow of 0-5 layers and on the winter path's state tiled
+# steps of the text-optics model under the timers (K2 held on its first
+# K2_KEPT calls); the single-flag SNICAR sweeps at the same width, on
+# seeded snow of 0-5 layers and on the winter path's state tiled
 REFFORMATS_NCOL = 262144
-REFFORMATS_STEPS, REFFORMATS_TIMED, REFFORMATS_CI_KEPT = 12, 4, 4
+REFFORMATS_STEPS, REFFORMATS_TIMED = 12, 4
 # the landunits phase: the landunit map's seed, and the production loop's
 # steps and window from 1985-01-01
 LAND_SEED = 0
@@ -827,7 +1087,7 @@ def check_loops(files, kernels: dict) -> dict:
     import torch
     from elmkernels_torch.data import synthetic
     from elmkernels_torch.driver.model import Model, reduce_diags
-    from elmkernels_torch.ops import ci_solver
+    from elmkernels_torch.ops import canopy
     from elmkernels_torch.utils.dates import Date
     from elmkernels_torch.utils.guard import errsol_bound
     t0 = time.perf_counter()
@@ -857,7 +1117,7 @@ def check_loops(files, kernels: dict) -> dict:
     res = dict(ncol=LOOPS_NCOL, steps=LOOPS_STEPS,
                forcing_grid=list(LOOPS_GRID), write_inputs_s=write_s,
                loops={})
-    with ModeSpy(ci_solver) as spy:
+    with K2ModeSpy(canopy) as spy:
         m = model()
         res["psn_mode"] = m.psn_mode
         SHARD_DIR.mkdir(parents=True, exist_ok=True)
@@ -873,8 +1133,9 @@ def check_loops(files, kernels: dict) -> dict:
         wall = time.perf_counter() - t0
         ref_state = m.state
         ref = type(per_step[0])(*(torch.cat(v) for v in zip(*per_step)))
-        res["loops"]["run"] = dict(ms_per_step=wall / LOOPS_STEPS * 1e3,
-                                   launches=counts(kernels, "loops, run"))
+        res["loops"]["run"] = dict(
+            ms_per_step=wall / LOOPS_STEPS * 1e3,
+            launches=counts(kernels, "loops, run", steps=LOOPS_STEPS))
         for name, (fn, packed) in loops.items():
             m = model()
             m.packed_carry = packed
@@ -890,7 +1151,8 @@ def check_loops(files, kernels: dict) -> dict:
                 getattr(ref, k), getattr(d, k))]
             res["loops"][name] = dict(
                 ms_per_step=wall / LOOPS_STEPS * 1e3,
-                launches=counts(kernels, f"loops, {name}"),
+                launches=counts(kernels, f"loops, {name}",
+                                steps=LOOPS_STEPS),
                 state_fields_differing=state_diff,
                 diagnostics_differing=diag_diff)
             if packed:
@@ -917,7 +1179,7 @@ def check_loops(files, kernels: dict) -> dict:
                     state={k: v.cpu() for k, v in m.state._asdict().items()},
                     diags={k: v.cpu() for k, v in d._asdict().items()}),
                     SHARD_DIR / "oracle.pt")
-    res.update(ci_modes=spy.modes, finite=finite(ref_state),
+    res.update(k2_modes=spy.modes, finite=finite(ref_state),
                errh2o_led=ref.errh2o_led_max.max().item(),
                errlon=ref.errlon_max.max().item(),
                errsol=ref.errsol_max.max().item(),
@@ -925,8 +1187,8 @@ def check_loops(files, kernels: dict) -> dict:
     res["surfdata"], res["inputs"] = surfdata, inputs
     phase("loops, bit for bit: " + json.dumps(res))
     if res["psn_mode"] != "mixed" or set(spy.modes) != {"mixed"}:
-        raise AssertionError(f"the ci solve ran in modes {spy.modes}, "
-                             f"not only 'mixed'")
+        raise AssertionError(f"K2 ran in modes {spy.modes}, not only "
+                             f"'mixed'")
     check_contracts("loops", res, led_bound=GLOBAL_LEDGER_BOUND)
     return res
 
@@ -964,7 +1226,7 @@ def production_loop(files, inputs: dict, kernels: dict):
                       window=PROD_WINDOW, series=True, callback=window_done)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts(kernels, "production loop")
+    launches = counts(kernels, "production loop", steps=PROD_STEPS)
     steady = (stamps[1] - stamps[0]) / PROD_WINDOW
     res = dict(label="production loop", ncol=PROD_NCOL, steps=PROD_STEPS,
                window=PROD_WINDOW, loop="run_windows(series=True)",
@@ -999,7 +1261,8 @@ def production_loop(files, inputs: dict, kernels: dict):
                   steps=PROD_STEPS, wall_s=wall,
                   ms_per_step=wall / PROD_STEPS * 1e3,
                   columns_per_s=PROD_NCOL * PROD_STEPS / wall,
-                  launches=counts(kernels, "production grid by run"),
+                  launches=counts(kernels, "production grid by run",
+                                  steps=PROD_STEPS),
                   state_fields_differing=[
                       k for k in m.state._fields if not torch.equal(
                           getattr(m.state, k), getattr(m_run.state, k))])
@@ -1012,13 +1275,13 @@ def production_loop(files, inputs: dict, kernels: dict):
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 7, 3)
     noon.increment_seconds(18 * int(m.dtime))
-    t1, t4 = timers(keep=PROD_CI_KEPT, keep_pdma=PDMA_KEPT)
-    with t1, t4:
+    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4:
         reset(kernels)
         m.run_windows(noon, 12, window=12, series=True)
-        timed = counts(kernels, "production loop, timed")
-    on_prod = timed_summaries(t1, t4, timed, "production loop")
-    check_ci_on_path(t1.kept, 1e-5, "production loop")
+        timed = counts(kernels, "production loop, timed", steps=12)
+    on_prod = timed_summaries(t2, t4, timed, "production loop")
+    check_k2_on_path(t2.kept, "production loop")
     check_pdma_on_path(t4.kept, "production loop")
     return res, launches, on_prod
 
@@ -1059,7 +1322,7 @@ def reference_formats(files, snowy_state, kernels: dict) -> dict:
     ``run_windows(series=True)``, held equal bit for bit (tables, state,
     diagnostics) under the main path's contracts, with the kernels'
     launches counted from 0 over the text-optics run; then
-    REFFORMATS_TIMED steps of it under the timers, K1 and K4 held against
+    REFFORMATS_TIMED steps of it under the timers, K2 and K4 held against
     their plain versions on the calls kept; then ``snicar_ad_rt`` with
     each flag against its half of ``snicar_ad_rt_both``, bit for bit, at
     the same width on seeded snow of 0-5 layers and on ``snowy_state``
@@ -1097,7 +1360,8 @@ def reference_formats(files, snowy_state, kernels: dict) -> dict:
             snicar_path=path.name, model_build_s=build_s, wall_s=wall,
             ms_per_step=wall / REFFORMATS_STEPS * 1e3,
             columns_per_s=REFFORMATS_NCOL * REFFORMATS_STEPS / wall,
-            launches=counts(kernels, f"reference formats, {optics} optics"))
+            launches=counts(kernels, f"reference formats, {optics} optics",
+                            steps=REFFORMATS_STEPS))
     (mt, dt), (mn, dn) = models["text"], models["netcdf"]
     res.update(
         tables_differing=[k for k in mt.snicar._fields if not torch.equal(
@@ -1120,17 +1384,17 @@ def reference_formats(files, snowy_state, kernels: dict) -> dict:
 
     later = start.copy()
     later.increment_seconds(REFFORMATS_STEPS * int(mt.dtime))
-    t1, t4 = timers(keep=REFFORMATS_CI_KEPT, keep_pdma=PDMA_KEPT)
-    with t1, t4:
+    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4:
         reset(kernels)
         mt.run_windows(later, REFFORMATS_TIMED, window=REFFORMATS_TIMED,
                        series=True)
-        timed = counts(kernels, "reference formats, timed")
-    on_path = timed_summaries(t1, t4, timed, "reference formats")
-    res["k1"] = check_ci_on_path(t1.kept, 1e-5, "reference formats",
-                                 per_leaf_traits=False)
+        timed = counts(kernels, "reference formats, timed",
+                       steps=REFFORMATS_TIMED)
+    on_path = timed_summaries(t2, t4, timed, "reference formats")
+    res["k2"] = check_k2_on_path(t2.kept, "reference formats")
     res["k4"] = check_pdma_on_path(t4.kept, "reference formats")
-    del t1, t4
+    del t2, t4
 
     # the single-flag sweeps against the stacked one, on the text optics
     seeded = testing.snicar_problem(REFFORMATS_NCOL, 11)
@@ -1264,7 +1528,7 @@ class ColumnLedger:
 def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     """Phase 10: the production loop's grid with per-column land types and
     live snow aging, LAND_STEPS from 1985-01-01 with no timer installed,
-    then one 12-step window under the timers, whose kept K1 and K4 calls
+    then one 12-step window under the timers, whose kept K2 and K4 calls
     are held against their plain versions."""
     import torch
     from elmkernels_torch import constants as c
@@ -1300,7 +1564,7 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
                           callback=window_done)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts(kernels, "landunits")
+    launches = counts(kernels, "landunits", steps=LAND_STEPS)
     st = m.state
     lt = m.params.ltype
     classes = {}
@@ -1353,13 +1617,13 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 1, 3)
     noon.increment_seconds(18 * int(m.dtime))
-    t1, t4 = timers(keep=PROD_CI_KEPT, keep_pdma=PDMA_KEPT)
-    with t1, t4:
+    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4:
         reset(kernels)
         m.run_windows(noon, 12, window=12, series=True)
-        timed = counts(kernels, "landunits, timed")
-    on_land = timed_summaries(t1, t4, timed, "landunits")
-    check_ci_on_path(t1.kept, 1e-5, "landunits")
+        timed = counts(kernels, "landunits, timed", steps=12)
+    on_land = timed_summaries(t2, t4, timed, "landunits")
+    check_k2_on_path(t2.kept, "landunits")
     check_pdma_on_path(t4.kept, "landunits")
     return res, launches, on_land
 
@@ -1472,7 +1736,8 @@ def operations(files, inputs: dict, kernels: dict) -> dict:
                   callback=window_done)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counts(kernels, "operations, run_windows")
+    launches = counts(kernels, "operations, run_windows",
+                      steps=PROD_STEPS)
     metrics.close()
     history.close()
     lines = (out_dir / "metrics.jsonl").read_text().splitlines()
@@ -1951,17 +2216,20 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
     """Phase 12: the tangent-linear model on the 262,144-column global
     grid under the exact flags, 2 steps from 1985-07-01 06:00: run_jvp
     seeded by tbot (untimed: ms/step against the primal, launches) and by
-    watsat (under the timers: K1-T and K4 per launch, kept calls); the
-    tbot tangents against central finite differences; the primal against
-    the plain trajectory; K1-T and K4's tangent rule against their plain
-    versions on the path's own inputs."""
+    watsat (under the timers: K1, K1-T and K4 per launch, kept calls); the
+    tbot tangents against central finite differences; the primal (whose
+    canopy loop is K2) against the differentiated runs' (the plain loop);
+    K1, K1-T and K4's tangent rule against their plain versions on the
+    path's own inputs.  A differentiated step runs the plain loop, so K2
+    must not launch under run_jvp, and K1 and K1-T must."""
     import torch
     from elmkernels_torch.driver import sensitivity as sens
-    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma
     from elmkernels_torch.physics import photosynthesis as psn
     from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
     m, start, forc, phen = sens_model(files, inputs)
-    kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
+    kernels = {"canopy_stability": canopy.canopy_stability,
+               "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                "ci_hybrid_solve_jvp": ci_solver.ci_hybrid_solve_jvp,
                "pdma_solve": pdma.pdma_solve}
 
@@ -1978,19 +2246,23 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
         m, start, SENS_STEPS, seed_forcing=sens.seed_field("tbot"),
         forc_stack=forc, phen_stack=phen))
     launches = {k: fn.launches for k, fn in kernels.items()}
-    if not (launches["ci_hybrid_solve_jvp"] and launches["pdma_solve"]):
-        raise AssertionError(f"K1-T or K4 was not launched on the "
-                             f"sensitivity path: {launches}")
+    if (launches["canopy_stability"] or not all(
+            launches[k] for k in ("ci_hybrid_solve", "ci_hybrid_solve_jvp",
+                                  "pdma_solve"))):
+        raise AssertionError(f"on the sensitivity path K1, K1-T and K4 "
+                             f"must launch and K2 must not: {launches}")
 
+    t1 = k1_timer(SENS_CI_KEPT)
     t1t = k1t_timer(SENS_CI_KEPT)
     t4 = MainPathTimes(pdma, "pdma_solve",
                        lambda a, out: pdma_bound(a[0].shape[0]))
-    with t1t, t4, JvpSpy(pdma.PdmaSolve, SENS_PDMA_KEPT) as spy:
+    with t1, t1t, t4, JvpSpy(pdma.PdmaSolve, SENS_PDMA_KEPT) as spy:
         # timed again: the second run, with ~1 ms of timer guard a launch
         res_w, jvp_ms_again = timed(lambda: sens.run_jvp(
             m, start, SENS_STEPS, seed_params=sens.seed_field("watsat"),
             forc_stack=forc, phen_stack=phen))
-    on_path = {"ci_hybrid_solve_jvp": t1t.summary(),
+    on_path = {"ci_hybrid_solve": t1.summary(),
+               "ci_hybrid_solve_jvp": t1t.summary(),
                "pdma_solve": t4.summary()}
     phase("kernels on the sensitivity path: " + json.dumps(on_path))
 
@@ -2055,6 +2327,7 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
                 for i, (args, _) in enumerate(t1t.kept)]
     for prof in profiles:
         phase("K1-T profile: " + json.dumps(prof))
+    k1_path = check_ci_on_path(t1.kept, "sensitivity path")
     noon = sens_noon(m, kernels, k1t_ctx)
     (x0, dx0, env, denv, mode, en), _ = t1t.kept[0]
     plain_ms = cuda_ms(lambda: psn.hybrid_solve_jvp_plain(
@@ -2079,6 +2352,7 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
                fd_left_out_not_smooth=int((same_iters & ~smooth).sum()
                                           .item()),
                fd=fd, t_ref2m_tangent_positive=t_ref2m_warms,
+               k1=k1_path,
                k1t=dict(calls=len(t1t.kept), leaves=leaves,
                         bit_for_bit=same, max_rel_value=worst_v,
                         max_rel_tangent=worst_t, max_abs=worst_abs,
@@ -2100,7 +2374,7 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
         raise AssertionError(f"K1-T or K4's tangent rule disagrees with its "
                              f"plain version: {res}")
     return dict(res=res, on_path=on_path, launches=launches,
-                profiles=profiles, noon=noon)
+                profiles=profiles, noon=noon, k1=k1_path)
 
 
 def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
@@ -2117,14 +2391,16 @@ def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
     from elmkernels_torch.utils.dates import Date
     start = Date.from_ymd(1985, 7, 1, SENS_NOON_START_S)
     forc, phen = m.stack_windows(start, SENS_NOON_STEPS)
-    t1t = k1t_timer(SENS_CI_KEPT)
+    t1, t1t = k1_timer(), k1t_timer(SENS_CI_KEPT)
     reset(kernels)
-    with t1t:
+    with t1, t1t:
         res_n = sens.run_jvp(m, start, SENS_NOON_STEPS,
                              seed_forcing=sens.seed_field("tbot"),
                              forc_stack=forc, phen_stack=phen)
     launches = ci_solver.ci_hybrid_solve_jvp.launches
+    all_launches = {k: fn.launches for k, fn in kernels.items()}
     on_path = t1t.summary()
+    k1_on_path = t1.summary()
     profiles = [k1t_profile(f"sensitivity path at noon, call {i}", args,
                             **k1t_ctx)
                 for i, (args, _) in enumerate(t1t.kept)]
@@ -2139,7 +2415,8 @@ def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
             b = (~torch.isfinite(v)).any(0)
             bad |= b.reshape(m.ncol, -1).any(1)
     res = dict(start_s=SENS_NOON_START_S, steps=SENS_NOON_STEPS,
-               launches=launches, on_path=on_path,
+               launches=launches, all_launches=all_launches,
+               on_path=on_path, k1_on_path=k1_on_path,
                enabled_share=[p["enabled_share"] for p in profiles],
                evals_per_leaf=[p["committed_evals_per_leaf"]
                                for p in profiles],
@@ -2151,38 +2428,41 @@ def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
                columns_nonfinite_tangent=int(bad.sum()))
     phase("K1-T on the sensitivity path at noon: " + json.dumps(res))
     if not (launches and profiles and res["bit_for_bit"] and primal_finite
-            and max(res["enabled_share"]) > 0):
+            and max(res["enabled_share"]) > 0
+            and not all_launches.get("canopy_stability")):
         raise AssertionError(f"K1-T at noon: not launched, no enabled leaf, "
-                             f"or disagrees with its plain version: {res}")
+                             f"K2 launched, or disagrees with its plain "
+                             f"version: {res}")
     return dict(res=res, on_path=on_path, launches=launches,
-                profiles=profiles)
+                profiles=profiles, k1_on_path=k1_on_path,
+                all_launches=all_launches)
 
 
 def float32_path(files) -> dict:
     """The main path's model in float32 (the JAX package's all-float32
-    mode), 12 steps around noon with each K4 launch timed
-    (``pdma_solve_f32``) and its first calls held against the plain
-    version in float32 bit for bit; the contracts of test_f32_drift.py."""
+    mode), 12 steps around noon with each K2 and K4 launch timed (K2's
+    float32 instantiation, ``pdma_solve_f32``) and their first calls held
+    against the plain versions in float32 bit for bit; the contracts of
+    test_f32_drift.py."""
     import torch
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma
     from elmkernels_torch.utils.dates import Date
     m = Model(ncol=F32_NCOL, pft_path=str(files[0]),
               snicar_path=str(files[1]), dtype=torch.float32)
     start = Date.from_ymd(1985, 7, 1)
     start.increment_seconds(18 * int(m.dtime))
-    kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
-               "pdma_solve_f32": pdma.pdma_solve_f32}
-    t4 = MainPathTimes(pdma, "pdma_solve_f32",
-                       lambda a, out: pdma_bound(a[0].shape[0], "float32"),
-                       keep=PDMA_KEPT)
+    kernels = {"canopy_stability": canopy.canopy_stability,
+               "pdma_solve_f32": pdma.pdma_solve_f32,
+               "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
+    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT, f32_pdma=True)
     worst = {"errsol": 0.0, "errlon": 0.0}
 
     def cb(date, state, d):
         for k in worst:
             worst[k] = max(worst[k], getattr(d, k).abs().max().item())
 
-    with t4:
+    with t2, t4:
         reset(kernels)
         pdma.pdma_solve.launches = 0
         torch.cuda.synchronize()
@@ -2190,21 +2470,25 @@ def float32_path(files) -> dict:
         m.run(start, F32_STEPS, cb)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = counts(kernels, "float32 path")
+        launches = counts(kernels, "float32 path", steps=F32_STEPS)
     on_path = t4.summary()
+    on_path_k2 = t2.summary()
+    k2 = check_k2_on_path(t2.kept, "float32 path")
     k4 = check_pdma_on_path(t4.kept, "float32 path")
     res = dict(label="float32 path", ncol=F32_NCOL, steps=F32_STEPS,
                dtype=str(m.state.t_grnd.dtype), wall_s=wall,
                ms_per_step_under_timers=wall / F32_STEPS * 1e3,
                launches=launches, float64_k4_launches=pdma.pdma_solve.launches,
-               finite=finite(m.state), on_path=on_path, **worst)
+               finite=finite(m.state), on_path=on_path,
+               on_path_k2=on_path_k2, **worst)
     phase("float32 path: " + json.dumps(res))
     if not (res["finite"] and res["dtype"] == "torch.float32"
             and launches["pdma_solve_f32"] == F32_STEPS
             and pdma.pdma_solve.launches == 0
             and max(worst.values()) < F32_ERR_BOUND):
         raise AssertionError(f"the float32 path failed: {res}")
-    return dict(res=res, on_path=on_path, k4=k4, launches=launches)
+    return dict(res=res, on_path=on_path, on_path_k2=on_path_k2, k2=k2,
+                k4=k4, launches=launches)
 
 
 def free_port() -> int:
@@ -2242,7 +2526,7 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     """One rank of the sharded phase (``chip_smoke.py --shard-rank``): its
     block of the loops phase's grid on this rank's card, from the
     unsharded initial state cut by ``shard_state``, the loops phase's
-    ``run_windows(series=True)`` with each K1 and K4 launch timed and the
+    ``run_windows(series=True)`` with each K2 and K4 launch timed and the
     first ones kept; writes its block, the global diagnostics, launches,
     times and its kernels' checks to SHARD_DIR."""
     import torch
@@ -2251,7 +2535,7 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     from elmkernels_torch import parallel
     from elmkernels_torch.data.state import ModelState
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma
     from elmkernels_torch.utils.dates import Date
     spec = json.loads((SHARD_DIR / "spec.json").read_text())
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
@@ -2263,10 +2547,11 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
                                 **spec["kw"])
     initial = torch.load(SHARD_DIR / "initial.pt", weights_only=True)
     model.state = parallel.shard_state(mesh, ModelState(**initial))
-    kernels = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
-               "pdma_solve": pdma.pdma_solve}
-    t1, t4 = timers(keep=1, keep_pdma=1)
-    with t1, t4:
+    kernels = {"canopy_stability": canopy.canopy_stability,
+               "pdma_solve": pdma.pdma_solve,
+               "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
+    t2, t4 = timers(keep=1, keep_pdma=1)
+    with t2, t4:
         reset(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2274,15 +2559,15 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
                               window=LOOPS_WINDOW, series=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = counts(kernels, label)
-    on_path = timed_summaries(t1, t4, launches, label)
-    k1 = check_ci_on_path(t1.kept, 1e-5, label)
+        launches = counts(kernels, label, steps=LOOPS_STEPS)
+    on_path = timed_summaries(t2, t4, launches, label)
+    k2 = check_k2_on_path(t2.kept, label)
     k4 = check_pdma_on_path(t4.kept, label)
     torch.save(dict(
         lo=mesh.lo, hi=mesh.hi, device=str(mesh.device), wall_s=wall,
         state={k: v.cpu() for k, v in model.state._asdict().items()},
         diags={k: v.cpu() for k, v in d._asdict().items()},
-        launches=launches, on_path=on_path, k1=k1, k4=k4),
+        launches=launches, on_path=on_path, k2=k2, k4=k4),
         SHARD_DIR / f"{backend}_rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -2295,7 +2580,7 @@ def sharded_loops(files, loops: dict) -> dict:
     (NCCL refuses two ranks on one card), each a subprocess.  Every rank's
     block must equal the unsharded run's final state bit for bit on every
     field, its global diagnostics the unsharded reductions (maxima
-    exactly, means to rtol 1e-12), and K1 and K4 must have launched on it
+    exactly, means to rtol 1e-12), and K2 and K4 must have launched on it
     and agree with their plain versions on its first calls."""
     import torch
     (SHARD_DIR / "spec.json").write_text(json.dumps(dict(
@@ -2336,8 +2621,7 @@ def sharded_loops(files, loops: dict) -> dict:
                 rank=r, block=[lo, hi], device=got["device"],
                 wall_s=got["wall_s"], launches=got["launches"],
                 on_path=got["on_path"],
-                k1_max_rel=got["k1"]["max_rel"],
-                k1_equal_iters=got["k1"]["equal_iters"],
+                k2_differing_fields=got["k2"]["differing_fields"],
                 k4_equal=got["k4"]["equal"],
                 state_fields_differing=state_diff,
                 diagnostics_differing=diag_diff))
@@ -2348,7 +2632,8 @@ def sharded_loops(files, loops: dict) -> dict:
         covered = sum(r["block"][1] - r["block"][0] for r in ranks)
         if covered != LOOPS_NCOL or any(
                 r["state_fields_differing"] or r["diagnostics_differing"]
-                or not all(r["launches"].values()) for r in ranks):
+                or not (r["launches"]["canopy_stability"]
+                        and r["launches"]["pdma_solve"]) for r in ranks):
             raise AssertionError(f"sharded {backend} run differs from the "
                                  f"unsharded one: {res}")
         out[backend] = res
@@ -2497,7 +2782,7 @@ def ingest(kernels: dict) -> dict:
     native reader phase's month files): ``run_windows(series=True)`` from
     the files, prefetching the next month, against the pre-staged
     ``run_scan_series`` windows, bit for bit; this slice's full-width
-    path, its K1 and K4 launches counted from 0 over it."""
+    path, its K2 and K4 launches counted from 0 over it."""
     from elmkernels_torch.tools import ingest_bench
     reset(kernels)
     rec = ingest_bench.bench_files(INGEST_NCOL, INGEST_WINDOW, INGEST_NWIN,
@@ -2551,8 +2836,9 @@ def capacity() -> dict:
     last = runs[-1]
     if not (last["errsol_max"] <= last["errsol_bound"]
             and last["errh2o_led_max"] < GLOBAL_LEDGER_BOUND
-            and all(last["launches"].get(k) for k in ("ci_hybrid_solve",
-                                                      "pdma_solve"))):
+            and all(last["launches"].get(k) for k in ("canopy_stability",
+                                                      "pdma_solve"))
+            and last["launches"].get("ci_hybrid_solve") == 0):
         raise AssertionError(f"capacity run broke a contract: {last}")
     return dict(runs=runs, fits_ncol=last["ncol"])
 
@@ -2711,7 +2997,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from elmkernels_torch.ops import build, ci_solver, pdma
+    from elmkernels_torch.ops import build, canopy, ci_solver, pdma
 
     t_script = time.perf_counter()
     laps, t_lap = {}, [t_script]
@@ -2747,8 +3033,8 @@ def main() -> int:
     cap = capacity()
     lap("capacity")
 
-    # the main path's production flags run the canopy loop, and so the ci
-    # solve, in float32 (mixed_canopy): its numbers go in the kernels line
+    # K1 on its test problems: the canopy loop (K2) inlines it on the main
+    # path; K1 itself runs on the sensitivity path, under torch.func.jvp
     n_leaves = 2 * 262144
     check_ci(n_leaves, "c3", torch.float64, 1e-12, time_it=True)
     k1 = check_ci(n_leaves, "c3", torch.float32, 1e-5, time_it=True)
@@ -2757,6 +3043,7 @@ def main() -> int:
     # the production loop's type and mode: float32, "mixed", per-leaf traits
     check_ci(n_leaves, "mixed", torch.float32, 1e-5, time_it=False)
     k1t_test = k1t_test_phase()
+    k2_test = k2_test_phase()
     k4 = check_pdma(262144)
     k4f = check_pdma(262144, torch.float32)
     entry_overhead()
@@ -2764,20 +3051,24 @@ def main() -> int:
 
     files = synthetic_files()
 
-    wrappers = {"ci_hybrid_solve": ci_solver.ci_hybrid_solve,
-                "pdma_solve": pdma.pdma_solve}
+    # the main paths' kernels: K2 runs the canopy loop once a step (its ci
+    # solves inlined: K1 must not launch there) and K4 the soil column
+    wrappers = {"canopy_stability": canopy.canopy_stability,
+                "pdma_solve": pdma.pdma_solve,
+                "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
     # end-to-end numbers from a run with no timer installed; the kernels'
     # times per launch from 12 steps around noon under the timers
     main_run, launches, _ = drive(262144, 7, MAIN_STEPS, files, "main path",
                                   wrappers)
     lap("main path")
-    t1, t4 = timers(keep_pdma=PDMA_KEPT)
-    with t1, t4:
+    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4:
         _, timed, _ = drive(262144, 7, 12, files, "main path, timed",
                             wrappers, start_step=18)
-    on_path = timed_summaries(t1, t4, timed, "main path")
+    on_path = timed_summaries(t2, t4, timed, "main path")
+    k2_path = check_k2_on_path(t2.kept, "main path")
     k4_path = check_pdma_on_path(t4.kept, "main path")
-    del t1, t4
+    del t2, t4
     lap("main path, timed")
     f32 = float32_path(files)
     lap("float32 path")
@@ -2844,12 +3135,58 @@ def main() -> int:
                     refformats_share_of_bound=on_ref[name][
                         "share_of_bound"])
 
+    # K2's test-problem numbers in the line are the production loop's
+    # configuration: float32, "mixed" with per-column traits, warm started
+    k2t = next(c for c in k2_test["cases"] if c["mode"] == "mixed"
+               and c["dtype"] == "float32" and c["warm_start"])
+    f32_k2 = f32["on_path_k2"]
+    k1s, k1n = on_sens["ci_hybrid_solve"], sens["noon"]["k1_on_path"]
     kernels = [
+        dict(name="canopy_stability", route="cuda",
+             source="elmkernels_torch/csrc/canopy_stability.cu",
+             replaces="elmkernels_tpu/physics/canopy_fluxes.py:199",
+             max_abs_err=max([c["max_abs"] for c in k2_test["cases"]]
+                             + [k2_path["max_abs"], f32["k2"]["max_abs"]]),
+             library_ms=None, plain_device_ms=k2t["plain_device_ms"],
+             plain_launches=k2t["plain_launches"],
+             registers_and_spill_bytes=k2_test["registers"],
+             test_cases=[{k: c[k] for k in (
+                 "mode", "dtype", "warm_start", "ms", "bound_ms",
+                 "bound_by", "share_of_bound", "plain_wall_ms",
+                 "plain_device_ms", "passes", "columns_at_the_cap")}
+                 for c in k2_test["cases"]],
+             f32_launches=f32["launches"]["canopy_stability"],
+             f32_ms=f32_k2["ms"], f32_bound_ms=f32_k2["bound_ms"],
+             f32_share_of_bound=f32_k2["share_of_bound"],
+             sens_launches=sens_launches["canopy_stability"],
+             **numbers("canopy_stability", dict(
+                 plain_ms=k2t["plain_wall_ms"], test_ms=k2t["ms"],
+                 test_bound_ms=k2t["bound_ms"],
+                 test_share_of_bound=k2t["share_of_bound"]))),
+        # K1 runs only on the sensitivity path now (inlined in K2 on the
+        # others): its launches and per-launch times are that path's
         dict(name="ci_hybrid_solve", route="cuda",
              source="elmkernels_torch/csrc/ci_hybrid_solve.cu",
              replaces="elmkernels_tpu/physics/photosynthesis.py:238",
-             max_abs_err=k1["max_abs_ci"], library_ms=None,
-             **numbers("ci_hybrid_solve", k1)),
+             launches=sens_launches["ci_hybrid_solve"],
+             max_abs_err=max(k1["max_abs_ci"], sens["k1"]["max_abs"]),
+             ms=k1s["ms"], bound_ms=k1s["bound_ms"],
+             bound_by=k1s["bound_by"], share_of_bound=k1s["share_of_bound"],
+             plain_ms=k1["plain_ms"], library_ms=None,
+             test_ms=k1["test_ms"], test_bound_ms=k1["test_bound_ms"],
+             test_share_of_bound=k1["test_share_of_bound"],
+             sens_launches=sens_launches["ci_hybrid_solve"],
+             sens_ms=k1s["ms"], sens_bound_ms=k1s["bound_ms"],
+             sens_share_of_bound=k1s["share_of_bound"],
+             sens_noon_launches=sens["noon"]["all_launches"][
+                 "ci_hybrid_solve"],
+             sens_noon_ms=k1n["ms"], sens_noon_bound_ms=k1n["bound_ms"],
+             sens_noon_share_of_bound=k1n["share_of_bound"],
+             main_path_launches=launches["ci_hybrid_solve"],
+             prod_launches=prod_launches["ci_hybrid_solve"],
+             land_launches=land_launches["ci_hybrid_solve"],
+             refformats_launches=refformats["text"]["launches"][
+                 "ci_hybrid_solve"]),
         dict(name="pdma_solve", route="cuda",
              source="elmkernels_torch/csrc/pdma_solve.cu",
              replaces="elmkernels_tpu/physics/soil_temperature.py:282",
@@ -2863,8 +3200,8 @@ def main() -> int:
                  "max_rel_tangent"],
              **numbers("pdma_solve", k4)),
     ]
-    # this slice's full-width path (ingest from month files) and the
-    # capacity probe's run also launch K1 and K4
+    # the full-width path from month files (ingest) and the capacity
+    # probe's run launch K2 and K4 (and no K1)
     for k in kernels:
         k.update(ingest_launches=ing["launches"][k["name"]],
                  capacity_ncol=cap["fits_ncol"],

@@ -91,7 +91,7 @@ def main() -> int:
         return 2
     from elmkernels_torch.data import synthetic
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma
     from elmkernels_torch.utils.dates import Date
     from elmkernels_torch.utils.guard import errsol_bound
 
@@ -131,8 +131,8 @@ def main() -> int:
     trace = os.environ.get("BENCH_TRACE")
     prof = None
     stamps, errsol = [], []
-    kernels = (ci_solver.ci_hybrid_solve, pdma.pdma_solve,
-               pdma.pdma_solve_f32)
+    kernels = (canopy.canopy_stability, ci_solver.ci_hybrid_solve,
+               pdma.pdma_solve, pdma.pdma_solve_f32)
     for k in kernels:
         k.launches = 0
     if dev.type == "cuda":

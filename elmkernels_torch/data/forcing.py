@@ -339,6 +339,11 @@ class NetCDFForcing:
             for k, vname in names.items():
                 nxt = self._read_cells(npath, vname, g)[:1]
                 data[k] = np.concatenate([data[k], nxt], axis=0)
+            # the bridge row is the next file's: a variable ships as f32
+            # only if that file stores it as exact f32 too
+            data["f32_exact"] = frozenset(
+                k for k in data["f32_exact"]
+                if netcdf.var_packing(g, names[k]) == ("f4", 1.0, 0.0))
             # kept open for the next month's own load
             self._next_file = (npath, g)
         self._cache[key] = data

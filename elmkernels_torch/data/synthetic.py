@@ -259,11 +259,12 @@ FORCING_VARS = ("TBOT", "PBOT", "QBOT", "FLDS", "FSDS", "PRECTmms", "WIND")
 
 def write_forcing_months(basename: str, year: int, month: int,
                          nmonths: int, nlat: int, nlon: int,
-                         dt_hours: float = 3.0) -> list[str]:
+                         dt_hours: float = 3.0,
+                         dtype=np.float32) -> list[str]:
     """Write ``nmonths`` month files ``<basename>YYYY-MM.nc`` from
     (year, month) on: DTIME in days since the month's start and the seven
-    forcing variables on (DTIME, lat, lon) in float32 (the usual forcing
-    file precision).  Returns the paths."""
+    forcing variables on (DTIME, lat, lon) in ``dtype`` (float32 by
+    default, the usual forcing file precision).  Returns the paths."""
     paths = []
     y, m = year, month
     for _ in range(nmonths):
@@ -271,7 +272,7 @@ def write_forcing_months(basename: str, year: int, month: int,
         path = f"{basename}{y:04d}-{m:02d}.nc"
         variables = {"DTIME": (("DTIME",), f["DTIME"])}
         for k in FORCING_VARS:
-            variables[k] = (("DTIME", "lat", "lon"), f[k].astype(np.float32))
+            variables[k] = (("DTIME", "lat", "lon"), f[k].astype(dtype))
         write_nc(path, {"DTIME": None, "lat": nlat, "lon": nlon}, variables)
         paths.append(path)
         y, m = (y, m + 1) if m < 12 else (y + 1, 1)

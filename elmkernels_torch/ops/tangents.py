@@ -29,14 +29,16 @@ def carries_tangent(t: torch.Tensor) -> bool:
                 and fwAD.unpack_dual(t).tangent is not None))
 
 
-def refuse(name: str, function: str, tensors) -> None:
+def refuse(name: str, function: str, tensors,
+           instead: str = "whose jvp launches the tangent kernel") -> None:
     """Raise if a tensor handed to the kernel wrapper ``name`` carries a
-    tangent: the kernel would drop it."""
+    tangent: the kernel would drop it.  The message names ``function``,
+    the entry point to call, and what it does ``instead``."""
     if any(carries_tangent(t) for t in tensors):
         raise RuntimeError(
             f"{name} launches a CUDA kernel that propagates no tangent, and "
             f"a tensor given to it is being differentiated: call "
-            f"{function}, whose jvp launches the tangent kernel")
+            f"{function}, {instead}")
 
 
 def primal(t: torch.Tensor | None) -> torch.Tensor | None:

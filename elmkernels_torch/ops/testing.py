@@ -201,3 +201,153 @@ def write_snow_optics_text(path, slots: dict | None = None) -> None:
         lines.append(" ".join([name, *map(repr, vals.tolist())]))
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
+
+
+def canopy_problem(n: int, seed: int, mode: str = "c3", dtype=torch.float64,
+                   warm_start: bool = False, device="cpu") -> dict:
+    """Seeded arguments of ``physics.canopy_fluxes.stability_iteration`` for
+    ``n`` columns (by name; ``psn_mode=mode``), made in float64 as the
+    step's set-up makes them (``initialize_flux``'s formulas for the
+    Monin-Obukhov start, qsat of the leaf) and then cast to ``dtype``.
+
+    About a tenth of the columns are bare (``frac_veg_nosno == 0``, with
+    the set-up's zeros); a tenth are soybean (the btran boost); a fifth are
+    night columns (no sun: no ci solve); the leaf starts up to 15 K from the
+    air (Newton steps over 1 K); a third have a dry-air, near-calm surface
+    layer whose Monin-Obukhov length flips sign from pass to pass; tall
+    sparse canopies (trees) hold some columns at the 40-iteration cap.
+    Traits are 0-d for "c3" and "c4" (a uniform grid: C3 grass, C4 grass)
+    and per column for "mixed" (trees, C3 and C4 grasses, soybean).  With
+    ``warm_start`` the ci carry ``ci_prev`` holds roots from a previous
+    step, some 0 or NaN (a cold leaf)."""
+    from elmkernels_torch.data import synthetic
+    from elmkernels_torch.physics import friction_velocity as fv
+    from elmkernels_torch.physics.photosynthesis import PFTPsnParams
+    from elmkernels_torch.physics.qsat import qsat
+    rng = np.random.default_rng(seed)
+    u = rng.uniform
+    f64 = torch.float64
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float64), dtype=f64)
+
+    table = synthetic.pft_table()
+    if mode == "mixed":
+        pft = rng.choice([1, 4, 7, 10, 12, 14, 23], size=n)
+    else:
+        pft = np.full(n, 12 if mode == "c3" else 14)
+    names = PFTPsnParams._fields
+    vals = {k: table[k][pft] if k in table else np.full(n, -2.0)
+            for k in names}
+    if mode == "mixed":
+        p = PFTPsnParams(*(t(vals[k]) for k in names))
+    else:
+        p = PFTPsnParams(*(t(vals[k][0]) for k in names))
+    tree = pft <= 8
+
+    veg = u(0, 1, n) >= 0.1
+    soybean = (pft == 23) | (u(0, 1, n) < 0.1)
+    night = u(0, 1, n) < 0.2
+    snl = rng.integers(0, 6, n).astype(np.int32)
+    nlevtot = c.NLEVSNO + c.NLEVGRND
+    t_soisno = u(255.0, 300.0, (n, nlevtot))
+    frac_sno = np.where(snl > 0, u(0.3, 1.0, n), u(0.0, 0.2, n))
+    frac_h2osfc = u(0.0, 0.2, n) * (u(0, 1, n) < 0.5)
+    frac_h2osfc = np.minimum(frac_h2osfc, 1.0 - frac_sno)
+    forc_t = u(255.0, 310.0, n)
+    forc_pbot = u(7.0e4, 1.03e5, n)
+    thm = forc_t + 0.0098 * 30.0
+    forc_th = forc_t * (1.0e5 / forc_pbot) ** 0.286
+    qs_air = qsat(t(forc_t), t(forc_pbot)).qs.numpy()
+    calm = u(0, 1, n) < 0.33
+    forc_q = qs_air * np.where(calm, u(0.01, 0.1, n), u(0.2, 0.95, n))
+    thv = forc_th * (1.0 + 0.61 * forc_q)
+    t_grnd = forc_t + u(-8.0, 12.0, n)
+    qg = qsat(t(t_grnd), t(forc_pbot)).qs.numpy() * u(0.3, 1.0, n)
+    wind = np.where(calm, u(0.0, 1.5, n), u(1.0, 12.0, n))
+    forc_u, forc_v = wind * 0.8, wind * 0.6
+    htop = np.where(tree, u(8.0, 25.0, n), u(0.2, 1.5, n))
+    elai = np.where(tree, u(0.3, 6.0, n), u(0.1, 4.0, n))
+    esai = u(0.05, 1.0, n)
+    # initialize_flux's roughness, displacement and longwave coefficients
+    lt = np.minimum(elai + esai, 2.0)
+    egvf = (1.0 - np.exp(-lt)) / (1.0 - np.exp(-2.0))
+    z0mg = np.where(snl > 0, 0.0024, 0.01)
+    displa = 0.67 * htop * egvf
+    z0m = np.where(tree, 0.055, 0.12) * htop
+    z0mv = np.exp(egvf * np.log(z0m) + (1.0 - egvf) * np.log(z0mg))
+    z0qv = np.where(u(0, 1, n) < 0.1, z0mv * 0.5, z0mv)
+    hgt_u = 30.0 + z0m + displa
+    hgt_t = np.where(u(0, 1, n) < 0.1, hgt_u - 2.0, hgt_u)
+    hgt_q = np.where(u(0, 1, n) < 0.5, hgt_t, hgt_u)
+    emv = 1.0 - np.exp(-(elai + esai))
+    emg = u(0.94, 0.99, n)
+    forc_lwrad = u(180.0, 420.0, n)
+    stebol = c.STEBOL
+    air = emv * (1.0 + (1.0 - emv) * (1.0 - emg)) * forc_lwrad
+    bir = -(2.0 - emv * (1.0 - emg)) * emv * stebol
+    cir = emv * emg * stebol
+    t_veg = forc_t + u(-15.0, 15.0, n)
+    qs = qsat(t(t_veg), t(forc_pbot))
+    taf = (t_grnd + thm) / 2.0
+    qaf = (forc_q + qg) / 2.0
+    ur = np.maximum(np.sqrt(forc_u ** 2 + forc_v ** 2), 1.0)
+    dthv = (thm - taf) * (1.0 + 0.61 * forc_q) + 0.61 * forc_th * (
+        forc_q - qaf)
+    zldis = hgt_u - displa
+    mo = fv.monin_obukhov_length(t(ur), t(thv), t(dthv), t(zldis), t(z0mv))
+
+    par_sun = np.where(night, 0.0, u(5.0, 600.0, n))
+    par_sha = np.where(night, 0.0, par_sun * u(0.05, 0.4, n))
+    fsun = u(0.1, 0.8, n)
+    fwet = u(0.0, 0.6, n) * (u(0, 1, n) < 0.5)
+    # dry-leaf and wet-leaf columns with leaf water to evaporate
+    h2ocan = np.where(fwet > 0.0, u(0.0, 0.5, n), 0.0)
+    sabv = np.where(night, 0.0, u(20.0, 700.0, n))
+    btran = np.where(u(0, 1, n) < 0.1, 0.0, u(0.05, 1.0, n))
+
+    def w(a):
+        """initialize_flux's zero for a bare column."""
+        return np.where(veg, a, 0.0)
+    args = dict(
+        land=c.LandType(ltype=1, ctype=1, vtype=int(pft[0])), p=p,
+        dtime=1800.0, snl=torch.as_tensor(snl),
+        frac_veg_nosno=torch.as_tensor(veg.astype(np.int32)),
+        frac_sno=frac_sno, forc_hgt_u_patch=hgt_u, forc_hgt_t_patch=hgt_t,
+        forc_hgt_q_patch=hgt_q, fwet=fwet,
+        fdry=(1.0 - fwet) * elai / (elai + esai),
+        laisun=elai * fsun, laisha=elai * (1.0 - fsun),
+        forc_rho=forc_pbot / (287.04 * forc_t),
+        snow_depth=np.where(snl > 0, u(0.05, 1.5, n), u(0.0, 0.03, n)),
+        soilbeta=u(0.0, 1.0, n), frac_h2osfc=frac_h2osfc,
+        t_h2osfc=u(270.0, 300.0, n), sabv=sabv, h2ocan=h2ocan, htop=htop,
+        t_soisno=t_soisno, air=w(air), bir=w(bir), cir=w(cir), ur=w(ur),
+        zldis=w(zldis), displa=w(displa), elai=elai, esai=esai,
+        t_grnd=t_grnd, forc_pbot=forc_pbot, forc_q=forc_q, forc_th=forc_th,
+        z0mg=z0mg, z0mv=w(z0mv), z0hv=w(z0mv), z0qv=w(z0qv), thm=thm,
+        thv=thv, qg=qg, nrad=np.ones(n), t10=forc_t + u(-5.0, 5.0, n),
+        tlai_z=elai[:, None], vcmaxcintsha=u(0.3, 0.9, n)[:, None],
+        vcmaxcintsun=u(0.6, 1.5, n)[:, None], parsha_z=par_sha[:, None],
+        parsun_z=par_sun[:, None], laisha_z=(elai * (1.0 - fsun))[:, None],
+        laisun_z=(elai * fsun)[:, None], forc_pco2=355e-6 * forc_pbot,
+        forc_po2=0.209 * forc_pbot, dayl_factor=u(0.01, 1.0, n),
+        btran=w(btran), el=w(qs.es.numpy()), qsatl=w(qs.qs.numpy()),
+        qsatldT=w(qs.qsdT.numpy()), taf=w(taf), qaf=w(qaf),
+        um=w(mo.um.numpy()), obu=w(mo.obu.numpy()),
+        delq=w(qg - qaf), t_veg=np.where(veg, t_veg, forc_t),
+        psn_mode=mode, soybean=torch.as_tensor(soybean),
+        warm_start=warm_start, ci_prev=None)
+    if warm_start:
+        ci = 355e-6 * np.concatenate([forc_pbot, forc_pbot]) * u(
+            0.3, 0.9, 2 * n)
+        ci = np.where(u(0, 1, 2 * n) < 0.1, 0.0, ci)
+        args["ci_prev"] = np.where(u(0, 1, 2 * n) < 0.05, np.nan, ci)
+    for k, v in args.items():
+        if isinstance(v, np.ndarray):
+            args[k] = t(v)
+    args["p"] = PFTPsnParams(*(v.to(dtype=dtype, device=device) for v in p))
+    for k, v in args.items():
+        if isinstance(v, torch.Tensor):
+            args[k] = v.to(device=device, dtype=dtype
+                           if v.is_floating_point() else v.dtype)
+    return args

@@ -2,12 +2,20 @@
 with embedded sun/shade photosynthesis — batched over columns.
 
 Counterpart of ``elmkernels_tpu/physics/canopy_fluxes.py`` (reference
-``src/physics/canopy_fluxes_impl.hh:15-542``).  The <=40-iteration
-stability loop is a masked loop over the batch: each column follows the
-reference's per-column iteration sequence, with converged columns frozen.
-The loop's ``any(active)`` test costs one host sync per iteration; the
-ci solve inside each iteration is the ``ci_hybrid_solve`` kernel on the
-card.
+``src/physics/canopy_fluxes_impl.hh:15-542``).  The <=41-pass stability
+loop has two implementations with one arithmetic:
+
+- :func:`stability_iteration_plain` — a masked loop over the batch: each
+  column follows the reference's per-column iteration sequence, with
+  converged columns frozen.  Its ``any(active)`` test costs one host sync
+  a pass, and its ci solves reach the ``ci_hybrid_solve`` kernel (K1, and
+  K1-T under ``torch.func.jvp``) on the card.
+- ``elmkernels_torch.ops.canopy.canopy_stability`` — K2, the CUDA kernel:
+  one thread a column runs the whole loop, the ci solves inlined.
+
+:func:`stability_iteration` routes CUDA tensors that carry no tangent to
+K2, and everything else (CPU tensors; a differentiated call, for which K2
+has no tangent version) to the plain loop.
 """
 
 from __future__ import annotations
@@ -18,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
+from elmkernels_torch.ops import tangents
 from elmkernels_torch.physics import friction_velocity as fv
 from elmkernels_torch.physics import photosynthesis as psn
 from elmkernels_torch.physics import soil_moist_stress as sms
@@ -159,6 +168,47 @@ def stability_iteration(land: c.LandType, p: psn.PFTPsnParams, dtime, snl,
                         t_veg, psn_mode: str | None = None,
                         *, soybean, warm_start: bool = False,
                         ci_prev=None) -> StabilityOut:
+    """The canopy stability loop (``canopy_fluxes_impl.hh:185-452``):
+    K2 (``ops.canopy.canopy_stability``) for CUDA tensors of which none
+    carries a tangent, :func:`stability_iteration_plain` otherwise.  A
+    failed build or launch of K2 raises."""
+    args = dict(locals())
+    if uses_kernel(args):
+        from elmkernels_torch.ops.canopy import canopy_stability
+        return canopy_stability(**args)
+    return stability_iteration_plain(**args)
+
+
+def uses_kernel(args: dict) -> bool:
+    """Whether a call of :func:`stability_iteration` with these arguments
+    (by name) runs K2: its tensors are on the card and none of them is
+    differentiated (``torch.func.jvp``, forward AD or autograd)."""
+    tensors = [v for v in args.values() if isinstance(v, torch.Tensor)]
+    tensors += list(args["p"])
+    return (_on_card(args["t_grnd"])
+            and not any(tangents.carries_tangent(t) for t in tensors))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def stability_iteration_plain(land: c.LandType, p: psn.PFTPsnParams, dtime,
+                              snl, frac_veg_nosno, frac_sno,
+                              forc_hgt_u_patch, forc_hgt_t_patch,
+                              forc_hgt_q_patch, fwet, fdry, laisun, laisha,
+                              forc_rho, snow_depth, soilbeta, frac_h2osfc,
+                              t_h2osfc, sabv, h2ocan, htop, t_soisno, air,
+                              bir, cir, ur, zldis, displa, elai, esai, t_grnd,
+                              forc_pbot, forc_q, forc_th, z0mg, z0mv, z0hv,
+                              z0qv, thm, thv, qg, nrad, t10, tlai_z,
+                              vcmaxcintsha, vcmaxcintsun, parsha_z, parsun_z,
+                              laisha_z, laisun_z, forc_pco2, forc_po2,
+                              dayl_factor, btran, el, qsatl, qsatldT, taf,
+                              qaf, um, obu, delq, t_veg,
+                              psn_mode: str | None = None, *, soybean,
+                              warm_start: bool = False,
+                              ci_prev=None) -> StabilityOut:
     """Leaf-temperature Newton iteration (<=40 iterations + convergence on
     both dt_veg < 0.01 K and defe < 0.1 W/m2), with per-iteration sun and
     shade photosynthesis solves stacked as one [2*ncol] batch

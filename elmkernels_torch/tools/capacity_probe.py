@@ -38,9 +38,10 @@ import torch
 
 
 def _launches() -> dict:
-    from elmkernels_torch.ops import ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma
     return {k.__name__: k.launches for k in (
-        ci_solver.ci_hybrid_solve, pdma.pdma_solve, pdma.pdma_solve_f32)}
+        canopy.canopy_stability, ci_solver.ci_hybrid_solve,
+        pdma.pdma_solve, pdma.pdma_solve_f32)}
 
 
 def probe(ncol: int, nsteps: int, device=None) -> dict:

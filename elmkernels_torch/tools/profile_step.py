@@ -33,8 +33,9 @@ writes it to ``--out`` when given:
 - ``syncs_per_step``: the host waits on the card the CUDA runtime recorded
   (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
   ``cudaEventSynchronize``), with ``copies_h2d_per_step``;
-- ``canopy_iters_per_step``: the canopy loop's iterations, each ending in
-  one ``.any()`` test on the host;
+- ``canopy_iters_per_step``: the canopy loop's iterations (K2 runs them
+  all in one launch; the plain loop ends each in an ``.any()`` test on the
+  host);
 - ``phases``: host and device milliseconds per step of the step's inputs
   (``run``: forcing, phenology and their copies to the card; ``series``:
   the window's host assembly and pinning, and its copy to the card) and
@@ -71,7 +72,7 @@ _STEP_PHASES = ("surface_phase", "flux_phase", "column_phase")
 _INPUTS = {"run": ("step_inputs",),
            "series": ("window_assembly", "window_copy"),
            "windows": ("window_assembly", "window_copy")}
-_PORT_KERNELS = ("ci_hybrid_kernel", "pdma_kernel")
+_PORT_KERNELS = ("canopy_kernel", "ci_hybrid_kernel", "pdma_kernel")
 
 
 def _ranged(fn, name):

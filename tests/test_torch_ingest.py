@@ -290,3 +290,37 @@ def test_aerosol_writer_matches_the_jax_tests_file(tmp_path):
     for k in jf.variables:
         assert jf.variables[k].dimensions == tf.variables[k].dimensions
         _equal(jf.variables[k][:], tf.variables[k][:], k)
+
+
+def test_bridge_row_ships_at_its_source_precision(tmp_path):
+    """July stored as NC_FLOAT, August as NC_DOUBLE.  A series that ends in
+    July keeps August's first row as the bridge to its last interval; that
+    row is NC_DOUBLE on disk, so the series ships every variable in
+    float64 and equals the series shipped with ``ship_source_dtype=False``
+    exactly.  The JAX package decides from July's file alone, demotes the
+    bridge row to float32, and differs there."""
+    base = str(tmp_path / "bridge_")
+    synthetic.write_forcing_months(base, 1985, 7, 1, 3, 4)
+    synthetic.write_forcing_months(base, 1985, 8, 1, 3, 4, dtype=np.float64)
+    ncol = 12
+    grid = dict(lat_r=np.zeros(ncol), lon_r=np.zeros(ncol))
+    # 20:00-23:00 on 31 July: the last steps bracket July's 21:00 row and
+    # August's 00:00 row
+    start = (1985, 7, 31, 20 * 3600)
+    ship = t_forcing.NetCDFForcing(base, ncol, **grid)
+    ser, steps = ship.series(TDate.from_ymd(*start), 6, 1800.0)
+    plain = t_forcing.NetCDFForcing(base, ncol, ship_source_dtype=False,
+                                    **grid)
+    ser64, steps64 = plain.series(TDate.from_ymd(*start), 6, 1800.0)
+    assert int(steps.idx1.max()) + 2 == ser64.tbot.shape[0]  # the bridge
+    for k in ser64._fields:
+        got, want = getattr(ser, k), getattr(ser64, k)
+        assert got.dtype == want.dtype == np.float64, k
+        np.testing.assert_array_equal(got, want, err_msg=k)
+    for a, b in zip(steps, steps64):
+        np.testing.assert_array_equal(a, b)
+    jser, _ = j_forcing.NetCDFForcing(base, ncol, **grid).series(
+        JDate.from_ymd(*start), 6, 1800.0)
+    assert any(not np.array_equal(np.asarray(getattr(jser, k), np.float64),
+                                  getattr(ser64, k))
+               for k in ser64._fields)

@@ -264,3 +264,54 @@ def test_pdma_function_dispatches_by_dtype(card):
     with pytest.raises(TypeError, match="float64"):
         torch.func.jvp(pdma.PdmaSolve.apply, (lt, rt),
                        (torch.zeros_like(lt), torch.ones_like(rt)))
+
+
+def _same(a, b) -> bool:
+    """Equal bit for bit, NaNs in the same places."""
+    return bool(torch.equal(torch.isnan(a), torch.isnan(b))
+                and torch.equal(torch.nan_to_num(a, 0.0),
+                                torch.nan_to_num(b, 0.0)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("mode", ["c3", "c4", "mixed"])
+def test_canopy_kernel_matches_plain(card, mode, dtype, warm):
+    """K2 against the plain loop at atol 0: every output, the iteration
+    counts and the ci carry, NaNs in the same places."""
+    from elmkernels_torch.ops import canopy
+    from elmkernels_torch.physics import canopy_fluxes as tcf
+    args = testing.canopy_problem(N, 13, mode, dtype, warm, device=card)
+    got = canopy.canopy_stability(**args)
+    want = tcf.stability_iteration_plain(**args)
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype, f
+        assert _same(a, b), f
+
+
+@pytest.mark.cuda
+def test_canopy_dispatch_on_card(card):
+    """On the card ``stability_iteration`` launches K2 once and no K1;
+    under ``torch.func.jvp`` it runs the plain loop (K1 and K1-T), and a
+    differentiated tensor handed to K2's wrapper raises."""
+    from elmkernels_torch.ops import canopy, ci_solver
+    from elmkernels_torch.physics import canopy_fluxes as tcf
+    args = testing.canopy_problem(1024, 17, "mixed", torch.float64,
+                                  device=card)
+    k1 = ci_solver.ci_hybrid_solve.launches
+    k2 = canopy.canopy_stability.launches
+    tcf.stability_iteration(**args)
+    assert canopy.canopy_stability.launches == k2 + 1
+    assert ci_solver.ci_hybrid_solve.launches == k1
+    k1t = ci_solver.ci_hybrid_solve_jvp.launches
+    torch.func.jvp(
+        lambda t: tcf.stability_iteration(**dict(args, t_veg=t)).t_veg,
+        (args["t_veg"],), (torch.ones_like(args["t_veg"]),))
+    assert canopy.canopy_stability.launches == k2 + 1
+    assert ci_solver.ci_hybrid_solve.launches > k1
+    assert ci_solver.ci_hybrid_solve_jvp.launches > k1t
+    with pytest.raises(RuntimeError, match="stability_iteration"):
+        canopy.canopy_stability(**dict(
+            args, t_veg=args["t_veg"].clone().requires_grad_()))
