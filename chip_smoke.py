@@ -27,8 +27,12 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    holds ``canopy_stability`` (K2, the canopy stability loop with the ci
    solve inlined) bit for bit against ``stability_iteration_plain`` at
    262,144 columns of seeded inputs in each mode and type, cold and warm
-   started (:func:`k2_test_phase`: K2's ms against its bound, the plain
-   loop's wall and device ms, K2's registers and spills);
+   started, and against itself (a second launch, and a launch captured in
+   a CUDA graph and replayed) (:func:`k2_test_phase`: K2's ms against its
+   bound, its lanes' use, the plain loop's wall and device ms; K2's
+   registers, spills and resident warps an SM in all six instantiations);
+   and times each wrapper's host side (:func:`entry_overhead`, K2's
+   included);
 4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
    against their plain versions bit for bit at ten column counts from 1
    to 262,145 and on views off 16-byte alignment, and times each, its
@@ -157,7 +161,9 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    loop, ``land_*`` on the landunits phase, ``sens_*`` on the sensitivity
    path, ``test_ms`` and ``plain_ms`` on the test problems of 3 and 4;
    K2's entry, ``canopy_stability``, from the main path (``f32_*`` on the
-   float32 path, ``test_cases`` each mode and type); K1's and K1-T's
+   float32 path, ``test_cases`` each mode and type, its lanes' use on the
+   test problems and on each path's kept calls, its wrapper's host us a
+   call); K1's and K1-T's
    entries from the sensitivity path, ``sens_noon_*`` from its noon step;
    ``refformats_*`` on the reference formats phase's text-optics model;
    ``shard_*`` per rank of the sharded runs; ``ingest_launches`` and
@@ -221,9 +227,13 @@ INLINED_IN_K2 = ("ci_hybrid_solve",)
 # timed call: >= 1 ms at the H100's highest SM clock, MAX_SM_HZ
 GUARD_CYCLES = 2_000_000
 MAX_SM_HZ = 1.98e9
-# K2's wrapper lays out ~90 tensors on the host before its launch (~1.5 ms
+# K2's wrapper checks ~85 tensors and allocates its outputs on the host
+# before its launch (0.63 ms a call, up to 3.2 ms on a path's timed calls,
 # on the card's host), so its timer holds the card longer: >= 5 ms
 K2_GUARD_CYCLES = 10_000_000
+# entry_overhead times K2's wrapper at this width, where its launch is
+# shorter than its host side
+K2_HOST_NCOL = 256
 
 
 def phase(msg: str) -> None:
@@ -254,10 +264,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def guarded_ms(fn, reps: int) -> float:
+def guarded_ms(fn, reps: int, guard_cycles: int = GUARD_CYCLES) -> float:
     """Mean device time of ``fn()`` over ``reps`` calls after a warm-up,
     each held between CUDA events that the card reaches only after a
-    GUARD_CYCLES sleep, so that the host's time to launch ``fn`` (its
+    ``guard_cycles`` sleep, so that the host's time to launch ``fn`` (its
     wrapper's checks and allocations) falls outside the pair, as in
     :class:`MainPathTimes`."""
     import torch
@@ -265,7 +275,7 @@ def guarded_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
-        torch.cuda._sleep(GUARD_CYCLES)
+        torch.cuda._sleep(guard_cycles)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -508,22 +518,18 @@ def same_bits(a, b) -> bool:
 
 
 def k2_layout(call: dict) -> dict:
-    """K2's inputs laid out as its wrapper takes them, with the same
-    values: every trait and [ncol] input expanded and contiguous, layer 0
-    of the canopy-layer inputs, frac_veg_nosno in the loop's type, so that
-    the wrapper's own copies fall outside the event pair."""
-    from elmkernels_torch.ops import canopy
+    """K2's inputs as its wrapper takes them, with the same values:
+    frac_veg_nosno in the loop's type (the one conversion the wrapper
+    makes), so that it falls outside the event pair.  The wrapper hands
+    every other input to the kernel as it is (a 0-d trait with a stride of
+    0, layer 0 of a canopy-layer input as a view)."""
     call = dict(call)
-    n, dtype = call["t_grnd"].shape[0], call["t_grnd"].dtype
-    call["p"] = type(call["p"])(*(t.expand(n).contiguous()
-                                  for t in call["p"]))
-    for k in canopy.IN_FIELDS[:-1]:    # fveg is frac_veg_nosno, below
-        t = call[k]
-        if t.ndim == 2:
-            t = t[:, 0]
-        call[k] = t.expand(n).contiguous()
-    call["frac_veg_nosno"] = call["frac_veg_nosno"].to(dtype)
+    call["frac_veg_nosno"] = call["frac_veg_nosno"].to(call["t_grnd"].dtype)
     return call
+
+
+# check_k2_on_path's result on each path, by label
+K2_PATHS = {}
 
 
 def k2_bound(call: dict, out):
@@ -576,17 +582,23 @@ def check_k2_on_path(kept, label: str) -> dict:
     """K2's results on a path's own inputs (the calls a MainPathTimes
     kept) against stability_iteration_plain on the same inputs, bit for
     bit: every output, the iteration counts and the ci carry, NaNs in the
-    same places."""
+    same places; a second launch on each call's inputs equal to the kept
+    result bit for bit, with its lanes' use (``canopy.counters``)."""
     import torch
+    from elmkernels_torch.ops import canopy
     from elmkernels_torch.physics.canopy_fluxes import \
         stability_iteration_plain
     differing, worst, n, modes, cap, vegetated = set(), 0.0, 0, {}, 0, 0
+    relaunch, lanes = set(), []
     for call, got in kept:
         want = stability_iteration_plain(**call)
         torch.cuda.synchronize()
         diff, w = k2_compare(got, want)
         differing.update(diff)
         worst = max(worst, w)
+        again = canopy.canopy_stability(**call)
+        lanes.append(canopy.counters())
+        relaunch.update(k2_compare(again, got)[0])
         key = (f"{call['psn_mode']} "
                f"{str(call['t_grnd'].dtype).replace('torch.', '')}")
         modes[key] = modes.get(key, 0) + 1
@@ -596,12 +608,16 @@ def check_k2_on_path(kept, label: str) -> dict:
     res = dict(label=label, calls=len(kept), columns=n,
                vegetated_columns=vegetated, modes=modes,
                columns_at_the_cap=cap, differing_fields=sorted(differing),
-               max_abs=worst)
+               max_abs=worst, relaunch_differing_fields=sorted(relaunch),
+               round_lane_use=[c["round_lane_use"] for c in lanes],
+               eval_lane_use=[c["eval_lane_use"] for c in lanes])
     phase("K2 canopy_stability vs plain on the path's inputs: "
           + json.dumps(res))
-    if not kept or differing:
+    K2_PATHS[label] = res
+    if not kept or differing or relaunch:
         raise AssertionError(f"canopy_stability differs from its plain "
-                             f"version on the {label}: {res}")
+                             f"version or from its own second launch on "
+                             f"the {label}: {res}")
     return res
 
 
@@ -621,38 +637,77 @@ def device_ms(fn) -> tuple:
             len(evs))
 
 
-def k2_test_phase() -> dict:
-    """K2 against stability_iteration_plain on seeded inputs
-    (``ops.testing.canopy_problem``: bare columns, soybean, night leaves,
-    Newton steps over 1 K, Monin-Obukhov sign flips, columns held at the
-    cap) at K2_NCOL columns in each mode and type, cold and warm started,
-    bit for bit; on each, K2's device ms a launch (CUDA events) against
-    its bound and the plain loop's wall ms (host clock to a synchronize),
-    and in K2_PROFILED the plain loop's device ms (torch.profiler); K2's
-    registers and spills from ``ptxas``."""
+def k2_registers() -> dict:
+    """K2's registers and spilled bytes a thread (``ptxas``) and resident
+    warps an SM (its launch's occupancy, ``canopy.layout``), for each of
+    its six instantiations."""
     import torch
-    from elmkernels_torch.ops import build, canopy, testing
-    from elmkernels_torch.physics.canopy_fluxes import \
-        stability_iteration_plain
+    from elmkernels_torch.ops import build, canopy
     report = build.ptxas_report("canopy_stability")
     regs = {}
     for fn, body in re.findall(r"Compiling entry function '([^']*canopy_"
                                r"kernel[^']*)'[^\n]*\n(.*?)(?=Compiling|\Z)",
                                report, re.S):
         inst = re.search(r"canopy_kernelI([fd])Li(\d)", fn)
-        name = (f"{'float32' if inst.group(1) == 'f' else 'float64'} "
-                f"{('c3', 'c4', 'mixed')[int(inst.group(2))]}")
+        dtype = "float32" if inst.group(1) == "f" else "float64"
+        mode = ("c3", "c4", "mixed")[int(inst.group(2))]
         r = re.search(r"Used (\d+) registers", body)
         sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                        body)
-        regs[name] = dict(registers=int(r.group(1)) if r else None,
-                          spill_bytes=(int(sp.group(1)) + int(sp.group(2)))
-                          if sp else None)
-    phase("K2 canopy_kernel registers and spills (ptxas): "
+        lay = canopy.layout(getattr(torch, dtype), mode)
+        regs[f"{dtype} {mode}"] = dict(
+            registers=int(r.group(1)) if r else None,
+            spill_bytes=(int(sp.group(1)) + int(sp.group(2))) if sp else None,
+            spill_stores=int(sp.group(1)) if sp else None,
+            local_bytes=lay["local_bytes"],
+            warps_per_sm=lay["blocks_per_sm"] * lay["threads"] // 32,
+            smem_bytes_per_block=lay["smem_bytes"])
+    phase("K2 canopy_kernel registers, spills and resident warps an SM: "
           + json.dumps(regs))
     if len(regs) != 6:
         raise AssertionError(f"ptxas reported {len(regs)} of K2's 6 "
                              f"kernels: {report[-2000:]}")
+    return regs
+
+
+def k2_graph_replay(args) -> list:
+    """One K2 call captured in a CUDA graph and replayed: the fields that
+    differ from an eager call's on the same inputs (none expected)."""
+    import torch
+    from elmkernels_torch.ops import canopy
+    eager = canopy.canopy_stability(**args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        canopy.canopy_stability(**args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = canopy.canopy_stability(**args)
+    graph.replay()
+    torch.cuda.synchronize()
+    differing, _ = k2_compare(captured, eager)
+    del graph
+    return differing
+
+
+def k2_test_phase() -> dict:
+    """K2 against stability_iteration_plain on seeded inputs
+    (``ops.testing.canopy_problem``: bare columns, soybean, night leaves,
+    Newton steps over 1 K, Monin-Obukhov sign flips, columns held at the
+    cap) at K2_NCOL columns in each mode and type, cold and warm started,
+    bit for bit; on each, a second launch and a launch captured in a CUDA
+    graph and replayed equal to the first bit for bit, the lanes' use of
+    the launch (``canopy.counters``), K2's device ms a launch (CUDA
+    events) against its bound and the plain loop's wall ms (host clock to
+    a synchronize), in K2_PROFILED the plain loop's device ms
+    (torch.profiler); K2's registers, spills and resident warps
+    (:func:`k2_registers`)."""
+    import torch
+    from elmkernels_torch.ops import canopy, testing
+    from elmkernels_torch.physics.canopy_fluxes import \
+        stability_iteration_plain
+    regs = k2_registers()
     cases = []
     for dtype in (torch.float64, torch.float32):
         for mode in ("c3", "c4", "mixed"):
@@ -660,18 +715,26 @@ def k2_test_phase() -> dict:
                 args = testing.canopy_problem(K2_NCOL, K2_SEED, mode, dtype,
                                               warm, device="cuda")
                 got = canopy.canopy_stability(**args)
+                lanes = canopy.counters()
                 want = stability_iteration_plain(**args)
                 torch.cuda.synchronize()
                 differing, worst = k2_compare(got, want)
+                again, _ = k2_compare(canopy.canopy_stability(**args), got)
                 res = dict(mode=mode, dtype=str(dtype).replace("torch.", ""),
                            warm_start=warm, differing_fields=differing,
+                           relaunch_differing_fields=again,
+                           graph_differing_fields=k2_graph_replay(args),
                            max_abs=worst,
                            max_itlef=int(got.itlef.max()),
                            columns_at_the_cap=int((got.itlef == 41).sum()),
                            bare_columns=int((args["frac_veg_nosno"] == 0)
                                             .sum()),
                            passes=int(got.itlef.long().sum()),
-                           secant_iterations=int(got.psn_iters.long().sum()))
+                           secant_iterations=int(got.psn_iters.long().sum()),
+                           round_lane_use=lanes["round_lane_use"],
+                           eval_lane_use=lanes["eval_lane_use"],
+                           warp_rounds=lanes["warp_rounds"],
+                           warp_eval_steps=lanes["warp_eval_steps"])
                 res["ms"] = cuda_ms(lambda: canopy.canopy_stability(**args),
                                     K2_REPS)
                 t0 = time.perf_counter()
@@ -688,9 +751,10 @@ def k2_test_phase() -> dict:
                                    else "operations")
                 res["share_of_bound"] = res["bound_ms"] / res["ms"]
                 phase("K2 canopy_stability vs plain: " + json.dumps(res))
-                if differing:
+                if differing or again or res["graph_differing_fields"]:
                     raise AssertionError(f"canopy_stability differs from "
-                                         f"its plain version: {res}")
+                                         f"its plain version or from "
+                                         f"itself: {res}")
                 cases.append(res)
     if not all(c["columns_at_the_cap"] and c["bare_columns"]
                for c in cases):
@@ -804,14 +868,19 @@ def check_pdma(ncol: int, dtype=None):
 def entry_overhead(reps: int = 200) -> dict:
     """Host microseconds a call of each kernel's entry point through its
     autograd Function (what the step calls) against its wrapper alone, on
-    small inputs where the launch itself is short."""
+    small inputs where the launch itself is short; K2's wrapper
+    (``canopy_stability``) on the main path's layout (float32, "c3", 0-d
+    traits, warm started) at K2_HOST_NCOL columns."""
     import torch
-    from elmkernels_torch.ops import ci_solver, pdma, testing
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, testing
     x0, env, en = testing.ci_problem_tensors(1024, 3, "c3", torch.float32,
                                              "cuda")
     lhs, rhs = (torch.tensor(a, device="cuda")
                 for a in testing.pdma_problem(1024, 3))
-    calls = {"ci_hybrid_solve": lambda: ci_solver.ci_hybrid_solve(
+    k2 = testing.canopy_problem(K2_HOST_NCOL, 3, "c3", torch.float32, True,
+                                device="cuda")
+    calls = {"canopy_stability": lambda: canopy.canopy_stability(**k2),
+             "ci_hybrid_solve": lambda: ci_solver.ci_hybrid_solve(
                  x0, env, "c3", en),
              "CiSolve": lambda: ci_solver.solve(x0, env, "c3", en),
              "pdma_solve": lambda: pdma.pdma_solve(lhs, rhs),
@@ -3046,7 +3115,7 @@ def main() -> int:
     k2_test = k2_test_phase()
     k4 = check_pdma(262144)
     k4f = check_pdma(262144, torch.float32)
-    entry_overhead()
+    overhead = entry_overhead()
     lap("kernel checks")
 
     files = synthetic_files()
@@ -3150,6 +3219,16 @@ def main() -> int:
              library_ms=None, plain_device_ms=k2t["plain_device_ms"],
              plain_launches=k2t["plain_launches"],
              registers_and_spill_bytes=k2_test["registers"],
+             host_us_a_call=overhead["canopy_stability"],
+             host_ms_median_on_path=on_path["canopy_stability"][
+                 "host_ms_median"],
+             second_launch_and_graph_replay_bit_for_bit=not any(
+                 c["relaunch_differing_fields"] or c["graph_differing_fields"]
+                 for c in k2_test["cases"]),
+             test_lane_use=[[c["round_lane_use"], c["eval_lane_use"]]
+                            for c in k2_test["cases"]],
+             path_lane_use={label: [r["round_lane_use"], r["eval_lane_use"]]
+                            for label, r in K2_PATHS.items()},
              test_cases=[{k: c[k] for k in (
                  "mode", "dtype", "warm_start", "ms", "bound_ms",
                  "bound_by", "share_of_bound", "plain_wall_ms",

@@ -11,7 +11,7 @@
 // (elmkernels_tpu/driver/sensitivity.py:77-91).
 //
 // One thread per leaf runs that leaf's whole solve, solve_leaf (in
-// ci_leaf.cuh, shared with K2, the canopy stability loop): the sequence
+// ci_leaf.cuh, beside the resumable machine K1-T and K2 run): the sequence
 // the leaf follows in the masked batch loop, to its own end.  Compiled for
 // float and double; build with --fmad=false so the arithmetic is the plain
 // version's, operation by operation (a re-fused ci solve drifted ~1e-4
@@ -38,7 +38,8 @@
 // which left 0.26-0.28 of its lanes' evaluation slots used on its test
 // problems.
 // So K1-T runs solve_leaf's sequence as a resumable per-leaf machine, one
-// residual evaluation a step (leaf_begin, leaf_eval, below), on warps whose
+// residual evaluation a step (leaf_begin and leaf_after in ci_leaf.cuh,
+// shared with K2; leaf_eval below), on warps whose
 // lanes take a new leaf as soon as theirs ends (ci_jvp_kernel, below): the
 // env sits in shared memory and is read where ci_func uses it, and every
 // lane evaluates until the leaves run out.  The arithmetic is solve_leaf's,
@@ -143,215 +144,14 @@ HD Dual<R> minimum(Dual<R> a, Dual<R> b) {
 template <typename R>
 struct Real<Dual<R>> { using type = R; };
 
-constexpr int kLanes = 32;
-
-// A leaf's env read where it is used: references to its fields in a
-// [field][lane] array (shared memory in K1-T), so that ci_func loads each
-// field at its use instead of holding all 19 (38 values with tangents) in
-// registers.
-template <typename T>
-struct EnvRef {
-  const T &gb_mol, &je, &cair, &oair, &lmr_z, &par_z, &rh_can, &vcmax_z,
-      &forc_pbot, &cp, &kc, &ko, &tpu_z, &kp_z, &bbb, &qe, &theta_cj,
-      &mbbopt, &c3frac;
-};
-
+// K1-T's env: a leaf's 19 fields in a [field][lane] array in shared memory
+// (EnvRef, ci_leaf.cuh), read where ci_func uses them.
 template <typename T>
 HD EnvRef<T> env_ref(const T (*f)[kLanes], int lane) {
   return {f[0][lane],  f[1][lane],  f[2][lane],  f[3][lane],  f[4][lane],
           f[5][lane],  f[6][lane],  f[7][lane],  f[8][lane],  f[9][lane],
           f[10][lane], f[11][lane], f[12][lane], f[13][lane], f[14][lane],
           f[15][lane], f[16][lane], f[17][lane], f[18][lane]};
-}
-
-// ---- the tangent solve as a resumable per-leaf machine ---------------------
-//
-// K1-T runs solve_leaf's sequence for a leaf one residual evaluation at a
-// time, so that a lane can stop after any evaluation and take another
-// leaf: the same operations in the same order, split at each evaluation.
-// A leaf's state between evaluations is its iterates (Brent reuses the
-// secant's registers: a = x0, fa = f0, b = x1, fb = f1, c = mx, fc = mf),
-// Brent's step and tolerance, and the gs_mol of its last committed
-// evaluation; the other rates of that evaluation go to `rates` (ac, aj,
-// ap, ag, an, the caller's per-lane store) and are not carried.  Only
-// evaluations whose results solve_leaf keeps are made: none for a disabled
-// leaf, no second starting one after f(x0) = 0.
-
-enum { kStart0, kStart1, kSecant, kOver, kBrent };
-
-template <typename T>
-struct Leaf {
-  T x0, f0, x1, f1, mx, mf, d, ed, tol, gs;
-  int it, bit, state;
-};
-
-// The point of the leaf's next evaluation.
-template <typename T>
-HD T leaf_point(const Leaf<T>& s) {
-  return s.state == kStart0 ? s.x0 : (s.state == kOver ? s.mx : s.x1);
-}
-
-// Starts a leaf: true if it needs evaluations, false if it is done with
-// ci = xfin (a disabled leaf: x0, every rate and gs_mol 0, no iteration).
-template <typename T>
-HD bool leaf_begin(Leaf<T>& s, T xinit, bool en, T& xfin) {
-  xfin = xinit;
-  s = {xinit, T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0),
-       0, 0, kStart0};
-  return en;
-}
-
-// The secant loop's head: the next iterate, and true to evaluate it, or
-// false on convergence (xfin set).
-template <typename T>
-HD bool secant_head(Leaf<T>& s, T& xfin) {
-  using S = typename Real<T>::type;
-  const S eps = S(1.0e-2);
-  ++s.it;
-  const T den = s.f1 - s.f0;
-  const T dx = -s.f1 * (s.x1 - s.x0) / (den != S(0) ? den : T(1.0));
-  const T x = s.x1 + dx;
-  s.tol = tabs(x) * eps;
-  if (tabs(dx) < s.tol) {
-    xfin = x;
-    return false;
-  }
-  s.x0 = s.x1;
-  s.f0 = s.f1;
-  s.x1 = x;
-  s.state = kSecant;
-  return true;
-}
-
-// Brent's head (btol = the bracketing secant step's tol): the next point
-// b + step, and true to evaluate it, or false on convergence (xfin set).
-template <typename T>
-HD bool brent_head(Leaf<T>& s, T& xfin) {
-  using S = typename Real<T>::type;
-  const S two_eps_b = S(2.0 * 1.0e-2);
-  T &a = s.x0, &fa = s.f0, &b = s.x1, &fb = s.f1, &c = s.mx, &fc = s.mf;
-  if ((fb > S(0) && fc > S(0)) || (fb < S(0) && fc < S(0))) {
-    c = a; fc = fa; s.d = b - a; s.ed = b - a;
-  }
-  if (tabs(val(fc)) < tabs(val(fb))) {
-    a = b; b = c; c = a;
-    fa = fb; fb = fc; fc = fa;
-  }
-  const T tol1 = two_eps_b * tabs(b) + S(0.5) * s.tol;
-  const T xm = S(0.5) * (c - b);
-  if (tabs(val(xm)) <= val(tol1) || fb == S(0)) {
-    xfin = b;
-    return false;
-  }
-  const bool interp_ok =
-      tabs(val(s.ed)) >= val(tol1) && tabs(val(fa)) > tabs(val(fb));
-  const T sr = fb / (fa != S(0) ? fa : T(1.0));
-  const bool aeqc = a == c;
-  const T p1 = S(2.0) * xm * sr;
-  const T q1 = S(1.0) - sr;
-  const T fcs = (fc != S(0)) ? fc : T(1.0);
-  const T q2 = fa / fcs;
-  const T r2 = fb / fcs;
-  const T p2 = sr * (S(2.0) * xm * q2 * (q2 - r2) -
-                     (b - a) * (r2 - S(1.0)));
-  const T q2b = (q2 - S(1.0)) * (r2 - S(1.0)) * (sr - S(1.0));
-  T pp = aeqc ? p1 : p2;
-  T qq = aeqc ? q1 : q2b;
-  if (pp > S(0)) qq = -qq;
-  pp = tabs(pp);
-  const S vxm = val(xm), vqq = val(qq), vtol1 = val(tol1);
-  const bool accept =
-      interp_ok &&
-      (S(2.0) * val(pp) < nmin(S(3.0) * vxm * vqq - tabs(vtol1 * vqq),
-                               tabs(val(s.ed) * vqq)));
-  const T d_int = pp / (qq != S(0) ? qq : T(1.0));
-  const T d_next = accept ? d_int : xm;
-  const T e_next = accept ? s.d : xm;
-  const T signed_tol = (xm >= S(0)) ? tol1 : -tol1;
-  const T step = (tabs(val(d_next)) > val(tol1)) ? d_next : signed_tol;
-  // a takes b's place and b moves to the point evaluated next (fb is its
-  // residual, set after the evaluation)
-  a = b;
-  fa = fb;
-  b = b + step;
-  s.d = d_next;
-  s.ed = e_next;
-  s.state = kBrent;
-  return true;
-}
-
-// Applies the residual f of the evaluation at leaf_point(s): true if the
-// leaf evaluates again (at leaf_point(s)), false if it is done (xfin set).
-template <typename T>
-HD bool leaf_after(Leaf<T>& s, T f, T& xfin) {
-  using S = typename Real<T>::type;
-  const S eps1 = S(1.0e-4);
-  const int itmax = 40, itmax_b = 20;
-  switch (s.state) {
-    case kStart0:
-      s.f0 = f;
-      if (f == S(0)) {
-        xfin = s.x0;
-        return false;
-      }
-      s.mx = s.x0;
-      s.mf = f;
-      s.x1 = s.x0 * S(0.99);
-      s.state = kStart1;
-      return true;
-    case kStart1:
-      s.f1 = f;
-      if (f == S(0)) {
-        xfin = s.x1;
-        return false;
-      }
-      if (f < s.mf) {
-        s.mx = s.x1;
-        s.mf = f;
-      }
-      return secant_head(s, xfin);
-    case kSecant:
-      s.f1 = f;
-      if (f < s.mf) {
-        s.mx = s.x1;
-        s.mf = f;
-      }
-      if (tabs(f) <= eps1) {
-        xfin = s.x1;
-        return false;
-      }
-      if (val(f) * val(s.f0) < S(0)) {
-        // bracketed: Brent from a = x0, b = c = x1
-        s.mx = s.x1;
-        s.mf = f;
-        s.d = T(0);
-        s.ed = T(0);
-        s.bit = 0;
-        return brent_head(s, xfin);
-      }
-      if (s.it > itmax) {
-        // reference: on iteration overflow, x0 keeps the post-shift value;
-        // one more evaluation at the minimum-f point (line 615)
-        s.state = kOver;
-        return true;
-      }
-      return secant_head(s, xfin);
-    case kOver:
-      xfin = s.x0;
-      return false;
-    default:  // kBrent
-      s.f1 = f;
-      if (f == S(0)) {
-        xfin = s.x1;
-        return false;
-      }
-      // leaves that exhaust Brent's ITMAX end at x = b (line 510)
-      if (++s.bit == itmax_b) {
-        xfin = s.x1;
-        return false;
-      }
-      return brent_head(s, xfin);
-  }
 }
 
 // One step of the machine: the residual at leaf_point(s) with the leaf's

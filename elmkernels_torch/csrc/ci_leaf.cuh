@@ -1,6 +1,8 @@
 // The per-leaf intracellular CO2 (ci) root solve shared by the kernels that
 // run it: K1 and K1-T (ci_hybrid_solve.cu) and K2 (canopy_stability.cu),
-// which inlines it in the canopy stability loop.
+// which inlines it in the canopy stability loop.  solve_leaf runs a leaf
+// to its end (K1); leaf_begin/leaf_after, below, run the same sequence one
+// evaluation at a time (K1-T, K2).
 //
 // solve_leaf runs the sequence one leaf follows in the masked batch loop
 // of physics/photosynthesis.py:hybrid_solve_plain, to its own end: the
@@ -282,6 +284,210 @@ HD T solve_leaf(const Env<T>& e, T xinit, bool en, Out<T>& out, int& iters) {
   }
   iters = it;
   return xfin;
+}
+
+constexpr int kLanes = 32;
+
+// A leaf's env read where it is used: references to its fields (in shared
+// memory, or device memory, in K1-T and K2), so that ci_func loads each
+// field at its use instead of holding all 19 (38 values with tangents) in
+// registers.
+template <typename T>
+struct EnvRef {
+  const T &gb_mol, &je, &cair, &oair, &lmr_z, &par_z, &rh_can, &vcmax_z,
+      &forc_pbot, &cp, &kc, &ko, &tpu_z, &kp_z, &bbb, &qe, &theta_cj,
+      &mbbopt, &c3frac;
+};
+
+// ---- the solve as a resumable per-leaf machine -----------------------------
+//
+// K1-T (on duals) and K2 (on float and double) run solve_leaf's sequence
+// for a leaf one residual evaluation at a time, so that a lane can stop
+// after any evaluation and take another leaf or column: the same
+// operations in the same order, split at each evaluation.
+// A leaf's state between evaluations is its iterates (Brent reuses the
+// secant's registers: a = x0, fa = f0, b = x1, fb = f1, c = mx, fc = mf),
+// Brent's step and tolerance, and the gs_mol of its last committed
+// evaluation; the other rates of that evaluation are the caller's to keep
+// (K1-T's leaf_eval stores them; K2 keeps an) and are not carried.  Only
+// evaluations whose results solve_leaf keeps are made: none for a disabled
+// leaf, no second starting one after f(x0) = 0.
+
+enum { kStart0, kStart1, kSecant, kOver, kBrent };
+
+template <typename T>
+struct Leaf {
+  T x0, f0, x1, f1, mx, mf, d, ed, tol, gs;
+  int it, bit, state;
+};
+
+// The point of the leaf's next evaluation.
+template <typename T>
+HD T leaf_point(const Leaf<T>& s) {
+  return s.state == kStart0 ? s.x0 : (s.state == kOver ? s.mx : s.x1);
+}
+
+// Starts a leaf: true if it needs evaluations, false if it is done with
+// ci = xfin (a disabled leaf: x0, every rate and gs_mol 0, no iteration).
+template <typename T>
+HD bool leaf_begin(Leaf<T>& s, T xinit, bool en, T& xfin) {
+  xfin = xinit;
+  s = {xinit, T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0), T(0),
+       0, 0, kStart0};
+  return en;
+}
+
+// The secant loop's head: the next iterate, and true to evaluate it, or
+// false on convergence (xfin set).
+template <typename T>
+HD bool secant_head(Leaf<T>& s, T& xfin) {
+  using S = typename Real<T>::type;
+  const S eps = S(1.0e-2);
+  ++s.it;
+  const T den = s.f1 - s.f0;
+  const T dx = -s.f1 * (s.x1 - s.x0) / (den != S(0) ? den : T(1.0));
+  const T x = s.x1 + dx;
+  s.tol = tabs(x) * eps;
+  if (tabs(dx) < s.tol) {
+    xfin = x;
+    return false;
+  }
+  s.x0 = s.x1;
+  s.f0 = s.f1;
+  s.x1 = x;
+  s.state = kSecant;
+  return true;
+}
+
+// Brent's head (btol = the bracketing secant step's tol): the next point
+// b + step, and true to evaluate it, or false on convergence (xfin set).
+template <typename T>
+HD bool brent_head(Leaf<T>& s, T& xfin) {
+  using S = typename Real<T>::type;
+  const S two_eps_b = S(2.0 * 1.0e-2);
+  T &a = s.x0, &fa = s.f0, &b = s.x1, &fb = s.f1, &c = s.mx, &fc = s.mf;
+  if ((fb > S(0) && fc > S(0)) || (fb < S(0) && fc < S(0))) {
+    c = a; fc = fa; s.d = b - a; s.ed = b - a;
+  }
+  if (tabs(val(fc)) < tabs(val(fb))) {
+    a = b; b = c; c = a;
+    fa = fb; fb = fc; fc = fa;
+  }
+  const T tol1 = two_eps_b * tabs(b) + S(0.5) * s.tol;
+  const T xm = S(0.5) * (c - b);
+  if (tabs(val(xm)) <= val(tol1) || fb == S(0)) {
+    xfin = b;
+    return false;
+  }
+  const bool interp_ok =
+      tabs(val(s.ed)) >= val(tol1) && tabs(val(fa)) > tabs(val(fb));
+  const T sr = fb / (fa != S(0) ? fa : T(1.0));
+  const bool aeqc = a == c;
+  const T p1 = S(2.0) * xm * sr;
+  const T q1 = S(1.0) - sr;
+  const T fcs = (fc != S(0)) ? fc : T(1.0);
+  const T q2 = fa / fcs;
+  const T r2 = fb / fcs;
+  const T p2 = sr * (S(2.0) * xm * q2 * (q2 - r2) -
+                     (b - a) * (r2 - S(1.0)));
+  const T q2b = (q2 - S(1.0)) * (r2 - S(1.0)) * (sr - S(1.0));
+  T pp = aeqc ? p1 : p2;
+  T qq = aeqc ? q1 : q2b;
+  if (pp > S(0)) qq = -qq;
+  pp = tabs(pp);
+  const S vxm = val(xm), vqq = val(qq), vtol1 = val(tol1);
+  const bool accept =
+      interp_ok &&
+      (S(2.0) * val(pp) < nmin(S(3.0) * vxm * vqq - tabs(vtol1 * vqq),
+                               tabs(val(s.ed) * vqq)));
+  const T d_int = pp / (qq != S(0) ? qq : T(1.0));
+  const T d_next = accept ? d_int : xm;
+  const T e_next = accept ? s.d : xm;
+  const T signed_tol = (xm >= S(0)) ? tol1 : -tol1;
+  const T step = (tabs(val(d_next)) > val(tol1)) ? d_next : signed_tol;
+  // a takes b's place and b moves to the point evaluated next (fb is its
+  // residual, set after the evaluation)
+  a = b;
+  fa = fb;
+  b = b + step;
+  s.d = d_next;
+  s.ed = e_next;
+  s.state = kBrent;
+  return true;
+}
+
+// Applies the residual f of the evaluation at leaf_point(s): true if the
+// leaf evaluates again (at leaf_point(s)), false if it is done (xfin set).
+template <typename T>
+HD bool leaf_after(Leaf<T>& s, T f, T& xfin) {
+  using S = typename Real<T>::type;
+  const S eps1 = S(1.0e-4);
+  const int itmax = 40, itmax_b = 20;
+  switch (s.state) {
+    case kStart0:
+      s.f0 = f;
+      if (f == S(0)) {
+        xfin = s.x0;
+        return false;
+      }
+      s.mx = s.x0;
+      s.mf = f;
+      s.x1 = s.x0 * S(0.99);
+      s.state = kStart1;
+      return true;
+    case kStart1:
+      s.f1 = f;
+      if (f == S(0)) {
+        xfin = s.x1;
+        return false;
+      }
+      if (f < s.mf) {
+        s.mx = s.x1;
+        s.mf = f;
+      }
+      return secant_head(s, xfin);
+    case kSecant:
+      s.f1 = f;
+      if (f < s.mf) {
+        s.mx = s.x1;
+        s.mf = f;
+      }
+      if (tabs(f) <= eps1) {
+        xfin = s.x1;
+        return false;
+      }
+      if (val(f) * val(s.f0) < S(0)) {
+        // bracketed: Brent from a = x0, b = c = x1
+        s.mx = s.x1;
+        s.mf = f;
+        s.d = T(0);
+        s.ed = T(0);
+        s.bit = 0;
+        return brent_head(s, xfin);
+      }
+      if (s.it > itmax) {
+        // reference: on iteration overflow, x0 keeps the post-shift value;
+        // one more evaluation at the minimum-f point (line 615)
+        s.state = kOver;
+        return true;
+      }
+      return secant_head(s, xfin);
+    case kOver:
+      xfin = s.x0;
+      return false;
+    default:  // kBrent
+      s.f1 = f;
+      if (f == S(0)) {
+        xfin = s.x1;
+        return false;
+      }
+      // leaves that exhaust Brent's ITMAX end at x = b (line 510)
+      if (++s.bit == itmax_b) {
+        xfin = s.x1;
+        return false;
+      }
+      return brent_head(s, xfin);
+  }
 }
 
 }  // namespace

@@ -13,7 +13,14 @@ through the same argument layout as on the card
   in the three photosynthesis modes, float64 and float32, cold and warm
   started;
 
-and the routing of ``physics.canopy_fluxes.stability_iteration``.
+and K2's schedule: its resumable per-column machine (``column_begin``,
+``pass_head``, ``leaf_step``, ``pass_tail``) driven on a simulated 32-lane
+warp whose lanes take columns in a seeded random order as theirs stop and
+advance in a seeded random interleaving, bit for bit against the same
+machine run one column at a time, and against the plain loop, at 2,000 and
+4,000 columns and at 0, 1, 31 and 33; the wrapper's layout (no copies: a
+0-d trait goes with a stride of 0); and the routing of
+``physics.canopy_fluxes.stability_iteration``.
 
 Tolerance.  float64: the golden tolerance (``torch_parity.RTOL``/``ATOL``,
 rtol 1e-10 with a 1e-12 floor), with equal iteration counts (``itlef``,
@@ -26,6 +33,7 @@ its field (measured: 1.4e-3 at most).  Skips where no ``g++`` is installed.
 """
 
 import ctypes
+import functools
 import inspect
 import pathlib
 import shutil
@@ -47,38 +55,91 @@ torch.set_num_threads(1)
 SOURCE = (pathlib.Path(__file__).resolve().parent.parent / "elmkernels_torch"
           / "csrc" / "canopy_stability.cu")
 MODES = {"c3": 0, "c4": 1, "mixed": 2}
-N = 2000
+N, N32 = 2000, 4000
 
-# every column through canopy_column, on doubles and on floats; and the
-# kernel's layout sizes, for holding them against the wrapper's
+# K2's machine (column_begin, pass_head, leaf_step, pass_tail) on doubles
+# and on floats: one column at a time, each to its end, in lane 0 of a
+# warp's slots; and on a simulated 32-lane warp whose lanes take the
+# columns of `order` as theirs stop and advance by one phase (a pass's
+# head, one ci evaluation, its tail) or wait, by a seeded coin, at each
+# tick.  And the kernel's layout sizes, for holding them against the
+# wrapper's.
 HARNESS = r"""
 #include "SOURCE"
-template <typename T>
-static void run(int mode, long long n, const void* const* in,
-                const void* const* traits, const void* t_soisno, int nlevtot,
-                int nlevsno, const void* snl, const void* soybean,
-                const void* ci_prev, int warm_start, double dtime,
-                const double* consts, void* const* out, void* itlef,
-                void* ci, void* psn_iters) {
-  const Args<T> A = make_args<T>(n, in, traits, t_soisno, nlevtot, nlevsno,
-                                 snl, soybean, ci_prev, warm_start, dtime,
-                                 consts, out, itlef, ci, psn_iters);
-  for (long long i = 0; i < n; ++i) {
-    if (mode == kC3) canopy_column<T, kC3>(A, i);
-    if (mode == kC4) canopy_column<T, kC4>(A, i);
-    if (mode == kMixed) canopy_column<T, kMixed>(A, i);
+template <typename T, int M>
+static void in_order(const Args<T>& A) {
+  static Lanes<T> L;
+  const Lane<T> S{L, 0};
+  for (long long i = 0; i < A.n; ++i) {
+    const Column<T> C{A, i};
+    if (!column_begin<T, M>(C, S)) continue;
+    do {
+      Solve<T> sv;
+      pass_head<T, M>(C, S, sv);
+      while (sv.leaf < 2) leaf_step<T, M>(C, S, sv);
+    } while (!pass_tail<T, M>(C, S));
   }
 }
+template <typename T, int M>
+static void warp(const Args<T>& A, const long long* order, unsigned seed) {
+  static Lanes<T> L;
+  Solve<T> sv[kLanes];
+  long long col[kLanes];
+  int phase[kLanes] = {};  // 0 no column, 1 head next, 2 evaluating, 3 tail
+  long long next = 0;
+  unsigned r = seed | 1u;
+  for (;;) {
+    bool any = false;
+    for (int l = 0; l < kLanes; ++l) {
+      const Lane<T> S{L, l};
+      while (phase[l] == 0 && next < A.n) {
+        col[l] = order[next++];
+        if (column_begin<T, M>(Column<T>{A, col[l]}, S)) phase[l] = 1;
+      }
+      if (phase[l] == 0) continue;
+      any = true;
+      r ^= r << 13;
+      r ^= r >> 17;
+      r ^= r << 5;
+      if (r & 1u) continue;
+      const Column<T> C{A, col[l]};
+      if (phase[l] == 1) {
+        pass_head<T, M>(C, S, sv[l]);
+        phase[l] = sv[l].leaf < 2 ? 2 : 3;
+      } else if (phase[l] == 2) {
+        leaf_step<T, M>(C, S, sv[l]);
+        if (sv[l].leaf == 2) phase[l] = 3;
+      } else {
+        phase[l] = pass_tail<T, M>(C, S) ? 0 : 1;
+      }
+    }
+    if (!any) break;
+  }
+}
+#define PARAMS                                                              \
+  long long n, const void* const* in, const long long* in_stride,          \
+      const void* const* traits, const long long* trait_stride,            \
+      const void *t_soisno, int nlevtot, int nlevsno, const void *snl,     \
+      const void *soybean, long long soybean_stride, const void *ci_prev,  \
+      int warm_start, double dtime, const double *consts,                  \
+      void *const *out, void *itlef, void *ci, void *psn_iters
+#define ARGS(T)                                                             \
+  make_args<T>(n, in, in_stride, traits, trait_stride, t_soisno, nlevtot,  \
+               nlevsno, snl, soybean, soybean_stride, ci_prev, warm_start, \
+               dtime, consts, out, itlef, ci, psn_iters)
 #define ENTRY(NAME, T)                                                      \
-  extern "C" void NAME(int mode, long long n, const void* const* in,       \
-                       const void* const* traits, const void* t_soisno,    \
-                       int nlevtot, int nlevsno, const void* snl,          \
-                       const void* soybean, const void* ci_prev,           \
-                       int warm_start, double dtime, const double* consts, \
-                       void* const* out, void* itlef, void* ci,            \
-                       void* psn_iters) {                                  \
-    run<T>(mode, n, in, traits, t_soisno, nlevtot, nlevsno, snl, soybean,  \
-           ci_prev, warm_start, dtime, consts, out, itlef, ci, psn_iters); \
+  extern "C" void NAME(int mode, PARAMS) {                                 \
+    const Args<T> A = ARGS(T);                                             \
+    if (mode == kC3) in_order<T, kC3>(A);                                  \
+    if (mode == kC4) in_order<T, kC4>(A);                                  \
+    if (mode == kMixed) in_order<T, kMixed>(A);                            \
+  }                                                                        \
+  extern "C" void NAME##_warp(int mode, const long long* order,            \
+                              unsigned seed, PARAMS) {                     \
+    const Args<T> A = ARGS(T);                                             \
+    if (mode == kC3) warp<T, kC3>(A, order, seed);                         \
+    if (mode == kC4) warp<T, kC4>(A, order, seed);                         \
+    if (mode == kMixed) warp<T, kMixed>(A, order, seed);                   \
   }
 ENTRY(canopy_host_f64, double)
 ENTRY(canopy_host_f32, float)
@@ -102,18 +163,32 @@ def host_lib(tmp_path_factory):
                     "-fPIC", "-o", str(d / "libharness.so"),
                     str(d / "harness.cpp")], check=True, timeout=300)
     lib = ctypes.CDLL(str(d / "libharness.so"))
-    lib.canopy_host_f64.restype = lib.canopy_host_f32.restype = None
+    # the launch functions' parameters without the counters and the stream
+    params = canopy.ARGTYPES[:-2]
+    for name in ("canopy_host_f64", "canopy_host_f32"):
+        getattr(lib, name).argtypes = params
+        getattr(lib, name + "_warp").argtypes = [
+            params[0], ctypes.c_void_p, ctypes.c_uint, *params[1:]]
+        getattr(lib, name).restype = getattr(lib, name + "_warp").restype = \
+            None
     lib.layout.restype = None
     return lib
 
 
-def _host(lib, args: dict) -> tcf.StabilityOut:
-    """K2's host build on ``stability_iteration``'s arguments."""
+def _host(lib, args: dict, order=None, seed=0) -> tcf.StabilityOut:
+    """K2's host build on ``stability_iteration``'s arguments: one column
+    at a time, or, given ``order`` (a permutation of the columns), on the
+    simulated warp."""
     k = canopy.kernel_inputs(args)
     outs = k.outputs()
-    fn = (lib.canopy_host_f64 if k.dtype == torch.float64
-          else lib.canopy_host_f32)
-    fn(ctypes.c_int(MODES[k.mode]), *k.pointers(*outs))
+    name = ("canopy_host_f64" if k.dtype == torch.float64
+            else "canopy_host_f32")
+    if order is None:
+        getattr(lib, name)(MODES[k.mode], *k.pointers(*outs))
+    else:
+        order = torch.as_tensor(order, dtype=torch.int64).contiguous()
+        getattr(lib, name + "_warp")(MODES[k.mode], order.data_ptr(), seed,
+                                     *k.pointers(*outs))
     return k.result(*outs)
 
 
@@ -124,6 +199,10 @@ def _assert_counts_equal(got, want):
 
 
 def test_layout_matches_the_wrapper(host_lib):
+    """The kernel's sizes are the wrapper's, and the wrapper hands the
+    inputs over without copies: a 0-d trait as itself with a stride of 0,
+    layer 0 of a canopy-layer input as a view with the row's stride (read
+    as the same values as a one-layer copy), a [ncol] input as itself."""
     out = (ctypes.c_int * 4)()
     host_lib.layout(out)
     assert list(out) == [len(canopy.IN_FIELDS),
@@ -131,6 +210,30 @@ def test_layout_matches_the_wrapper(host_lib):
                          len(canopy.OUT_FIELDS), len(canopy.CONSTS)]
     assert set(canopy.OUT_FIELDS) | {"itlef", "ci", "psn_iters"} == set(
         tcf.StabilityOut._fields)
+    args = _problem("c3", torch.float64, True, n=64)
+    # three canopy layers, of which the loop reads the first
+    for name in canopy._LAYERED:
+        v = args[name]
+        args[name] = torch.cat([v, v * 0.5, v * 0.25], 1)
+    k = canopy.kernel_inputs(args)
+    nin = len(canopy.IN_FIELDS)
+    assert len(k.strides) == nin + len(k.traits)
+    for t, v, stride in zip(k.traits, args["p"], k.strides[nin:]):
+        assert v.ndim == 0 and t.data_ptr() == v.data_ptr() and stride == 0
+    for name, t, stride in zip(canopy.IN_FIELDS, k.fields, k.strides):
+        if name == "fveg":
+            continue
+        v = args[name]
+        assert t.data_ptr() == v.data_ptr(), name
+        assert stride == v.stride(0), name
+        if name in canopy._LAYERED:
+            assert v.shape[1] == 3 and stride == 3, name
+    assert k.soybean.data_ptr() == args["soybean"].data_ptr()
+    assert k.ci_prev.data_ptr() == args["ci_prev"].data_ptr()
+    one_layer = {name: args[name][:, :1].contiguous()
+                 for name in canopy._LAYERED}
+    _assert_same(_host(host_lib, args),
+                 _host(host_lib, dict(args, **one_layer)))
 
 
 @pytest.fixture(scope="module")
@@ -196,12 +299,19 @@ def _problem(mode, dtype, warm, seed=5, n=N):
     return testing.canopy_problem(n, seed, mode, dtype, warm)
 
 
+@functools.lru_cache(maxsize=None)
+def _plain(mode, dtype, warm, n):
+    """A seeded problem and the plain loop's result on it (shared by the
+    tests; neither is modified)."""
+    args = _problem(mode, dtype, warm, n=n)
+    return args, tcf.stability_iteration_plain(**args)
+
+
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_host_build_matches_plain_f64(host_lib, mode, warm):
-    args = _problem(mode, torch.float64, warm)
+    args, want = _plain(mode, torch.float64, warm, N)
     got = _host(host_lib, args)
-    want = tcf.stability_iteration_plain(**args)
     _assert_counts_equal(got, want)
     tp.assert_close(tp.nt_numpy(want), tp.nt_numpy(got),
                     path=f"{mode} host K2 vs plain")
@@ -220,9 +330,15 @@ def test_host_build_matches_plain_f64(host_lib, mode, warm):
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 @pytest.mark.parametrize("mode", sorted(MODES))
 def test_host_build_matches_plain_f32(host_lib, mode, warm):
-    args = _problem(mode, torch.float32, warm, n=4000)
-    got = _host(host_lib, args)
-    want = tcf.stability_iteration_plain(**args)
+    args, want = _plain(mode, torch.float32, warm, N32)
+    _assert_f32_close(_host(host_lib, args), want, args)
+
+
+def _assert_f32_close(got, want, args):
+    """The module docstring's float32 tolerance: equal counts on at least
+    98 % of the vegetated columns and on every bare one; on those columns
+    every output and the ci carry within 5e-3 of the largest magnitude of
+    its field, NaNs in the same places."""
     n = args["t_grnd"].shape[0]
     veg = args["frac_veg_nosno"] != 0
     same = ((got.itlef == want.itlef) & (got.psn_iters[:n] ==
@@ -242,6 +358,117 @@ def test_host_build_matches_plain_f32(host_lib, mode, warm):
     fin = torch.isfinite(b)
     assert float((a[fin] - b[fin]).abs().max()) <= 5e-3 * float(
         b[fin].abs().max())
+
+
+def _assert_same(got, want):
+    """Bit for bit: every field, NaNs in the same places."""
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        if a.is_floating_point():
+            assert torch.equal(torch.isnan(a), torch.isnan(b)), f
+            a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        assert torch.equal(a, b), f
+
+
+def _assert_plain(got, want, args):
+    """Against the plain loop: rtol 1e-10 with equal counts in float64,
+    the float32 tolerance in float32."""
+    if got.t_veg.dtype == torch.float64:
+        _assert_counts_equal(got, want)
+        tp.assert_close(tp.nt_numpy(want), tp.nt_numpy(got),
+                        path="host K2 vs plain")
+    else:
+        _assert_f32_close(got, want, args)
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_refilling_warp_matches_plain(host_lib, mode, dtype, warm):
+    """K2's schedule on the host: 32 lanes take the columns in a seeded
+    random order as each lane's column stops, and advance in a seeded
+    random interleaving (a pass's head, one ci evaluation, its tail);
+    every column equals the one-column-at-a-time run bit for bit, and the
+    plain loop at the stated tolerance.  The problem mixes columns at the
+    41-pass cap with columns done in 4 passes (the fewest: the latent heat
+    test starts at the third pass), bare and soybean ones."""
+    n = N if dtype == torch.float64 else N32
+    args, want = _plain(mode, dtype, warm, n)
+    order = np.random.default_rng(37).permutation(n)
+    got = _host(host_lib, args, order, seed=41)
+    _assert_same(got, _host(host_lib, args))
+    _assert_plain(got, want, args)
+    veg = args["frac_veg_nosno"] != 0
+    assert bool((got.itlef == 41).any())
+    assert bool((got.itlef[veg] == 4).any())
+    assert bool((~veg).any()) and bool((args["soybean"] & veg).any())
+
+
+def _take(args, idx):
+    """``stability_iteration``'s arguments for the columns ``idx`` of a
+    problem: each [ncol] (or [ncol, k]) tensor and per-column trait
+    indexed, the ci carry's two halves indexed."""
+    n = args["t_grnd"].shape[0]
+    idx = torch.as_tensor(idx, dtype=torch.int64)
+
+    def take(v):
+        if isinstance(v, torch.Tensor) and v.ndim and v.shape[0] == n:
+            return v[idx]
+        return v
+    out = {k: take(v) for k, v in args.items()}
+    out["p"] = type(args["p"])(*(take(t) for t in args["p"]))
+    if args.get("ci_prev") is not None:
+        ci = args["ci_prev"]
+        out["ci_prev"] = torch.cat([ci[:n][idx], ci[n:][idx]])
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("n", [0, 1, 31, 33])
+def test_refilling_warp_edges(host_lib, n, mode, dtype):
+    """Batches of fewer than a warp's 32 columns, or not a multiple of
+    32, cold and warm started: the first columns a capped one, one done in
+    4 passes, a bare one and a soybean one, then the problem's next.  The
+    simulated warp equals the one-column-at-a-time run bit for bit, and
+    both equal the same columns of the whole problem's run (the columns
+    are independent); in float64 they equal the plain loop on the batch
+    at rtol 1e-10 with equal counts."""
+    nfull = N if dtype == torch.float64 else N32
+    for warm in (False, True):
+        args, _ = _plain(mode, dtype, warm, nfull)
+        full = _host(host_lib, args)
+        veg = args["frac_veg_nosno"] != 0
+        kinds = (full.itlef == 41, veg & (full.itlef == 4), ~veg,
+                 args["soybean"] & veg)
+        first = [int(torch.nonzero(k)[0]) for k in kinds]
+        idx = (first + [i for i in range(nfull) if i not in first])[:n]
+        sub = _take(args, idx)
+        got = _host(host_lib, sub, np.random.default_rng(n).permutation(n),
+                    seed=43 + n)
+        alone = _host(host_lib, sub)
+        _assert_same(got, alone)
+        assert got.itlef.shape == (n,) and got.ci.shape == (2 * n,)
+        _assert_same(got, _take_out(full, idx))
+        if dtype == torch.float64 and n:
+            _assert_counts_equal(got, tcf.stability_iteration_plain(**sub))
+            tp.assert_close(tp.nt_numpy(tcf.stability_iteration_plain(
+                **sub)), tp.nt_numpy(got), path=f"n={n} host K2 vs plain")
+
+
+def _take_out(out, idx):
+    """The columns ``idx`` of a ``StabilityOut``."""
+    n = out.t_veg.shape[0]
+    idx = torch.as_tensor(idx, dtype=torch.int64)
+    vals = {f: getattr(out, f)[idx] for f in out._fields
+            if f not in ("ci", "psn_iters")}
+    return type(out)(**vals, ci=torch.cat([out.ci[:n][idx],
+                                           out.ci[n:][idx]]),
+                     psn_iters=torch.cat([out.psn_iters[:n][idx],
+                                          out.psn_iters[n:][idx]]))
 
 
 def test_routing(monkeypatch):

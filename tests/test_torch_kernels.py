@@ -274,21 +274,48 @@ def _same(a, b) -> bool:
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [N, 4001, 31, 1])
 @pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("mode", ["c3", "c4", "mixed"])
-def test_canopy_kernel_matches_plain(card, mode, dtype, warm):
+def test_canopy_kernel_matches_plain(card, mode, dtype, warm, n):
     """K2 against the plain loop at atol 0: every output, the iteration
-    counts and the ci carry, NaNs in the same places."""
+    counts and the ci carry, NaNs in the same places; at a multiple of the
+    warp's 32 columns, past one and below one; and a second launch on the
+    same inputs equal to the first bit for bit."""
     from elmkernels_torch.ops import canopy
     from elmkernels_torch.physics import canopy_fluxes as tcf
-    args = testing.canopy_problem(N, 13, mode, dtype, warm, device=card)
+    args = testing.canopy_problem(n, 13, mode, dtype, warm, device=card)
     got = canopy.canopy_stability(**args)
+    again = canopy.canopy_stability(**args)
     want = tcf.stability_iteration_plain(**args)
     for f in got._fields:
         a, b = getattr(got, f), getattr(want, f)
         assert a.dtype == b.dtype, f
         assert _same(a, b), f
+        assert _same(a, getattr(again, f)), f
+
+
+@pytest.mark.cuda
+def test_canopy_kernel_on_two_streams(card):
+    """Two K2 launches that may overlap, one on each of two streams: each
+    claims its chunks from its own counters, so both are bit for bit with
+    the plain loop."""
+    from elmkernels_torch.ops import canopy
+    from elmkernels_torch.physics import canopy_fluxes as tcf
+    probs = [testing.canopy_problem(65536, seed, "mixed", torch.float64,
+                                    False, device=card) for seed in (13, 19)]
+    streams = [torch.cuda.Stream(card) for _ in probs]
+    torch.cuda.synchronize(card)
+    got = []
+    for args, stream in zip(probs, streams):
+        with torch.cuda.stream(stream):
+            got.append(canopy.canopy_stability(**args))
+    torch.cuda.synchronize(card)
+    for args, out in zip(probs, got):
+        want = tcf.stability_iteration_plain(**args)
+        for f in out._fields:
+            assert _same(getattr(out, f), getattr(want, f)), f
 
 
 @pytest.mark.cuda
