@@ -3,7 +3,13 @@
 
     python3 chip_smoke.py
 
-From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
+From the root of a checkout, on a machine with a CUDA card and ``nvcc``.
+Every model below replays its step captured as a CUDA graph
+(``elmkernels_torch/driver/graphs.py``), as the loops do on a card by
+default, and prints each capture's seconds and graph pool bytes; the
+timers (:class:`MainPathTimes`) run the eager step under
+``disable_graphs()``, and each replayed path is held bit for bit against
+an eager run of the same steps:
 
 1. prints the card and its power limit;
 2. builds the CUDA kernels from ``elmkernels_torch/csrc`` (one ``nvcc``
@@ -38,16 +44,20 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    to 262,145 and on views off 16-byte alignment, and times each, its
    plain version and ``torch.linalg.solve`` at [262144, 21, 5];
 5. drives the main path: ``Model(ncol=262144)`` with the production flags
-   through half a summer day (24 steps) with no timer installed, for ms/step,
-   columns/s, the conservation contracts and each kernel's launches: K2
-   once a step, K4, and no K1 (K2 inlines it); then 12 steps around noon
+   through half a summer day (24 steps) with no timer installed, replayed
+   and eager in turns (three pairs, each from a fresh model, every final
+   state bit for bit), for ms/step after the first two steps (the eager
+   first step and the capture), columns/s, the conservation contracts and
+   each kernel's launches: K2 once a step, K4, and no K1 (K2 inlines it);
+   then 12 steps around noon
    again with each launch timed by CUDA events on the main path's own
    inputs (:class:`MainPathTimes`), K2's first calls held against the
    plain loop bit for bit; then the same model in float32
    (``dtype=torch.float32``) 12 steps at noon, each K2 and
    ``pdma_solve_f32`` launch timed and their first calls held against the
    plain versions bit for bit (errsol and errlon under 1e-3, as
-   ``tests/test_f32_drift.py``);
+   ``tests/test_f32_drift.py``), and its twin replayed over the same
+   steps to the same state bit for bit;
 6. drives ``Model(ncol=8192)`` through 700 January steps, long enough for
    the synthetic forcing to build snow layers (they form after ~550), then
    48 steps further twice from that state: as before (the reference's
@@ -69,17 +79,21 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
 8. loops, bit for bit: the heterogeneous global grid at 8,192 columns
    (``Model.from_surfdata`` with month-per-file NetCDF forcing, phenology
    and aerosol deposition, all written by ``elmkernels_torch.data.
-   synthetic``), 12 steps from one cold start by ``run``, ``run_scan``,
-   ``run_scan_series`` and ``run_windows(series=True, window=6)``: every
-   state field equal at atol 0, each loop's per-step diagnostics equal to
-   the reductions of ``run``'s, and K2 run only in "mixed" mode;
+   synthetic``), 12 steps from one cold start by the eager ``run``, then
+   replayed by ``run``, ``run_scan``, ``run_scan_series`` and
+   ``run_windows(series=True, window=6)``, each with and without the
+   packed carry: every state field equal at atol 0, each loop's per-step
+   diagnostics equal to the reductions of the eager run's, one capture and
+   a replay every later step, and K2 run only in "mixed" mode;
    then the same ``run_windows`` split over ranks, each a subprocess of
    this script (``--shard-rank``): two ranks sharing the card on a gloo
    group, their state carry packed, then one rank on an NCCL group; every
    rank's block must equal
    the unsharded final state bit for bit on every field and its global
    diagnostics the unsharded reductions (maxima exactly, means to rtol
-   1e-12), with K2 and K4 launched (and timed) on every rank and their
+   1e-12), each rank replaying its own captured step and equal bit for
+   bit to its eager run, with K2 and K4 launched (and, in the eager run,
+   timed) on every rank and their
    first calls held against their plain versions; each of the three
    device loops again with the packed carry (``Model(packed_carry=True)``),
    equal to ``run`` bit for bit (state and diagnostics), its ms/step beside
@@ -90,7 +104,9 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    nsteps=48, window=24, series=True)`` with no timer installed (ms/step,
    columns/s, contracts, launches), the same 48 steps by ``run`` from a
    fresh model (the same state bit for bit, and its ms/step in the same
-   call), then one 12-step window around noon under
+   call), the same 48 steps of ``run_windows`` eagerly from a fresh model
+   (the same state bit for bit; ms/step and the second window's beside
+   the replayed run's), then one 12-step window around noon under
    :class:`MainPathTimes`, whose first K2 calls (float32, "mixed",
    per-column traits) and first pentadiagonal solves are then held
    against their plain versions on the same inputs (K4's also on the main
@@ -102,8 +118,9 @@ From the root of a checkout, on a machine with a CUDA card and ``nvcc``:
    synthetic ``snicar_drdt`` tables, ``run_windows(series=True,
    window=24)``, 48 steps from 1985-01-01 (ms/step, columns/s, contracts,
    columns and mean ``t_grnd`` per class, snow layers and aged radii,
-   launches), then one timed 12-step window whose kept K2 and K4 calls
-   are held against their plain versions;
+   launches), the same 48 steps eagerly from a fresh model (the same state
+   bit for bit, both ms/step), then one timed 12-step window whose kept
+   K2 and K4 calls are held against their plain versions;
 11. operations, on the production loop's grid: a ``RunConfig`` builds
    the model, ``run_windows(series=True, window=24)`` runs 48 steps with a
    ``StepGuard`` checking each window, ``MetricsLogger`` lines and a
@@ -367,11 +384,16 @@ class MainPathTimes:
         return out
 
     def __enter__(self):
+        from elmkernels_torch.driver.graphs import disable_graphs
+        # the events and guards around each call need the eager step
+        self.eager = disable_graphs()
+        self.eager.__enter__()
         setattr(self.module, self.attr, self)
         return self
 
     def __exit__(self, *exc):
         setattr(self.module, self.attr, self.orig)
+        self.eager.__exit__(*exc)
 
     def summary(self) -> dict:
         """Device ms per launch, bound per launch and its share, over the
@@ -933,6 +955,21 @@ def check_contracts(label: str, res: dict, led_bound: float = 1e-9) -> None:
         raise AssertionError(f"{label} broke {bad}: {res}")
 
 
+def graph_info(model) -> dict:
+    """The model's captured step: each capture's seconds and graph pool
+    bytes, and the replays since."""
+    g = model._graphs
+    return (dict(captures=g.captures, replays=g.replays) if g is not None
+            else dict(captures=[], replays=0))
+
+
+def same_state(a, b) -> list:
+    """The fields of two states (or diagnostics) that differ (atol 0)."""
+    import torch
+    return [k for k, x, y in zip(a._fields, a, b)
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
 def finite(state) -> bool:
     import torch
     return all(bool(torch.isfinite(v).all()) for v in state
@@ -940,10 +977,11 @@ def finite(state) -> bool:
 
 
 def drive(ncol: int, month: int, nsteps: int, files, label: str,
-          kernels: dict, start_step: int = 0):
+          kernels: dict, start_step: int = 0, eager: bool = False):
     """Run Model(ncol) with the production flags for nsteps from step
-    ``start_step`` of the first of ``month``; returns the run summary, the
-    launches of each kernel wrapper in ``kernels`` ({name: wrapper}),
+    ``start_step`` of the first of ``month`` (replayed from the captured
+    step; ``eager`` under ``disable_graphs()``); returns the run summary,
+    the launches of each kernel wrapper in ``kernels`` ({name: wrapper}),
     counted from 0 over the run, and the model."""
     from elmkernels_torch.driver.model import Model
     from elmkernels_torch.utils.dates import Date
@@ -951,16 +989,22 @@ def drive(ncol: int, month: int, nsteps: int, files, label: str,
                   snicar_path=str(files[1]))
     start = Date.from_ymd(1985, month, 1)
     start.increment_seconds(start_step * int(model.dtime))
-    res, launches = run_checked(model, start, nsteps, label, kernels)
+    res, launches = run_checked(model, start, nsteps, label, kernels,
+                                eager=eager)
     return res, launches, model
 
 
 def run_checked(model, start, nsteps: int, label: str, kernels: dict,
-                require_launches: bool = True):
-    """``model.run(start, nsteps)``: ms/step, columns/s, the contracts of
-    every step and the kernels' launches over the run (each must have been
-    launched when ``require_launches``)."""
+                require_launches: bool = True, eager: bool = False):
+    """``model.run(start, nsteps)`` (under ``disable_graphs()`` when
+    ``eager``): ms/step, columns/s, the contracts of every step and the
+    kernels' launches over the run (each must have been launched when
+    ``require_launches``).  The steady ms/step leaves out the first two
+    steps: the first runs eagerly and loads the kernels, the second
+    captures the step."""
+    import contextlib
     import torch
+    from elmkernels_torch.driver.graphs import disable_graphs
     from elmkernels_torch.utils.guard import errsol_bound
     ncol = model.ncol
     worst = {"errh2o_led": 0.0, "errlon": 0.0, "errsol": 0.0,
@@ -976,18 +1020,22 @@ def run_checked(model, start, nsteps: int, label: str, kernels: dict,
     reset(kernels)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model.run(start, nsteps, cb)
+    with disable_graphs() if eager else contextlib.nullcontext():
+        model.run(start, nsteps, cb)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = (counts(kernels, label, steps=nsteps) if require_launches
                 else {name: fn.launches for name, fn in kernels.items()})
     st = model.state
     snl_max = int(st.snl.max().item())
-    # steady rate: steps after the first (which loads the kernels)
-    steady = (stamps[-1] - stamps[0]) / (nsteps - 1)
+    # steady rate: the steps after the first two (the eager first step
+    # loads the kernels, the second captures the step)
+    steady = (stamps[-1] - stamps[1]) / (nsteps - 2)
     res = dict(label=label, ncol=ncol, steps=nsteps, wall_s=wall,
-               first_step_ms=(stamps[0] - t0) * 1e3,
+               eager=eager, first_step_ms=(stamps[0] - t0) * 1e3,
+               second_step_ms=(stamps[1] - stamps[0]) * 1e3,
                ms_per_step=steady * 1e3, columns_per_s=ncol / steady,
+               graph=graph_info(model),
                finite=finite(st),
                snl_max=snl_max, columns_with_snow_layers=int(
                    (st.snl > 0).sum().item()),
@@ -997,6 +1045,38 @@ def run_checked(model, start, nsteps: int, label: str, kernels: dict,
     phase(f"{label}: " + json.dumps(res))
     check_contracts(label, res)
     return res, launches
+
+
+def main_path(files, kernels: dict):
+    """The main path, replayed from the captured step and eager under
+    ``disable_graphs()`` in turns, MAIN_PAIRS pairs, each run from a fresh
+    model: every final state equal to the first bit for bit.  Returns the
+    first replayed run's summary and launches, and the pairs' ms/step."""
+    import torch
+    first = first_state = None
+    ms = {"replayed": [], "eager": []}
+    for i in range(MAIN_PAIRS):
+        for eager in (False, True):
+            kind = "eager" if eager else "replayed"
+            res, launches, model = drive(MAIN_NCOL, 7, MAIN_STEPS, files,
+                                         f"main path, {kind} {i}", kernels,
+                                         eager=eager)
+            ms[kind].append(res["ms_per_step"])
+            if first is None:
+                first, first_state = (res, launches), clone(model.state)
+            elif same_state(first_state, model.state):
+                raise AssertionError(
+                    f"main path, {kind} {i}: state differs from the first "
+                    f"replayed run in {same_state(first_state, model.state)}")
+            del model
+    res = dict(pairs=MAIN_PAIRS, steps=MAIN_STEPS,
+               ms_per_step_replayed=ms["replayed"],
+               ms_per_step_eager=ms["eager"],
+               eager_over_replayed=[e / r for e, r in zip(ms["eager"],
+                                                           ms["replayed"])],
+               states_bit_for_bit=True)
+    phase("main path, replayed and eager in turns: " + json.dumps(res))
+    return first[0], first[1], res
 
 
 def timed_summaries(t2, t4, launches: dict, label: str) -> dict:
@@ -1063,9 +1143,9 @@ BENCH_RUNS = ({}, {"BENCH_PACKED": "1"}, {"BENCH_HETERO": "1",
               {"BENCH_F32": "1", "BENCH_DAYS": "1"})
 LONG_RUN_ENV = {"LR_NCOL": "8192", "LR_STEPS": "48", "LR_WINDOW": "24"}
 TWIN_TIMEOUT_S = 600
-# the main path's steps from 1985-07-01 00:00 (cut from 48 to keep the
-# script near 600 s)
-MAIN_STEPS = 24
+# the main path's width, its steps from 1985-07-01 00:00 (cut from 48 to
+# keep the script near 600 s), and its replayed and eager runs in turns
+MAIN_NCOL, MAIN_STEPS, MAIN_PAIRS = 262144, 24, 3
 LOOPS_NCOL = 8192
 LOOPS_GRID = (64, 128)       # the NetCDF forcing's (lat, lon) grid
 # 12 steps in 6-step windows (cut from 48, then 24, to keep the script near
@@ -1155,6 +1235,7 @@ def check_loops(files, kernels: dict) -> dict:
     bit, from one cold start."""
     import torch
     from elmkernels_torch.data import synthetic
+    from elmkernels_torch.driver.graphs import disable_graphs
     from elmkernels_torch.driver.model import Model, reduce_diags
     from elmkernels_torch.ops import canopy
     from elmkernels_torch.utils.dates import Date
@@ -1175,8 +1256,16 @@ def check_loops(files, kernels: dict) -> dict:
         return m.run_windows(start, LOOPS_STEPS, window=LOOPS_WINDOW,
                              series=True)
 
-    # name: (the loop, the model's packed_carry)
+    def run(m):
+        per_step = []
+        m.run(start, LOOPS_STEPS,
+              lambda date, state, d: per_step.append(reduce_diags(d)))
+        return type(per_step[0])(*(torch.cat(v) for v in zip(*per_step)))
+
+    # name: (the loop, the model's packed_carry); each replays the captured
+    # step, against the eager run
     loops = {
+        "run": (run, False),
         "run_scan": (lambda m: m.run_scan(start, LOOPS_STEPS), False),
         "run_scan_series": (lambda m: m.run_scan_series(start, LOOPS_STEPS),
                             False),
@@ -1192,19 +1281,17 @@ def check_loops(files, kernels: dict) -> dict:
         SHARD_DIR.mkdir(parents=True, exist_ok=True)
         torch.save({k: v.cpu() for k, v in m.state._asdict().items()},
                    SHARD_DIR / "initial.pt")
-        per_step = []
         reset(kernels)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        m.run(start, LOOPS_STEPS,
-              lambda date, state, d: per_step.append(reduce_diags(d)))
+        with disable_graphs():
+            ref = run(m)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         ref_state = m.state
-        ref = type(per_step[0])(*(torch.cat(v) for v in zip(*per_step)))
-        res["loops"]["run"] = dict(
+        res["loops"]["run, eager"] = dict(
             ms_per_step=wall / LOOPS_STEPS * 1e3,
-            launches=counts(kernels, "loops, run", steps=LOOPS_STEPS))
+            launches=counts(kernels, "loops, eager run", steps=LOOPS_STEPS))
         for name, (fn, packed) in loops.items():
             m = model()
             m.packed_carry = packed
@@ -1222,8 +1309,12 @@ def check_loops(files, kernels: dict) -> dict:
                 ms_per_step=wall / LOOPS_STEPS * 1e3,
                 launches=counts(kernels, f"loops, {name}",
                                 steps=LOOPS_STEPS),
-                state_fields_differing=state_diff,
+                graph=graph_info(m), state_fields_differing=state_diff,
                 diagnostics_differing=diag_diff)
+            if len(m._graphs.captures) != 1 or (
+                    m._graphs.replays != LOOPS_STEPS - 1):
+                raise AssertionError(f"{name} did not replay the captured "
+                                     f"step: {graph_info(m)}")
             if packed:
                 carry = m._carry
                 res["loops"][name].update(
@@ -1239,7 +1330,8 @@ def check_loops(files, kernels: dict) -> dict:
                     raise AssertionError("the packed state is not views "
                                          "into its carry")
             if state_diff or diag_diff:
-                raise AssertionError(f"{name} differs from run: state "
+                raise AssertionError(f"{name} differs from the eager run: "
+                                     f"state "
                                      f"{state_diff}, diagnostics "
                                      f"{diag_diff}")
             if name.startswith("run_windows") and not packed:
@@ -1306,6 +1398,7 @@ def production_loop(files, inputs: dict, kernels: dict):
                second_window_ms_per_step=steady * 1e3,
                second_window_columns_per_s=PROD_NCOL / steady,
                finite=finite(m.state), launches=launches,
+               graph=graph_info(m),
                errh2o_led=d.errh2o_led_max.max().item(),
                errlon=d.errlon_max.max().item(),
                errsol=d.errsol_max.max().item(),
@@ -1340,6 +1433,8 @@ def production_loop(files, inputs: dict, kernels: dict):
         raise AssertionError("run and run_windows differ at full width: "
                              f"{by_run['state_fields_differing']}")
     del m_run
+    eager_windows(model(), m, Date.from_ymd(1985, 7, 1), PROD_STEPS,
+                  PROD_WINDOW, res, "production loop", kernels)
 
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 7, 3)
@@ -1353,6 +1448,47 @@ def production_loop(files, inputs: dict, kernels: dict):
     check_k2_on_path(t2.kept, "production loop")
     check_pdma_on_path(t4.kept, "production loop")
     return res, launches, on_prod
+
+
+def eager_windows(m_eager, m, start, nsteps: int, window: int, res: dict,
+                  label: str, kernels: dict) -> dict:
+    """``run_windows(series=True)`` of a fresh model ``m_eager`` under
+    ``disable_graphs()``, the same steps as the replayed run of ``m``
+    (summarised in ``res``): the same state bit for bit, and the eager
+    run's ms/step and second window's ms/step beside the replayed run's."""
+    import torch
+    from elmkernels_torch.driver.graphs import disable_graphs
+    stamps = []
+
+    def window_done(date, state, d):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with disable_graphs():
+        m_eager.run_windows(start, nsteps, window=window, series=True,
+                            callback=window_done)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steady = (stamps[1] - stamps[0]) / window
+    out = dict(label=f"{label}, eager", steps=nsteps, window=window,
+               ms_per_step=wall / nsteps * 1e3,
+               second_window_ms_per_step=steady * 1e3,
+               replayed_ms_per_step=res["ms_per_step"],
+               replayed_second_window_ms_per_step=res[
+                   "second_window_ms_per_step"],
+               eager_over_replayed=wall / nsteps * 1e3 / res["ms_per_step"],
+               launches=counts(kernels, f"{label}, eager", steps=nsteps),
+               graph=graph_info(m),
+               state_fields_differing=same_state(m.state, m_eager.state))
+    phase(f"{label}, eager against replayed: " + json.dumps(out))
+    if out["state_fields_differing"]:
+        raise AssertionError(f"{label}: the replayed run differs from the "
+                             f"eager one: {out['state_fields_differing']}")
+    res["eager"] = out
+    return out
 
 
 def snicar_inputs_of(state, ncol: int, seed: int) -> dict:
@@ -1440,7 +1576,8 @@ def reference_formats(files, snowy_state, kernels: dict) -> dict:
                                             getattr(mn.state, k))],
         diagnostics_differing=[k for k in dt._fields if not torch.equal(
             getattr(dt, k), getattr(dn, k))],
-        finite=finite(mt.state), errh2o_led=dt.errh2o_led_max.max().item(),
+        finite=finite(mt.state), graph=graph_info(mt),
+        errh2o_led=dt.errh2o_led_max.max().item(),
         errlon=dt.errlon_max.max().item(), errsol=dt.errsol_max.max().item(),
         errsol_bound=errsol_bound(REFFORMATS_NCOL, REFFORMATS_STEPS),
         max_canopy_iters=int(dt.niters_canopy_max.max().item()))
@@ -1612,11 +1749,15 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     sd = read_surfdata(surfdata, PROD_NCOL)
     ltype = synthetic.landunit_map(sd.lat_deg, LAND_SEED)
     vtype = synthetic.landunit_vtypes(sd.vtype, ltype)
+    def model():
+        return Model.from_surfdata(
+            surfdata, PROD_NCOL, pft_path=str(files[0]),
+            snicar_path=str(files[1]), ltype=ltype, vtype=vtype.tolist(),
+            elm_correct_snow_aging=True, snow_aging_path=str(files[2]),
+            **inputs)
+
     t0 = time.perf_counter()
-    m = Model.from_surfdata(surfdata, PROD_NCOL, pft_path=str(files[0]),
-                            snicar_path=str(files[1]), ltype=ltype,
-                            vtype=vtype.tolist(), elm_correct_snow_aging=True,
-                            snow_aging_path=str(files[2]), **inputs)
+    m = model()
     build_s = time.perf_counter() - t0
     stamps = []
 
@@ -1667,7 +1808,7 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
                columns_with_aged_radius=int(
                    ((st.snw_rds > c.SNW_RDS_MIN) & active).any(1).sum()
                    .item()),
-               finite=finite(st), launches=launches,
+               finite=finite(st), launches=launches, graph=graph_info(m),
                errh2o_led=ledger.worst[~wet].max().item(),
                errh2o_led_wetland=ledger.worst[wet].max().item(),
                errh2o_led_all_columns=d.errh2o_led_max.max().item(),
@@ -1682,6 +1823,8 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
         raise AssertionError(f"a land class has no column: {classes}")
     if not classes["ice"]["t_grnd_mean"] < classes["soil"]["t_grnd_mean"]:
         raise AssertionError(f"ice columns not colder than soil: {classes}")
+    eager_windows(model(), m, Date.from_ymd(1985, 1, 1), LAND_STEPS,
+                  LAND_WINDOW, res, "landunits", kernels)
 
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 1, 3)
@@ -1842,7 +1985,7 @@ def operations(files, inputs: dict, kernels: dict) -> dict:
                resume_fields_differing=resume_diff,
                strict_guard=dict(ok=rep.ok, reasons=rep.reasons,
                                  can_roll_back=rep.can_roll_back),
-               rollback_fields_differing=rollback_diff,
+               rollback_fields_differing=rollback_diff, graph=graph_info(m),
                finite=finite(m.state), errsol_bound=guard.errsol_max)
     del m, back, window1
     phase("operations, run_windows with guard, metrics, history, "
@@ -2524,6 +2667,19 @@ def float32_path(files) -> dict:
     kernels = {"canopy_stability": canopy.canopy_stability,
                "pdma_solve_f32": pdma.pdma_solve_f32,
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
+    # the same steps replayed from the captured step, from a twin, with no
+    # timer installed: the timed (eager) run must end in its state
+    twin = Model(ncol=F32_NCOL, pft_path=str(files[0]),
+                 snicar_path=str(files[1]), dtype=torch.float32)
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin.run(start, F32_STEPS)
+    torch.cuda.synchronize()
+    replayed = dict(wall_s=time.perf_counter() - t0,
+                    launches=counts(kernels, "float32 path, replayed",
+                                    steps=F32_STEPS),
+                    graph=graph_info(twin))
     t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT, f32_pdma=True)
     worst = {"errsol": 0.0, "errlon": 0.0}
 
@@ -2549,8 +2705,15 @@ def float32_path(files) -> dict:
                ms_per_step_under_timers=wall / F32_STEPS * 1e3,
                launches=launches, float64_k4_launches=pdma.pdma_solve.launches,
                finite=finite(m.state), on_path=on_path,
-               on_path_k2=on_path_k2, **worst)
+               on_path_k2=on_path_k2, replayed=dict(
+                   replayed, ms_per_step=replayed["wall_s"] / F32_STEPS * 1e3,
+                   state_fields_differing=same_state(m.state, twin.state)),
+               **worst)
     phase("float32 path: " + json.dumps(res))
+    if res["replayed"]["state_fields_differing"]:
+        raise AssertionError("the float32 path's replayed run differs from "
+                             "its eager run: "
+                             f"{res['replayed']['state_fields_differing']}")
     if not (res["finite"] and res["dtype"] == "torch.float32"
             and launches["pdma_solve_f32"] == F32_STEPS
             and pdma.pdma_solve.launches == 0
@@ -2611,31 +2774,47 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
                             world_size=nranks, rank=rank)
     mesh = parallel.column_mesh(spec["ncol"])
     label = f"{backend} rank {rank} of {nranks}"
-    model = Model.from_surfdata(spec["surfdata"], mesh.ncol, col0=mesh.col0,
+    initial = torch.load(SHARD_DIR / "initial.pt", weights_only=True)
+
+    def model():
+        m = Model.from_surfdata(spec["surfdata"], mesh.ncol, col0=mesh.col0,
                                 sharding=mesh, packed_carry=packed,
                                 **spec["kw"])
-    initial = torch.load(SHARD_DIR / "initial.pt", weights_only=True)
-    model.state = parallel.shard_state(mesh, ModelState(**initial))
+        m.state = parallel.shard_state(mesh, ModelState(**initial))
+        return m
+
+    def run(m):
+        return m.run_windows(Date.from_ymd(1985, 7, 1), LOOPS_STEPS,
+                             window=LOOPS_WINDOW, series=True)
+
     kernels = {"canopy_stability": canopy.canopy_stability,
                "pdma_solve": pdma.pdma_solve,
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
+    # replayed from the rank's own captured step, with no timer installed
+    m = model()
+    reset(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = run(m)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts(kernels, label, steps=LOOPS_STEPS)
+    # the same run, eager under the timers (which disable the graphs)
+    eager = model()
     t2, t4 = timers(keep=1, keep_pdma=1)
     with t2, t4:
         reset(kernels)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        d = model.run_windows(Date.from_ymd(1985, 7, 1), LOOPS_STEPS,
-                              window=LOOPS_WINDOW, series=True)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = counts(kernels, label, steps=LOOPS_STEPS)
-    on_path = timed_summaries(t2, t4, launches, label)
+        d_eager = run(eager)
+        timed = counts(kernels, f"{label}, eager", steps=LOOPS_STEPS)
+    on_path = timed_summaries(t2, t4, timed, label)
     k2 = check_k2_on_path(t2.kept, label)
     k4 = check_pdma_on_path(t4.kept, label)
     torch.save(dict(
         lo=mesh.lo, hi=mesh.hi, device=str(mesh.device), wall_s=wall,
-        state={k: v.cpu() for k, v in model.state._asdict().items()},
+        state={k: v.cpu() for k, v in m.state._asdict().items()},
         diags={k: v.cpu() for k, v in d._asdict().items()},
+        eager_differing=same_state(m.state, eager.state)
+        + same_state(d, d_eager), graph=graph_info(m),
         launches=launches, on_path=on_path, k2=k2, k4=k4),
         SHARD_DIR / f"{backend}_rank{rank}.pt")
     dist.barrier()
@@ -2689,6 +2868,7 @@ def sharded_loops(files, loops: dict) -> dict:
             ranks.append(dict(
                 rank=r, block=[lo, hi], device=got["device"],
                 wall_s=got["wall_s"], launches=got["launches"],
+                graph=got["graph"], eager_differing=got["eager_differing"],
                 on_path=got["on_path"],
                 k2_differing_fields=got["k2"]["differing_fields"],
                 k4_equal=got["k4"]["equal"],
@@ -2701,6 +2881,7 @@ def sharded_loops(files, loops: dict) -> dict:
         covered = sum(r["block"][1] - r["block"][0] for r in ranks)
         if covered != LOOPS_NCOL or any(
                 r["state_fields_differing"] or r["diagnostics_differing"]
+                or r["eager_differing"]
                 or not (r["launches"]["canopy_stability"]
                         and r["launches"]["pdma_solve"]) for r in ranks):
             raise AssertionError(f"sharded {backend} run differs from the "
@@ -3127,8 +3308,7 @@ def main() -> int:
                 "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
     # end-to-end numbers from a run with no timer installed; the kernels'
     # times per launch from 12 steps around noon under the timers
-    main_run, launches, _ = drive(262144, 7, MAIN_STEPS, files, "main path",
-                                  wrappers)
+    main_run, launches, main_pairs = main_path(files, wrappers)
     lap("main path")
     t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
     with t2, t4:

@@ -28,6 +28,19 @@ packing`): the same results bit for bit, the carry at fixed addresses for
 the life of the model.  The state's fields are then views into those
 buffers, which the next device loop overwrites: clone what is kept.
 
+On a card the four loops replay one captured step
+(:mod:`elmkernels_torch.driver.graphs`, the counterpart of the JAX
+package's jitted step and scans): the first step under a configuration
+runs eagerly, the next is captured as a CUDA graph, and every later step
+copies its inputs into the graph's static buffers and launches it, bit
+for bit with the eager step.  The state then lives in the packed carry
+whatever ``packed_carry`` says, and the model's state after a loop is
+views into it, which the next step overwrites (as JAX's donated state is
+invalid after a jitted call): clone what is kept.  A state set from
+outside (a rollback, a restore) is copied into the carry.
+:func:`~elmkernels_torch.driver.graphs.disable_graphs` gives the eager
+path; the CPU always runs it.
+
 ``Model(ncol=mesh.ncol, col0=mesh.col0, sharding=mesh)``, with ``mesh``
 from :func:`elmkernels_torch.parallel.column_mesh`, runs one rank's block
 of a column axis split over a ``torch.distributed`` group.  The step is
@@ -51,6 +64,7 @@ from elmkernels_torch.data import params as params_mod
 from elmkernels_torch.data.state import (AERO_DEP_KEYS, ModelState,
                                          StepForcing, StepPhenology,
                                          cold_start)
+from elmkernels_torch.driver import graphs
 from elmkernels_torch.driver import step as step_mod
 from elmkernels_torch.physics.photosynthesis import psn_mode_of
 from elmkernels_torch.utils.dates import Date, month_indices
@@ -116,10 +130,6 @@ def reduce_diags(d: step_mod.StepDiagnostics) -> ScanDiagnostics:
     return ScanDiagnostics(*(v.reshape(1) for v in _reduce_diags(d)))
 
 
-def _stack_diags(per_step: list) -> ScanDiagnostics:
-    return ScanDiagnostics(*(torch.stack(v) for v in zip(*per_step)))
-
-
 # the ScanDiagnostics fields that are domain means; the others are maxima
 _MEAN_FIELDS = frozenset(("eflx_sh_mean", "eflx_lh_mean", "fsa_mean",
                           "t_ref2m_mean", "niters_canopy_mean",
@@ -141,13 +151,13 @@ def _partial_diags(d: step_mod.StepDiagnostics) -> tuple:
             d.niters_canopy.sum(dtype=f64), d.niters_ci.sum(dtype=f64))
 
 
-def _global_diags(mesh, per_step: list, wdt) -> ScanDiagnostics:
+def _global_diags(mesh, fields: list, wdt) -> ScanDiagnostics:
     """[nsteps] ScanDiagnostics over every rank's columns from this rank's
-    per-step partials: one MAX and one SUM collective for the window.
-    Maxima come back in their own dtype; means are the global float64
-    sums over the global column count, in the model's dtype ``wdt``."""
+    [nsteps] partials, field by field: one MAX and one SUM collective for
+    the window.  Maxima come back in their own dtype; means are the global
+    float64 sums over the global column count, in the model's dtype
+    ``wdt``."""
     from elmkernels_torch.parallel.reductions import combine
-    fields = [torch.stack(v) for v in zip(*per_step)]
     maxima, sums = combine(
         mesh, maxima=[f for f, m in zip(fields, _IS_MEAN) if not m],
         sums=[f for f, m in zip(fields, _IS_MEAN) if m])
@@ -188,7 +198,14 @@ class Model:
     snow grains from the ``snicar_drdt`` tables at ``snow_aging_path``.
     The flags default to the JAX ``Model``'s production defaults.
     ``packed_carry=True`` packs the device loops' state carry (module
-    docstring)."""
+    docstring).
+
+    On a card ``advance`` (so ``run``), ``run_scan``, ``run_scan_series``
+    and ``run_windows`` replay the step captured as a CUDA graph (module
+    docstring): the state is then carried packed, and ``self.state`` after
+    a step is views into the carry that the next step overwrites, as the
+    JAX package's donated state is.  Inside
+    ``graphs.disable_graphs()``, and on the CPU, the step runs eagerly."""
     ncol: int
     dtime: float = 1800.0
     vtype: int | list | tuple = 12
@@ -298,6 +315,7 @@ class Model:
             dtype=dt, device=dev)
         self.state = cold_start(self.ncol, dt, dev)
         self._carry = None
+        self._graphs = None
         if self.het_ltype or self.land.ltype not in (c.ISTSOIL, c.ISTCROP):
             self.state = self._ltype_cold_start(self.state)
         lat_r = self.params.lat_r.cpu().numpy()
@@ -373,17 +391,21 @@ class Model:
 
     # ---- one step --------------------------------------------------------
 
+    def _step_flags(self) -> dict:
+        """``step.advance``'s static keyword arguments for this model."""
+        return dict(psn_mode=self.psn_mode,
+                    qbot_is_rh=getattr(self.forcing, "qbot_is_rh", False),
+                    mixed_radiation=self.mixed_radiation,
+                    elm_correct_seb=self.elm_correct_seb,
+                    warm_start=self.warm_start,
+                    mixed_canopy=self.mixed_canopy, het_ltype=self.het_ltype,
+                    elm_correct_snow_aging=self.elm_correct_snow_aging)
+
     def _step(self, forc: StepForcing, phen: StepPhenology):
         """Advance self.state by one dt from device inputs."""
         self.state, diags = step_mod.advance(
             self.land, self.psnveg, self.albveg, self.snicar, self.params,
-            self.state, forc, phen, self.dtime, psn_mode=self.psn_mode,
-            qbot_is_rh=getattr(self.forcing, "qbot_is_rh", False),
-            mixed_radiation=self.mixed_radiation,
-            elm_correct_seb=self.elm_correct_seb,
-            warm_start=self.warm_start, mixed_canopy=self.mixed_canopy,
-            het_ltype=self.het_ltype,
-            elm_correct_snow_aging=self.elm_correct_snow_aging)
+            self.state, forc, phen, self.dtime, **self._step_flags())
         return diags
 
     def _attach_aero(self, forc: StepForcing, date: Date) -> StepForcing:
@@ -408,9 +430,28 @@ class Model:
         return (self._to_device(forc),
                 self._to_device(self.phenology.window(date)))
 
+    def _host_inputs(self, date: Date):
+        """:meth:`step_inputs` as CPU tensors in the model's dtype, pinned
+        on a card, for copying into a graph's buffers without a wait."""
+        cuda = self.device.type == "cuda"
+
+        def host(nt):
+            return type(nt)(*(None if v is None else torch.as_tensor(
+                np.asarray(v, np.float64), dtype=self.dtype) for v in nt))
+        forc = self._attach_aero(self.forcing.window(date, self.dtime),
+                                 date)
+        pair = (host(forc), host(self.phenology.window(date)))
+        return _map(pair, torch.Tensor,
+                    lambda t: t.pin_memory() if cuda else t)
+
     def advance(self, date: Date) -> step_mod.StepDiagnostics:
-        """One dt starting at ``date``; replaces self.state."""
-        return self._step(*self.step_inputs(date))
+        """One dt starting at ``date``; replaces self.state (on a card by
+        the captured step, whose diagnostics are copied out)."""
+        if not graphs.uses_graphs(self.device):
+            return self._step(*self.step_inputs(date))
+        (d, _, _), replayed = self._graph_step(self._carry_of(True),
+                                               *self._host_inputs(date))
+        return type(d)(*(t.clone() for t in d)) if replayed else d
 
     def run(self, start: Date, nsteps: int,
             callback: Callable | None = None):
@@ -435,9 +476,13 @@ class Model:
     def _window_diags(self, per_step: list) -> ScanDiagnostics:
         """The [nsteps] ScanDiagnostics of a window's :meth:`_step_diags`;
         on a sharded model they are combined over the ranks here, once."""
+        return self._window_fields([torch.stack(v) for v in zip(*per_step)])
+
+    def _window_fields(self, fields: list) -> ScanDiagnostics:
+        """:meth:`_window_diags` from the [nsteps] fields."""
         if self.sharding is None:
-            return _stack_diags(per_step)
-        return _global_diags(self.sharding, per_step, self.dtype)
+            return ScanDiagnostics(*fields)
+        return _global_diags(self.sharding, fields, self.dtype)
 
     def reduce_diags(self, d: step_mod.StepDiagnostics) -> ScanDiagnostics:
         """A :meth:`run` step's diagnostics reduced as a device loop
@@ -486,12 +531,13 @@ class Model:
         """:meth:`host_windows` on the device, in one set of copies."""
         return self._put(self._pin(self.host_windows(start, nsteps)))
 
-    def _packed(self) -> PackedCarry | None:
-        """With ``packed_carry``: ``self.state`` made the model's packed
-        carry, whose buffers are allocated at the first device loop and
-        kept while the state's shapes and dtypes hold (a state set from
-        outside is copied into them); else None."""
-        if not self.packed_carry:
+    def _carry_of(self, graphed: bool) -> PackedCarry | None:
+        """With ``packed_carry`` or on the graph path (``graphed``):
+        ``self.state`` made the model's packed carry, whose buffers are
+        allocated at the first device loop and kept while the state's
+        shapes and dtypes hold (a state set from outside is copied into
+        them); else None."""
+        if not (graphed or self.packed_carry):
             return None
         carry = self._carry
         if carry is None or carry.template != template_of(self.state):
@@ -502,7 +548,7 @@ class Model:
         return carry
 
     def _loop_step(self, carry, forc: StepForcing, phen: StepPhenology):
-        """One step of a device loop: its reductions, taken before a
+        """One eager step of a device loop: its reductions, taken before a
         packed carry's buffers take the new state."""
         red = self._step_diags(self._step(forc, phen))
         if carry is not None:
@@ -510,20 +556,85 @@ class Model:
             self.state = carry.state
         return red
 
+    # ---- the captured step -----------------------------------------------
+
+    def _graph_key(self, carry: PackedCarry, inputs: tuple) -> tuple:
+        """The key of the step's graph (``graphs.key_of``)."""
+        static = (self.land, self.dtime, self.sharding is None,
+                  *self._step_flags().items())
+        return graphs.key_of(static, (self.params, self.psnveg,
+                                      self.albveg, self.snicar),
+                             carry, inputs, self.device)
+
+    def _graph_body(self, carry: PackedCarry):
+        """The captured step: ``body(forcing, phenology)`` advances the
+        carry's state by one step and copies the new state into the
+        carry; it returns the step's diagnostics, its reductions
+        (:meth:`_step_diags`) packed in one float64 [14] tensor, and their
+        dtypes.  It holds no reference to the model."""
+        args = (self.land, self.psnveg, self.albveg, self.snicar,
+                self.params)
+        dtime, kw = self.dtime, self._step_flags()
+        reduce = _reduce_diags if self.sharding is None else _partial_diags
+
+        def body(forc, phen):
+            new, d = step_mod.advance(*args, carry.state, forc, phen, dtime,
+                                      **kw)
+            red = reduce(d)
+            packed = torch.stack([r.to(torch.float64) for r in red])
+            carry.update(new)
+            return d, packed, tuple(r.dtype for r in red)
+        return body
+
+    def _graph_step(self, carry: PackedCarry, forc: StepForcing,
+                    phen: StepPhenology):
+        """One step through the model's graph: ``((diagnostics, packed
+        reductions, their dtypes), replayed)``; the outputs of a replay
+        are the graph's own, which the next replay overwrites."""
+        if self._graphs is None:
+            self._graphs = graphs.StepGraphs()
+        out, replayed = self._graphs.step(
+            self._graph_key(carry, (forc, phen)), self._graph_body(carry),
+            (forc, phen), self.device, writes=carry.buffers,
+            counters=((carry, "updates"), (carry, "bytes_copied")))
+        self.state = carry.state
+        return out, replayed
+
+    def _run_steps(self, steps, nsteps: int, poll=None) -> ScanDiagnostics:
+        """A device loop's ``nsteps`` steps of ``(forcing, phenology)``
+        from ``steps``: eager, or through the graph, whose reductions are
+        copied into one [nsteps, 14] block with no host wait.  ``poll()``
+        runs after each step."""
+        graphed = graphs.uses_graphs(self.device)
+        carry = self._carry_of(graphed)
+        if not graphed:
+            out = []
+            for forc, phen in steps:
+                out.append(self._loop_step(carry, forc, phen))
+                if poll is not None:
+                    poll()
+            return self._window_diags(out)
+        rows = torch.empty((nsteps, len(ScanDiagnostics._fields)),
+                           dtype=torch.float64, device=self.device)
+        dtypes = ()
+        for k, (forc, phen) in enumerate(steps):
+            (_, packed, dtypes), _ = self._graph_step(carry, forc, phen)
+            rows[k].copy_(packed)
+            if poll is not None:
+                poll()
+        return self._window_fields([rows[:, i].to(dt) for i, dt in
+                                    enumerate(dtypes)])
+
     def _scan(self, payload, poll=None) -> ScanDiagnostics:
         """The steps of a per-step stack payload, sliced on the device;
         ``poll()`` runs after each step."""
         forc, phen = payload
-        carry = self._packed()
-        out = []
-        for k in range(forc.tbot.shape[0]):
-            f = StepForcing(*(None if v is None else self._promote(v[k])
-                              for v in forc))
-            p = StepPhenology(*(self._promote(v[k]) for v in phen))
-            out.append(self._loop_step(carry, f, p))
-            if poll is not None:
-                poll()
-        return self._window_diags(out)
+        n = forc.tbot.shape[0]
+        steps = ((StepForcing(*(None if v is None else self._promote(v[k])
+                                for v in forc)),
+                  StepPhenology(*(self._promote(v[k]) for v in phen)))
+                 for k in range(n))
+        return self._run_steps(steps, n, poll)
 
     def run_scan(self, start: Date, nsteps: int) -> ScanDiagnostics:
         """Advance ``nsteps`` from inputs copied to the device once;
@@ -598,9 +709,7 @@ class Model:
         def pair(a, i):
             return self._promote(a[i:i + 2])
 
-        carry = self._packed()
-        out = []
-        for k, (i, j) in enumerate(zip(idx1, pidx)):
+        def inputs(k, i, j):
             aero = None
             if aero_uniq is not None:
                 ab = row(aero_uniq, j)      # [2, 11, ncol]
@@ -615,10 +724,11 @@ class Model:
                 wt1=pwt1[k], wt2=pwt2[k], mlai=row(phen_uniq.mlai, j),
                 msai=row(phen_uniq.msai, j), mhtop=row(phen_uniq.mhtop, j),
                 mhbot=row(phen_uniq.mhbot, j))
-            out.append(self._loop_step(carry, forc, phen))
-            if poll is not None:
-                poll()
-        return self._window_diags(out)
+            return forc, phen
+
+        return self._run_steps(
+            (inputs(k, i, j) for k, (i, j) in enumerate(zip(idx1, pidx))),
+            len(idx1), poll)
 
     def run_scan_series(self, start: Date, nsteps: int) -> ScanDiagnostics:
         """:meth:`run_scan` over the series layout: the same trajectory

@@ -18,8 +18,13 @@ timed, and reports
   fixed state, parameters and step scratch and the window's payload both
   scale with the columns).
 
-If the columns do not fit, it prints ``"fits": false`` with the
-allocator's message and exits 3.
+The window replays the step captured as a CUDA graph, as the loops do on
+a card by default (``driver/graphs.py``; ``"replayed": true`` and the
+capture's seconds and graph pool bytes in ``"graph"``).  Where the columns
+do not fit so, the probe runs again under ``disable_graphs()``, op by op,
+and says so (``"replayed": false``, the first run's message in
+``"graph_oom"``).  If the columns do not fit either way, it prints
+``"fits": false`` with the allocator's message and exits 3.
 
   CAP_NCOL      columns (default 1048576 = 2^20)
   CAP_STEPS     steps in the window (default 48)
@@ -105,7 +110,11 @@ def probe(ncol: int, nsteps: int, device=None) -> dict:
            "errh2o_led_max": float(diags.errh2o_led_max.abs().max()),
            "init_s": round(t_init, 1), "h2d_s": round(t_h2d, 1),
            "fits": True, "device": str(dev),
-           "payload_bytes_per_col": round(payload_bytes / ncol)}
+           "payload_bytes_per_col": round(payload_bytes / ncol),
+           "replayed": model._graphs is not None,
+           "graph": (dict(captures=model._graphs.captures,
+                          replays=model._graphs.replays)
+                     if model._graphs is not None else None)}
     if dev.type == "cuda":
         peak = torch.cuda.max_memory_allocated(dev)
         limit = torch.cuda.get_device_properties(dev).total_memory
@@ -126,17 +135,37 @@ def pinned_leaves(tree):
             yield from pinned_leaves(v)
 
 
+def _oom(e) -> str:
+    return " ".join(str(e).split())[:800]
+
+
 def main() -> int:
+    import gc
+
+    from elmkernels_torch.driver.graphs import disable_graphs
     ncol = int(os.environ.get("CAP_NCOL", str(1 << 20)))
     nsteps = int(os.environ.get("CAP_STEPS", "48"))
     device = "cpu" if os.environ.get("CAP_PLATFORM") == "cpu" else None
+    graph_oom = None
     try:
         rec = probe(ncol, nsteps, device)
     except torch.cuda.OutOfMemoryError as e:
-        print("# launches: " + json.dumps(_launches()), file=sys.stderr)
-        print(json.dumps({"ncol": ncol, "nsteps": nsteps, "fits": False,
-                          "oom": " ".join(str(e).split())[:800]}))
-        return 3
+        graph_oom = _oom(e)
+    if graph_oom is not None:
+        # the replayed window does not fit: the eager one, which holds no
+        # graph pool beside the allocator's cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        print("# the replayed window does not fit; running it under "
+              "disable_graphs()", file=sys.stderr)
+        try:
+            with disable_graphs():
+                rec = dict(probe(ncol, nsteps, device), graph_oom=graph_oom)
+        except torch.cuda.OutOfMemoryError as e:
+            print("# launches: " + json.dumps(_launches()), file=sys.stderr)
+            print(json.dumps({"ncol": ncol, "nsteps": nsteps, "fits": False,
+                              "oom": _oom(e), "graph_oom": graph_oom}))
+            return 3
     print("# launches: " + json.dumps(_launches()), file=sys.stderr)
     print(json.dumps(rec))
     return 0

@@ -2,7 +2,8 @@
 
     python -m elmkernels_torch.tools.profile_step [--ncol 262144] [--steps 4]
         [--loop {run,series,windows}] [--window 4]
-        [--grid {uniform,global,landunits}] [--packed] [--out profile.json]
+        [--grid {uniform,global,landunits}] [--packed] [--eager]
+        [--out profile.json]
 
 Builds a model with the production flags from synthetic input files
 (written under ``build/``): ``--grid uniform`` is ``Model(ncol)``, one PFT
@@ -21,8 +22,10 @@ inputs built on the host and copied), ``--loop series`` through
 once, the steps sliced from it on the card), ``--loop windows`` through
 ``Model.run_windows(series=True, window=--window)`` (``--steps`` a multiple
 of the window: each next window assembled on a host thread and copied on a
-side stream while the current one runs).  Prints one JSON line, and
-writes it to ``--out`` when given:
+side stream while the current one runs).  The loops replay the step
+captured as a CUDA graph (``driver/graphs.py``), as they do on a card by
+default; ``--eager`` runs them under ``disable_graphs()``, op by op.  Prints
+one JSON line, and writes it to ``--out`` when given:
 
 - ``ms_per_step``: host clock over the window, ending in a synchronize;
 - ``device_busy_share``: the union of the kernels' and copies' device
@@ -33,6 +36,11 @@ writes it to ``--out`` when given:
 - ``syncs_per_step``: the host waits on the card the CUDA runtime recorded
   (``cudaStreamSynchronize``, ``cudaDeviceSynchronize``,
   ``cudaEventSynchronize``), with ``copies_h2d_per_step``;
+- ``syncs_where``: those waits by the input range around them (or
+  ``steps``) and the torch operation that made them;
+- ``host_launches_per_step``: the launches and asynchronous copies and
+  fills the host issued (runtime and driver calls named ``*Launch*``,
+  ``*Memcpy*``, ``*Memset*``; a graph launch counts one);
 - ``canopy_iters_per_step``: the canopy loop's iterations (K2 runs them
   all in one launch; the plain loop ends each in an ``.any()`` test on the
   host);
@@ -41,7 +49,18 @@ writes it to ``--out`` when given:
   the window's host assembly and pinning, and its copy to the card) and
   of the step's three phases, each wrapped here in a ``record_function``
   range (a kernel or copy counts for the range whose device span it starts
-  in);
+  in); under replay the step's three phases run inside the graph, where
+  no range reaches, and read 0;
+- ``device_ms_by_module``: device milliseconds per step of each module of
+  the port whose functions issued the work (physics and ops modules; the
+  innermost one where they nest; ``driver.step`` for the step's own).
+  One more step runs eagerly after the profiled window with every
+  function of those modules in a range, and each torch operation's device
+  work takes the module around it; the profiled window's time of each
+  device operation name (under replay, the graph's) is then shared among
+  the modules as that name's time was in the eager step
+  (``eager_step_read`` says what that step gave);
+- ``graph``: the captures (seconds, graph pool bytes) and replays;
 - ``copies_h2d_outside_window_copy_per_step``: host-to-device copies that
   did not start inside the window's copy (``series``: the steps' own);
 - ``port_kernels``: device milliseconds and launches per step of the
@@ -72,7 +91,13 @@ _STEP_PHASES = ("surface_phase", "flux_phase", "column_phase")
 _INPUTS = {"run": ("step_inputs",),
            "series": ("window_assembly", "window_copy"),
            "windows": ("window_assembly", "window_copy")}
-_PORT_KERNELS = ("canopy_kernel", "ci_hybrid_kernel", "pdma_kernel")
+# the port's kernels by the module that launches them (also for device
+# work the eager step's torch operations do not carry: a launch from
+# ctypes)
+_PORT_MODULES = {"canopy_kernel": "ops.canopy (K2)",
+                 "ci_hybrid_kernel": "ops.ci_solver (K1)",
+                 "pdma_kernel": "ops.pdma (K4)"}
+_PORT_KERNELS = tuple(_PORT_MODULES)
 
 
 def _ranged(fn, name):
@@ -113,6 +138,121 @@ def _overlap_us(a, b, merged, starts) -> float:
     return total
 
 
+def _module_ranges():
+    """Wrap every function of the port's physics and ops modules in a
+    profiler range named after its module; returns the undo."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import elmkernels_torch.ops as ops_pkg
+    import elmkernels_torch.physics as physics_pkg
+    undo = []
+    for pkg in (physics_pkg, ops_pkg):
+        for info in pkgutil.iter_modules(pkg.__path__):
+            mod = importlib.import_module(f"{pkg.__name__}.{info.name}")
+            name = f"module:{pkg.__name__.rsplit('.', 1)[1]}.{info.name}"
+            for attr, fn in list(vars(mod).items()):
+                # a kernel's entry point keeps its launch count on itself:
+                # it stays as it is, its work the caller's
+                if (inspect.isfunction(fn) and fn.__module__ == mod.__name__
+                        and not hasattr(fn, "launches")):
+                    setattr(mod, attr, _ranged(fn, name))
+                    undo.append((mod, attr, fn))
+
+    def restore():
+        for mod, attr, fn in undo:
+            setattr(mod, attr, fn)
+    return restore
+
+
+_ALL_PHASES = set(_STEP_PHASES) | {n for v in _INPUTS.values() for n in v}
+
+
+def _eager_step_by_module(prof, DeviceType) -> tuple:
+    """The eager step's device ms by (device operation's name, module):
+    each torch operation inside the ``step_body`` range carries the
+    device work it launched (``FunctionEvent.kernels``), under the
+    innermost module range around it on the host.  Returns that Counter
+    and what was read (host operations with device work, module ranges)."""
+    cpu = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    body = [e for e in cpu if e.name == "step_body"]
+    seen = dict(step_body=len(body), operations=0, module_ranges=0)
+    out = collections.Counter()
+    if not body:
+        return out, seen
+    b = body[0]
+    lo, hi = b.time_range.start, b.time_range.end
+    items = []
+    for e in cpu:
+        a, z = e.time_range.start, e.time_range.end
+        if e.thread != b.thread or not (lo <= a and z <= hi):
+            continue
+        if e.name.startswith("module:"):
+            items.append((a, 0, -z, e.name[len("module:"):], None))
+            seen["module_ranges"] += 1
+        elif e.kernels:
+            items.append((a, 1, -z, None, e.kernels))
+            seen["operations"] += 1
+    # host ranges on one thread nest: an operation belongs to the
+    # innermost range open at its start
+    stack = []
+    for a, kind, negz, mod, kernels in sorted(items, key=lambda t: t[:3]):
+        while stack and stack[-1][0] <= a:
+            stack.pop()
+        if kind == 0:
+            stack.append((-negz, mod))
+            continue
+        m = stack[-1][1] if stack else "driver.step"
+        for k in kernels:
+            out[(k.name, m)] += k.duration / 1e3
+    return out, seen
+
+
+def _by_module(eager, dev_ms, n: int) -> dict:
+    """Device ms per step by module: each device operation name's time in
+    the profiled window (``dev_ms``, over ``n`` steps) shared among the
+    modules in the proportions that name's time had in the eager step
+    (``eager``); a name the eager step's operations do not carry goes to
+    its port kernel's module, else to ``"outside the step"`` (the loop's
+    input copies)."""
+    shares: dict = {}
+    for (name, mod), ms in eager.items():
+        shares.setdefault(name, collections.Counter())[mod] += ms
+    out = collections.Counter()
+    for name, ms in dev_ms.items():
+        split = shares.get(name)
+        if split:
+            total = sum(split.values())
+            for mod, part in split.items():
+                out[mod] += ms / n * part / total
+        else:
+            port = next((m for k, m in _PORT_MODULES.items() if k in name),
+                        "outside the step")
+            out[port] += ms / n
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def _syncs_where(prof, DeviceType) -> dict:
+    """The host waits of a profile by where they were made: the input
+    range around them (or ``steps``) and the torch operation that made
+    them."""
+    where = collections.Counter()
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or e.name not in _SYNCS:
+            continue
+        op, rng, first = e.cpu_parent, "steps", None
+        while op is not None:
+            if first is None and not op.name.startswith("cuda"):
+                first = op.name
+            if op.name in _ALL_PHASES:
+                rng = op.name
+                break
+            op = op.cpu_parent
+        where[f"{rng}: {first or 'the profiling loop'} ({e.name})"] += 1
+    return dict(where)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ncol", type=int, default=262144)
@@ -124,6 +264,9 @@ def main(argv=None) -> int:
                     default="uniform")
     ap.add_argument("--packed", action="store_true",
                     help="the packed state carry (series and windows loops)")
+    ap.add_argument("--eager", action="store_true",
+                    help="run the loops op by op (disable_graphs()), not "
+                         "replayed from the captured step")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
 
@@ -134,8 +277,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 2
+    import contextlib
+
     from elmkernels_torch.data import synthetic
     from elmkernels_torch.driver import step as step_mod
+    from elmkernels_torch.driver.graphs import disable_graphs
     from elmkernels_torch.driver.model import Model
     from elmkernels_torch.utils.dates import Date
 
@@ -177,13 +323,17 @@ def main(argv=None) -> int:
     else:
         model = Model(ncol=args.ncol, pft_path=str(pft),
                       snicar_path=str(snicar), packed_carry=args.packed)
-    # noon of July 1 (step 24), after two warm-up steps
+    mode = disable_graphs() if args.eager else contextlib.nullcontext()
+    mode.__enter__()
+    # noon of July 1 (step 24), after two warm-up steps (replayed: the
+    # first runs eagerly, the second captures the step)
     date = Date.from_ymd(1985, 7, 1)
     date.increment_seconds(22 * 1800)
     for _ in range(2):
         model.advance(date)
         date.increment_seconds(1800)
     torch.cuda.synchronize()
+    captures = len(model._graphs.captures) if model._graphs else 0
 
     iters, alloc = [], []
 
@@ -210,11 +360,32 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = args.steps
+    graph = (dict(captures=model._graphs.captures,
+                  replays=model._graphs.replays) if model._graphs else None)
+    if graph and len(graph["captures"]) != captures:
+        raise RuntimeError(f"the step was captured again inside the "
+                           f"profiled window: {graph}")
+    mode.__exit__(None, None, None)
+
+    # one more step, eager, with the port's modules in ranges: which module
+    # issued each of the step's device operations, in order
+    restore = _module_ranges()
+    advance = step_mod.advance
+    step_mod.advance = _ranged(advance, "step_body")
+    try:
+        with disable_graphs(), profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eprof:
+            model.advance(date)
+            torch.cuda.synchronize()
+    finally:
+        step_mod.advance = advance
+        restore()
+    eager_step, eager_seen = _eager_step_by_module(eprof, DeviceType)
 
     dev_ms = collections.Counter()
     launches = collections.Counter()
     intervals, h2d, copies, kernels = [], [], [], []
-    syncs = 0
+    syncs = host_launches = 0
     phases = {k: dict(host_ms_per_step=0.0, device_ms_per_step=0.0)
               for k in phase_names}
     # a range shows twice: on the host, and as an annotation spanning its
@@ -238,6 +409,9 @@ def main(argv=None) -> int:
                 kernels.append((e.time_range.start, e.time_range.end))
         elif e.name in _SYNCS:
             syncs += 1
+        elif e.name.startswith("cu") and any(
+                k in e.name for k in ("Launch", "Memcpy", "Memset")):
+            host_launches += 1
     for a, b in intervals:
         for lo, hi, name in spans:
             if lo <= a < hi:
@@ -267,17 +441,21 @@ def main(argv=None) -> int:
     res = dict(
         device=torch.cuda.get_device_name(0), card=card, ncol=args.ncol,
         steps=n, loop=args.loop, grid=args.grid, packed=args.packed,
-        psn_mode=model.psn_mode,
+        replayed=not args.eager, graph=graph, psn_mode=model.psn_mode,
         ms_per_step=wall / n * 1e3,
         columns_per_s=args.ncol * n / wall,
         device_busy_share=busy_us / (wall * 1e6),
         device_ms_per_step=sum(dev_ms.values()) / n,
         launches_per_step=sum(launches.values()) / n,
-        syncs_per_step=syncs / n, copies_h2d_per_step=len(h2d) / n,
+        syncs_per_step=syncs / n, syncs_where=_syncs_where(prof, DeviceType),
+        host_launches_per_step=host_launches / n,
+        copies_h2d_per_step=len(h2d) / n,
         copies_h2d_in_window_copy=in_copy,
         copies_h2d_outside_window_copy_per_step=(len(h2d) - in_copy) / n,
         canopy_iters_per_step=[int(i.item()) for i in iters],
         phases=phases, windows=windows,
+        device_ms_by_module=_by_module(eager_step, dev_ms, n),
+        eager_step_read=dict(eager_seen, device_ms=sum(eager_step.values())),
         port_kernels={k: dict(device_ms_per_step=dev_ms[k] / n,
                               launches_per_step=launches[k] / n)
                       for k in dev_ms if any(p in k for p in _PORT_KERNELS)},

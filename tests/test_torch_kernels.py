@@ -342,3 +342,107 @@ def test_canopy_dispatch_on_card(card):
     with pytest.raises(RuntimeError, match="stability_iteration"):
         canopy.canopy_stability(**dict(
             args, t_veg=args["t_veg"].clone().requires_grad_()))
+
+
+# ---- the captured step (driver/graphs.py) --------------------------------
+
+GRAPH_NCOL, GRAPH_STEPS = 4096, 6
+
+
+@pytest.fixture(scope="module")
+def graph_grid(tmp_path_factory):
+    """The 4,096-cell global grid with NetCDF forcing, phenology and
+    aerosol files (64 x 64 forcing cells)."""
+    from elmkernels_torch.data import synthetic
+    d = tmp_path_factory.mktemp("graph_grid")
+    synthetic.write_clm_params(d / "p.nc")
+    synthetic.write_snicar_optics(d / "s.nc")
+    inputs = synthetic.write_global_inputs(d, GRAPH_NCOL,
+                                           forcing_grid=(64, 64))
+    return dict(inputs, pft_path=str(d / "p.nc"), snicar_path=str(d / "s.nc"))
+
+
+def _graph_model(grid, **kw):
+    from elmkernels_torch.driver.model import Model
+    grid = dict(grid)
+    return Model.from_surfdata(grid.pop("surfdata"), GRAPH_NCOL, **grid,
+                               **kw)
+
+
+def _graph_loop(m, loop, nsteps=GRAPH_STEPS, start=None):
+    from elmkernels_torch.driver.model import reduce_diags
+    from elmkernels_torch.utils.dates import Date
+    date = start or Date.from_ymd(1985, 7, 1, 9 * 3600)
+    if loop == "run":
+        per = []
+        m.run(date, nsteps, lambda d_, s, d: per.append(reduce_diags(d)))
+        return type(per[0])(*(torch.cat(v) for v in zip(*per)))
+    if loop.startswith("run_windows"):
+        return m.run_windows(date, nsteps, window=nsteps // 2,
+                             series=loop.endswith("series"))
+    return getattr(m, loop)(date, nsteps)
+
+
+def _assert_same(a, b):
+    for k, x, y in zip(a._fields, a, b):
+        assert x.dtype == y.dtype and torch.equal(x, y), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("loop", ["run", "run_scan", "run_scan_series",
+                                  "run_windows", "run_windows_series"])
+def test_graph_replay_is_the_eager_loop(card, graph_grid, loop, packed):
+    """Each entry point replays the captured step (one warm-up step, one
+    capture, the rest replays, K2 once a step) bit for bit with its eager
+    run under disable_graphs()."""
+    from elmkernels_torch.driver.graphs import disable_graphs
+    from elmkernels_torch.ops import canopy
+    eager = _graph_model(graph_grid, packed_carry=packed)
+    with disable_graphs():
+        want = _graph_loop(eager, loop)
+    m = _graph_model(graph_grid, packed_carry=packed)
+    canopy.canopy_stability.launches = 0
+    got = _graph_loop(m, loop)
+    torch.cuda.synchronize()
+    assert canopy.canopy_stability.launches == GRAPH_STEPS
+    assert len(m._graphs.captures) == 1
+    assert m._graphs.replays == GRAPH_STEPS - 1
+    _assert_same(eager.state, m.state)
+    _assert_same(want, got)
+
+
+@pytest.mark.cuda
+def test_k2_counters_read_the_captured_launch(card, graph_grid):
+    from elmkernels_torch.ops import canopy
+    m = _graph_model(graph_grid)
+    _graph_loop(m, "run_scan", nsteps=3)
+    sched = m._graphs.sched
+    assert sched is not None and canopy._last_sched is sched
+    c = canopy.counters()
+    # every column's chunk was claimed, by the replay's own launch
+    assert c["chunks"] >= GRAPH_NCOL // 32 and c["lane_rounds"] > 0
+    sched.zero_()
+    m._graphs.graph.replay()
+    assert canopy.counters()["chunks"] >= GRAPH_NCOL // 32
+
+
+@pytest.mark.cuda
+def test_replaced_params_recapture(card, graph_grid):
+    """A model whose parameters were replaced (new tensors, new values)
+    captures again and gives the eager result."""
+    from elmkernels_torch.driver.graphs import disable_graphs
+    from elmkernels_torch.utils.dates import Date
+    a, b = _graph_model(graph_grid), _graph_model(graph_grid)
+    later = Date.from_ymd(1985, 7, 1, 12 * 3600)
+    with disable_graphs():
+        _graph_loop(a, "run_scan", nsteps=3)
+    _graph_loop(b, "run_scan", nsteps=3)
+    for m in (a, b):
+        m.params = m.params._replace(watsat=m.params.watsat * 0.95)
+    with disable_graphs():
+        want = _graph_loop(a, "run_scan_series", 4, later)
+    got = _graph_loop(b, "run_scan_series", 4, later)
+    assert len(b._graphs.captures) == 2
+    _assert_same(a.state, b.state)
+    _assert_same(want, got)
