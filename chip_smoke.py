@@ -37,6 +37,15 @@ an eager run of the same steps:
    a CUDA graph and replayed) (:func:`k2_test_phase`: K2's ms against its
    bound, its lanes' use, the plain loop's wall and device ms; K2's
    registers, spills and resident warps an SM in all six instantiations);
+   holds ``snow_hydrology`` (K5, the snow-hydrology block: percolation,
+   compaction, combine, divide, aging) bit for bit against
+   ``snow_hydrology_block_plain`` at 262,144 columns of seeded snow (0-5
+   layers, every branch) in float64 and float32, with the pinned radius
+   and ELM's aging (and 0-d deposition rates once), and against itself (a
+   second launch, a launch captured in a CUDA graph and replayed)
+   (:func:`k5_test_phase`: K5's ms against its bound, the plain block's
+   wall and device ms and launches; K5's registers, spills and resident
+   warps in its four instantiations);
    and times each wrapper's host side (:func:`entry_overhead`, K2's
    included);
 4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
@@ -48,11 +57,12 @@ an eager run of the same steps:
    and eager in turns (three pairs, each from a fresh model, every final
    state bit for bit), for ms/step after the first two steps (the eager
    first step and the capture), columns/s, the conservation contracts and
-   each kernel's launches: K2 once a step, K4, and no K1 (K2 inlines it);
-   then 12 steps around noon
+   each kernel's launches: K2 and K5 once a step, K4, and no K1 (K2
+   inlines it); then 12 steps around noon
    again with each launch timed by CUDA events on the main path's own
-   inputs (:class:`MainPathTimes`), K2's first calls held against the
-   plain loop bit for bit; then the same model in float32
+   inputs (:class:`MainPathTimes`), K2's and K5's first calls held
+   against their plain versions bit for bit; then the same model in
+   float32
    (``dtype=torch.float32``) 12 steps at noon, each K2 and
    ``pdma_solve_f32`` launch timed and their first calls held against the
    plain versions bit for bit (errsol and errlon under 1e-3, as
@@ -63,7 +73,8 @@ an eager run of the same steps:
    48 steps further twice from that state: as before (the reference's
    pinned grain radius) and in a ``Model(elm_correct_snow_aging=True)``
    given a copy of the state, whose layered columns' radii must age
-   within [SNW_RDS_MIN, SNW_RDS_MAX];
+   within [SNW_RDS_MIN, SNW_RDS_MAX]; then each 2 steps further with K5's
+   calls on the live layers held against the plain block bit for bit;
 7. reference formats: the main path's model built from the synthetic
    optics written as the reference's SnowOptics text fixture
    (``ops.testing.write_snow_optics_text``) and from the same tables as
@@ -180,7 +191,9 @@ an eager run of the same steps:
    K2's entry, ``canopy_stability``, from the main path (``f32_*`` on the
    float32 path, ``test_cases`` each mode and type, its lanes' use on the
    test problems and on each path's kept calls, its wrapper's host us a
-   call); K1's and K1-T's
+   call); K5's, ``snow_hydrology``, likewise (``winter_*`` on the winter
+   path's live layers, ``path_checks`` the kept calls of each path);
+   K1's and K1-T's
    entries from the sensitivity path, ``sens_noon_*`` from its noon step;
    ``refformats_*`` on the reference formats phase's text-optics model;
    ``shard_*`` per rank of the sharded runs; ``ingest_launches`` and
@@ -251,6 +264,20 @@ K2_GUARD_CYCLES = 10_000_000
 # entry_overhead times K2's wrapper at this width, where its launch is
 # shorter than its host side
 K2_HOST_NCOL = 256
+# K5's test problems (ops.testing.snow_problem): the width, the seed and
+# the reps of its timing; the main-path phases keep this many of its calls
+# (one a step) and hold them against the plain block
+K5_NCOL, K5_SEED, K5_REPS = 262144, 2024, 20
+K5_KEPT = 2
+# K5's operations a column, counting each arithmetic operation, compare,
+# select and transcendental call as one: percolation and the fluxes
+# (~250), deposition and the BC phase change (~60), compaction (~300),
+# combine (~350), divide (~300), the aerosol concentrations (~75) and
+# ELM's aging (~300; the pinned radius ~15)
+K5_COLUMN_FLOPS = 1600
+# the winter path runs this many steps under K5's timer after its aging
+# runs, pinned and live, and holds the kept calls against the plain block
+K5_WINTER_STEPS = 2
 
 
 def phase(msg: str) -> None:
@@ -785,6 +812,277 @@ def k2_test_phase() -> dict:
     return dict(cases=cases, registers=regs)
 
 
+# ---- K5, the snow-hydrology block ------------------------------------------
+
+# check_k5_on_path's result on each path, by label
+K5_PATHS = {}
+
+
+def k5_timer(keep: int = 0):
+    """MainPathTimes of K5, keeping its first ``keep`` calls.  Its wrapper
+    checks ~50 tensors on the host before the launch, so its timer holds
+    the card as long as K2's."""
+    from elmkernels_torch.ops import snow
+    return MainPathTimes(snow, "snow_hydrology", k5_bound, keep=keep,
+                         guard_cycles=K2_GUARD_CYCLES)
+
+
+def k5_bound(call: dict, out):
+    """(bytes ms, operations ms) of one K5 launch.  Bytes: each [ncol]
+    input read once (a 0-d one not at all), of the layered inputs the
+    positions the kernel reads (every row of the six layer fields, which
+    it copies through, the 5 snow positions of the others and of
+    ``imelt``), ``snl``, ``do_capsnow`` and the masks, the aging tables
+    once; each output written once.  Operations: K5_COLUMN_FLOPS a
+    column."""
+    from elmkernels_torch import constants as c
+    from elmkernels_torch.ops import snow
+    k = snow.kernel_inputs(call)
+    n, item = k.n, k.layers[0].element_size()
+    nlev, nsno = k.nlevtot, c.NLEVSNO
+    rows = dict(h2osoi_liq=nlev, h2osoi_ice=nlev, t_soisno=nlev, dz=nlev,
+                z=nlev, zi=nlev + 1)
+    per_col = sum(item for t in k.fields if t.dim())
+    per_col += sum(item * rows.get(name, nsno) for name in snow.LAYER_FIELDS)
+    per_col += 8 * (1 + nsno) + 8 * bool(k.do_capsnow.dim())
+    per_col += bool(k.soil_like.dim()) + bool(k.soil_crop.dim())
+    nbytes = n * per_col + sum(t.numel() * item for t in k.tables)
+    # writes: snl, the [ncol] outputs, the layers and the species
+    nspecies = len(k.layers) - len(rows) - 4
+    nbytes += n * (8 + item * (len(snow.OUT_FIELDS) + 5 * nlev + nlev + 1
+                               + nsno * (1 + 2 * nspecies)))
+    dtype = str(k.dtype).replace("torch.", "")
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            n * K5_COLUMN_FLOPS / PEAK_FLOPS[dtype] * 1e3)
+
+
+def k5_fields(out) -> dict:
+    d = out._asdict()
+    for k in ("mss", "cnc"):
+        d.update({f"{k}_{s}": v for s, v in d.pop(k).items()})
+    return d
+
+
+def k5_compare(got, want) -> tuple:
+    """(fields of K5's result that differ from the plain block's, largest
+    absolute difference of a floating field)."""
+    differing, worst = [], 0.0
+    g, w = k5_fields(got), k5_fields(want)
+    for f in w:
+        a, b = g[f], w[f]
+        if a.dtype != b.dtype or not same_bits(a, b):
+            differing.append(f)
+        if a.is_floating_point():
+            fin = a.isfinite() & b.isfinite()
+            if bool(fin.any()):
+                worst = max(worst, (a - b)[fin].abs().max().item())
+    return differing, worst
+
+
+def check_k5_on_path(kept, label: str) -> dict:
+    """K5's results on a path's own inputs (the calls a MainPathTimes
+    kept) against snow_hydrology_block_plain on the same inputs, bit for
+    bit: every output, NaNs in the same places; a second launch on each
+    call's inputs equal to the kept result bit for bit.  Records the layer
+    counts the calls saw."""
+    import torch
+    from elmkernels_torch.ops import snow
+    from elmkernels_torch.physics.snow_hydrology import \
+        snow_hydrology_block_plain
+    differing, relaunch, worst, n, modes = set(), set(), 0.0, 0, {}
+    layered_in = layered_out = 0
+    for call, got in kept:
+        want = snow_hydrology_block_plain(**call)
+        torch.cuda.synchronize()
+        diff, w = k5_compare(got, want)
+        differing.update(diff)
+        worst = max(worst, w)
+        relaunch.update(k5_compare(snow.snow_hydrology(**call), got)[0])
+        key = (("elm" if call["elm_correct_snow_aging"] else "pinned") + " "
+               + str(call["t_soisno"].dtype).replace("torch.", ""))
+        modes[key] = modes.get(key, 0) + 1
+        n += call["snl"].shape[0]
+        layered_in += int((call["snl"] > 0).sum())
+        layered_out += int((got.snl > 0).sum())
+    res = dict(label=label, calls=len(kept), columns=n, modes=modes,
+               layered_columns_in=layered_in, layered_columns_out=layered_out,
+               differing_fields=sorted(differing), max_abs=worst,
+               relaunch_differing_fields=sorted(relaunch))
+    phase("K5 snow_hydrology vs plain on the path's inputs: "
+          + json.dumps(res))
+    K5_PATHS[label] = res
+    if not kept or differing or relaunch:
+        raise AssertionError(f"snow_hydrology differs from its plain "
+                             f"version or from its own second launch on "
+                             f"the {label}: {res}")
+    return res
+
+
+def k5_registers() -> dict:
+    """K5's registers and spilled bytes a thread (``ptxas``) and resident
+    blocks an SM (``snow.layout``), for each of its four instantiations."""
+    import torch
+    from elmkernels_torch.ops import build, snow
+    report = build.ptxas_report("snow_hydrology")
+    regs = {}
+    for fn, body in re.findall(r"Compiling entry function '([^']*snow_"
+                               r"kernel[^']*)'[^\n]*\n(.*?)(?=Compiling|\Z)",
+                               report, re.S):
+        inst = re.search(r"snow_kernelI([fd])Lb([01])", fn)
+        dtype = "float32" if inst.group(1) == "f" else "float64"
+        elm = inst.group(2) == "1"
+        r = re.search(r"Used (\d+) registers", body)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       body)
+        lay = snow.layout(getattr(torch, dtype), elm)
+        regs[f"{dtype} {'elm' if elm else 'pinned'}"] = dict(
+            registers=int(r.group(1)) if r else None,
+            spill_stores=int(sp.group(1)) if sp else None,
+            spill_loads=int(sp.group(2)) if sp else None,
+            local_bytes=lay["local_bytes"],
+            warps_per_sm=lay["blocks_per_sm"] * lay["threads"] // 32)
+    phase("K5 snow_kernel registers, spills and resident warps an SM: "
+          + json.dumps(regs))
+    if len(regs) != 4:
+        raise AssertionError(f"ptxas reported {len(regs)} of K5's 4 "
+                             f"kernels: {report[-2000:]}")
+    return regs
+
+
+def k5_graph_replay(args) -> list:
+    """One K5 call captured in a CUDA graph and replayed: the fields that
+    differ from an eager call's on the same inputs (none expected)."""
+    import torch
+    from elmkernels_torch.ops import snow
+    eager = snow.snow_hydrology(**args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        snow.snow_hydrology(**args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = snow.snow_hydrology(**args)
+    graph.replay()
+    torch.cuda.synchronize()
+    differing, _ = k5_compare(captured, eager)
+    del graph
+    return differing
+
+
+def reduction_order() -> dict:
+    """The order in which PyTorch's CUDA ``sum`` and ``cumsum`` over 5
+    positions add, which K5 copies (``sum5``, ``cumsum5``): on seeded
+    [262,144, 5] rows in float64 and float32 (a third of the entries 0),
+    ``torch.sum(x, 1)`` must equal ((x0 + x4) + x2) + (x1 + x3) and
+    ``torch.cumsum(x, 1)``'s last two columns (x3 + x2) + (x1 + x0) and x4
+    plus that, bit for bit; the sequential orders are reported beside."""
+    import torch
+    g = torch.Generator().manual_seed(K5_SEED)
+    res = {}
+    for dtype in (torch.float64, torch.float32):
+        x = torch.rand(K5_NCOL, 5, generator=g, dtype=torch.float64) * 10 - 3
+        x = torch.where(torch.rand(K5_NCOL, 5, generator=g) < 0.3, 0.0, x)
+        x = x.to(dtype).cuda()
+        c = [x[:, i] for i in range(5)]
+        s, cs = torch.sum(x, 1), torch.cumsum(x, 1)
+        c3 = (c[3] + c[2]) + (c[1] + c[0])
+        res[str(dtype).replace("torch.", "")] = dict(
+            sum_as_k5=bool(torch.equal(s, ((c[0] + c[4]) + c[2])
+                                       + (c[1] + c[3]))),
+            sum_in_order=bool(torch.equal(
+                s, (((c[0] + c[1]) + c[2]) + c[3]) + c[4])),
+            cumsum_as_k5=bool(torch.equal(cs[:, 3], c3)
+                              and torch.equal(cs[:, 4], c[4] + c3)),
+            cumsum_in_order=bool(torch.equal(
+                cs[:, 3], ((c[0] + c[1]) + c[2]) + c[3])))
+    phase("K5 reduction order: " + json.dumps(res))
+    if not all(r["sum_as_k5"] and r["cumsum_as_k5"] for r in res.values()):
+        raise AssertionError(f"PyTorch's sum or cumsum over 5 positions no "
+                             f"longer adds as K5 does: {res}")
+    return res
+
+
+def k5_test_phase() -> dict:
+    """K5 against snow_hydrology_block_plain on seeded inputs
+    (``ops.testing.snow_problem``: 0-5 layers, every branch of the block)
+    at K5_NCOL columns in float64 and float32, with the pinned radius and
+    ELM's aging, bit for bit; float64 pinned also with 0-d deposition
+    rates (against the plain block on them expanded); on each, a second
+    launch and a launch captured in a CUDA graph and replayed equal to the
+    first bit for bit, K5's device ms a launch (CUDA events) against its
+    bound, the plain block's wall ms (host clock to a synchronize) and its
+    device ms and launches (torch.profiler); K5's registers, spills and
+    resident warps (:func:`k5_registers`); the order of PyTorch's sums
+    that K5 copies (:func:`reduction_order`)."""
+    import torch
+    from elmkernels_torch.ops import snow, testing
+    from elmkernels_torch.physics.snow_hydrology import \
+        snow_hydrology_block_plain
+    regs = k5_registers()
+    order = reduction_order()
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        for elm in (False, True):
+            for scalar in ((False, True) if dtype == torch.float64 and not elm
+                           else (False,)):
+                args = testing.snow_problem(K5_NCOL, K5_SEED, dtype, elm,
+                                            aero_scalar=scalar,
+                                            device="cuda")
+                plain_args = dict(args, aero_in={
+                    k: v.expand(K5_NCOL) for k, v in args["aero_in"].items()})
+                got = snow.snow_hydrology(**args)
+                want = snow_hydrology_block_plain(**plain_args)
+                torch.cuda.synchronize()
+                differing, worst = k5_compare(got, want)
+                again, _ = k5_compare(snow.snow_hydrology(**args), got)
+                res = dict(dtype=str(dtype).replace("torch.", ""),
+                           aging="elm" if elm else "pinned",
+                           aero_0d=scalar, differing_fields=differing,
+                           relaunch_differing_fields=again,
+                           graph_differing_fields=k5_graph_replay(args),
+                           max_abs=worst,
+                           snl_in={int(n): int((args["snl"] == n).sum())
+                                   for n in range(6)},
+                           snl_out={int(n): int((got.snl == n).sum())
+                                    for n in range(6)})
+                res["ms"] = cuda_ms(lambda: snow.snow_hydrology(**args),
+                                    K5_REPS)
+                t0 = time.perf_counter()
+                snow_hydrology_block_plain(**plain_args)
+                torch.cuda.synchronize()
+                res["plain_wall_ms"] = (time.perf_counter() - t0) * 1e3
+                res["plain_device_ms"], res["plain_launches"] = device_ms(
+                    lambda: snow_hydrology_block_plain(**plain_args))
+                t_bytes, t_ops = k5_bound(args, got)
+                res["bound_ms"] = max(t_bytes, t_ops)
+                res["bound_by"] = ("bytes" if t_bytes >= t_ops
+                                   else "operations")
+                res["share_of_bound"] = res["bound_ms"] / res["ms"]
+                phase("K5 snow_hydrology vs plain: " + json.dumps(res))
+                if differing or again or res["graph_differing_fields"]:
+                    raise AssertionError(f"snow_hydrology differs from its "
+                                         f"plain version or from itself: "
+                                         f"{res}")
+                cases.append(res)
+    return dict(cases=cases, registers=regs, reduction_order=order)
+
+
+def k5_winter(model, start, label: str, kernels: dict) -> dict:
+    """K5_WINTER_STEPS more steps of a winter model (live snow layers)
+    from ``start`` under K5's timer, its calls held against the plain
+    block (:func:`check_k5_on_path`)."""
+    t5 = k5_timer(keep=K5_WINTER_STEPS)
+    with t5:
+        reset(kernels)
+        model.run(start, K5_WINTER_STEPS)
+        counts(kernels, label, steps=K5_WINTER_STEPS)
+    res = check_k5_on_path(t5.kept, label)
+    if not res["layered_columns_in"]:
+        raise AssertionError(f"{label}: no snow layers reached K5")
+    return dict(res, on_path=t5.summary())
+
+
 class K2ModeSpy:
     """Counts the photosynthesis modes ``canopy_stability`` is called with
     while installed in its module's place (``with``); ``launches`` passes
@@ -928,7 +1226,8 @@ def reset(kernels: dict) -> None:
 def counts(kernels: dict, label: str, steps: int | None = None) -> dict:
     """Each kernel's launches since ``reset``; fails if one of them was
     not launched, or, where K2 runs the canopy loop, if K1 (inlined in it)
-    was, and, given the run's ``steps``, unless K2 launched once a step."""
+    was, and, given the run's ``steps``, unless K2 and K5 (where counted)
+    launched once a step."""
     launches = {name: fn.launches for name, fn in kernels.items()}
     for name, count in launches.items():
         if name in INLINED_IN_K2 and "canopy_stability" in launches:
@@ -939,9 +1238,12 @@ def counts(kernels: dict, label: str, steps: int | None = None) -> dict:
         elif count == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label}")
-    if steps is not None and launches.get("canopy_stability") != steps:
-        raise AssertionError(f"K2 launched {launches} times in {steps} "
-                             f"steps on the {label}, not once a step")
+    for name in ("canopy_stability", "snow_hydrology"):
+        if (steps is not None and name in launches
+                and launches[name] != steps):
+            raise AssertionError(f"{name} launched {launches} times in "
+                                 f"{steps} steps on the {label}, not once "
+                                 f"a step")
     return launches
 
 
@@ -1079,10 +1381,11 @@ def main_path(files, kernels: dict):
     return first[0], first[1], res
 
 
-def timed_summaries(t2, t4, launches: dict, label: str) -> dict:
-    """Per-launch times of a timed run; every launch of K2 and K4 must
+def timed_summaries(t2, t4, t5, launches: dict, label: str) -> dict:
+    """Per-launch times of a timed run; every launch of K2, K4 and K5 must
     have been timed."""
-    on_path = {"canopy_stability": t2.summary(), "pdma_solve": t4.summary()}
+    on_path = {"canopy_stability": t2.summary(), "pdma_solve": t4.summary(),
+               "snow_hydrology": t5.summary()}
     phase(f"kernels on the {label}: " + json.dumps(on_path))
     for name, count in launches.items():
         if name in on_path and count != on_path[name]["calls"]:
@@ -1109,9 +1412,9 @@ def k1_timer(keep: int = 0):
 
 
 def timers(keep: int = 0, keep_pdma: int = 0, f32_pdma: bool = False):
-    """MainPathTimes of K2 and K4 (``pdma_solve_f32`` with ``f32_pdma``),
-    for ``with``; they keep the inputs and results of their first ``keep``
-    and ``keep_pdma`` calls."""
+    """MainPathTimes of K2, K4 (``pdma_solve_f32`` with ``f32_pdma``) and
+    K5, for ``with``; they keep the inputs and results of their first
+    ``keep`` (K2 and K5) and ``keep_pdma`` calls."""
     from elmkernels_torch.ops import canopy, pdma
     name, dtype = (("pdma_solve_f32", "float32") if f32_pdma
                    else ("pdma_solve", "float64"))
@@ -1119,7 +1422,8 @@ def timers(keep: int = 0, keep_pdma: int = 0, f32_pdma: bool = False):
                           keep=keep, guard_cycles=K2_GUARD_CYCLES),
             MainPathTimes(pdma, name,
                           lambda a, out: pdma_bound(a[0].shape[0], dtype),
-                          keep=keep_pdma))
+                          keep=keep_pdma),
+            k5_timer(keep))
 
 
 # the sharded phase: the loops phase's run_windows, its oracle saved here;
@@ -1439,13 +1743,14 @@ def production_loop(files, inputs: dict, kernels: dict):
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 7, 3)
     noon.increment_seconds(18 * int(m.dtime))
-    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4:
+    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4, t5:
         reset(kernels)
         m.run_windows(noon, 12, window=12, series=True)
         timed = counts(kernels, "production loop, timed", steps=12)
-    on_prod = timed_summaries(t2, t4, timed, "production loop")
+    on_prod = timed_summaries(t2, t4, t5, timed, "production loop")
     check_k2_on_path(t2.kept, "production loop")
+    check_k5_on_path(t5.kept, "production loop")
     check_pdma_on_path(t4.kept, "production loop")
     return res, launches, on_prod
 
@@ -1590,17 +1895,17 @@ def reference_formats(files, snowy_state, kernels: dict) -> dict:
 
     later = start.copy()
     later.increment_seconds(REFFORMATS_STEPS * int(mt.dtime))
-    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4:
+    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4, t5:
         reset(kernels)
         mt.run_windows(later, REFFORMATS_TIMED, window=REFFORMATS_TIMED,
                        series=True)
         timed = counts(kernels, "reference formats, timed",
                        steps=REFFORMATS_TIMED)
-    on_path = timed_summaries(t2, t4, timed, "reference formats")
+    on_path = timed_summaries(t2, t4, t5, timed, "reference formats")
     res["k2"] = check_k2_on_path(t2.kept, "reference formats")
     res["k4"] = check_pdma_on_path(t4.kept, "reference formats")
-    del t2, t4
+    del t2, t4, t5
 
     # the single-flag sweeps against the stacked one, on the text optics
     seeded = testing.snicar_problem(REFFORMATS_NCOL, 11)
@@ -1664,7 +1969,8 @@ def winter_aging(model, files, kernels: dict) -> dict:
     pinned radius), and a copy of its state as far in a model with live
     snow aging: contracts in both; on the aging run's layered columns the
     radii lie in [SNW_RDS_MIN, SNW_RDS_MAX] and differ from the pinned
-    run's."""
+    run's.  Then each model K5_WINTER_STEPS further with K5's calls held
+    against the plain block on the live layers (:func:`k5_winter`)."""
     import torch
     from elmkernels_torch import constants as c
     from elmkernels_torch.driver.model import Model
@@ -1702,6 +2008,12 @@ def winter_aging(model, files, kernels: dict) -> dict:
             and res["snw_rds_max"] > c.SNW_RDS_MIN):
         raise AssertionError(f"the snow grains did not age as they "
                              f"should: {res}")
+    later = start.copy()
+    later.increment_seconds(WINTER_MORE * int(model.dtime))
+    res["k5"] = {"pinned": k5_winter(model, later.copy(),
+                                     "winter path, pinned radius", kernels),
+                 "elm": k5_winter(aged, later.copy(),
+                                  "winter path, snow aging", kernels)}
     return res
 
 
@@ -1829,13 +2141,14 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 1, 3)
     noon.increment_seconds(18 * int(m.dtime))
-    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4:
+    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4, t5:
         reset(kernels)
         m.run_windows(noon, 12, window=12, series=True)
         timed = counts(kernels, "landunits, timed", steps=12)
-    on_land = timed_summaries(t2, t4, timed, "landunits")
+    on_land = timed_summaries(t2, t4, t5, timed, "landunits")
     check_k2_on_path(t2.kept, "landunits")
+    check_k5_on_path(t5.kept, "landunits")
     check_pdma_on_path(t4.kept, "landunits")
     return res, launches, on_land
 
@@ -2436,14 +2749,15 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
     must not launch under run_jvp, and K1 and K1-T must."""
     import torch
     from elmkernels_torch.driver import sensitivity as sens
-    from elmkernels_torch.ops import canopy, ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
     from elmkernels_torch.physics import photosynthesis as psn
     from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
     m, start, forc, phen = sens_model(files, inputs)
     kernels = {"canopy_stability": canopy.canopy_stability,
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                "ci_hybrid_solve_jvp": ci_solver.ci_hybrid_solve_jvp,
-               "pdma_solve": pdma.pdma_solve}
+               "pdma_solve": pdma.pdma_solve,
+               "snow_hydrology": snow.snow_hydrology}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2458,11 +2772,12 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
         m, start, SENS_STEPS, seed_forcing=sens.seed_field("tbot"),
         forc_stack=forc, phen_stack=phen))
     launches = {k: fn.launches for k, fn in kernels.items()}
-    if (launches["canopy_stability"] or not all(
-            launches[k] for k in ("ci_hybrid_solve", "ci_hybrid_solve_jvp",
-                                  "pdma_solve"))):
+    if (launches["canopy_stability"] or launches["snow_hydrology"]
+            or not all(launches[k] for k in (
+                "ci_hybrid_solve", "ci_hybrid_solve_jvp", "pdma_solve"))):
         raise AssertionError(f"on the sensitivity path K1, K1-T and K4 "
-                             f"must launch and K2 must not: {launches}")
+                             f"must launch and K2 and K5 must not: "
+                             f"{launches}")
 
     t1 = k1_timer(SENS_CI_KEPT)
     t1t = k1t_timer(SENS_CI_KEPT)
@@ -2641,10 +2956,11 @@ def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
     phase("K1-T on the sensitivity path at noon: " + json.dumps(res))
     if not (launches and profiles and res["bit_for_bit"] and primal_finite
             and max(res["enabled_share"]) > 0
-            and not all_launches.get("canopy_stability")):
+            and not all_launches.get("canopy_stability")
+            and not all_launches.get("snow_hydrology")):
         raise AssertionError(f"K1-T at noon: not launched, no enabled leaf, "
-                             f"K2 launched, or disagrees with its plain "
-                             f"version: {res}")
+                             f"K2 or K5 launched, or disagrees with its "
+                             f"plain version: {res}")
     return dict(res=res, on_path=on_path, launches=launches,
                 profiles=profiles, k1_on_path=k1_on_path,
                 all_launches=all_launches)
@@ -2652,13 +2968,13 @@ def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
 
 def float32_path(files) -> dict:
     """The main path's model in float32 (the JAX package's all-float32
-    mode), 12 steps around noon with each K2 and K4 launch timed (K2's
-    float32 instantiation, ``pdma_solve_f32``) and their first calls held
+    mode), 12 steps around noon with each K2, K4 and K5 launch timed (the
+    float32 instantiations, ``pdma_solve_f32``) and their first calls held
     against the plain versions in float32 bit for bit; the contracts of
     test_f32_drift.py."""
     import torch
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import canopy, ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
     from elmkernels_torch.utils.dates import Date
     m = Model(ncol=F32_NCOL, pft_path=str(files[0]),
               snicar_path=str(files[1]), dtype=torch.float32)
@@ -2666,7 +2982,8 @@ def float32_path(files) -> dict:
     start.increment_seconds(18 * int(m.dtime))
     kernels = {"canopy_stability": canopy.canopy_stability,
                "pdma_solve_f32": pdma.pdma_solve_f32,
-               "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
+               "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
+               "snow_hydrology": snow.snow_hydrology}
     # the same steps replayed from the captured step, from a twin, with no
     # timer installed: the timed (eager) run must end in its state
     twin = Model(ncol=F32_NCOL, pft_path=str(files[0]),
@@ -2680,14 +2997,14 @@ def float32_path(files) -> dict:
                     launches=counts(kernels, "float32 path, replayed",
                                     steps=F32_STEPS),
                     graph=graph_info(twin))
-    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT, f32_pdma=True)
+    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT, f32_pdma=True)
     worst = {"errsol": 0.0, "errlon": 0.0}
 
     def cb(date, state, d):
         for k in worst:
             worst[k] = max(worst[k], getattr(d, k).abs().max().item())
 
-    with t2, t4:
+    with t2, t4, t5:
         reset(kernels)
         pdma.pdma_solve.launches = 0
         torch.cuda.synchronize()
@@ -2698,14 +3015,16 @@ def float32_path(files) -> dict:
         launches = counts(kernels, "float32 path", steps=F32_STEPS)
     on_path = t4.summary()
     on_path_k2 = t2.summary()
+    on_path_k5 = t5.summary()
     k2 = check_k2_on_path(t2.kept, "float32 path")
+    k5 = check_k5_on_path(t5.kept, "float32 path")
     k4 = check_pdma_on_path(t4.kept, "float32 path")
     res = dict(label="float32 path", ncol=F32_NCOL, steps=F32_STEPS,
                dtype=str(m.state.t_grnd.dtype), wall_s=wall,
                ms_per_step_under_timers=wall / F32_STEPS * 1e3,
                launches=launches, float64_k4_launches=pdma.pdma_solve.launches,
                finite=finite(m.state), on_path=on_path,
-               on_path_k2=on_path_k2, replayed=dict(
+               on_path_k2=on_path_k2, on_path_k5=on_path_k5, replayed=dict(
                    replayed, ms_per_step=replayed["wall_s"] / F32_STEPS * 1e3,
                    state_fields_differing=same_state(m.state, twin.state)),
                **worst)
@@ -2719,8 +3038,9 @@ def float32_path(files) -> dict:
             and pdma.pdma_solve.launches == 0
             and max(worst.values()) < F32_ERR_BOUND):
         raise AssertionError(f"the float32 path failed: {res}")
-    return dict(res=res, on_path=on_path, on_path_k2=on_path_k2, k2=k2,
-                k4=k4, launches=launches)
+    return dict(res=res, on_path=on_path, on_path_k2=on_path_k2,
+                on_path_k5=on_path_k5, k2=k2, k4=k4, k5=k5,
+                launches=launches)
 
 
 def free_port() -> int:
@@ -2767,7 +3087,7 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     from elmkernels_torch import parallel
     from elmkernels_torch.data.state import ModelState
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import canopy, ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
     from elmkernels_torch.utils.dates import Date
     spec = json.loads((SHARD_DIR / "spec.json").read_text())
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
@@ -2789,7 +3109,8 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
 
     kernels = {"canopy_stability": canopy.canopy_stability,
                "pdma_solve": pdma.pdma_solve,
-               "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
+               "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
+               "snow_hydrology": snow.snow_hydrology}
     # replayed from the rank's own captured step, with no timer installed
     m = model()
     reset(kernels)
@@ -2801,12 +3122,12 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     launches = counts(kernels, label, steps=LOOPS_STEPS)
     # the same run, eager under the timers (which disable the graphs)
     eager = model()
-    t2, t4 = timers(keep=1, keep_pdma=1)
-    with t2, t4:
+    t2, t4, t5 = timers(keep=1, keep_pdma=1)
+    with t2, t4, t5:
         reset(kernels)
         d_eager = run(eager)
         timed = counts(kernels, f"{label}, eager", steps=LOOPS_STEPS)
-    on_path = timed_summaries(t2, t4, timed, label)
+    on_path = timed_summaries(t2, t4, t5, timed, label)
     k2 = check_k2_on_path(t2.kept, label)
     k4 = check_pdma_on_path(t4.kept, label)
     torch.save(dict(
@@ -3247,7 +3568,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from elmkernels_torch.ops import build, canopy, ci_solver, pdma
+    from elmkernels_torch.ops import build, canopy, ci_solver, pdma, snow
 
     t_script = time.perf_counter()
     laps, t_lap = {}, [t_script]
@@ -3294,6 +3615,7 @@ def main() -> int:
     check_ci(n_leaves, "mixed", torch.float32, 1e-5, time_it=False)
     k1t_test = k1t_test_phase()
     k2_test = k2_test_phase()
+    k5_test = k5_test_phase()
     k4 = check_pdma(262144)
     k4f = check_pdma(262144, torch.float32)
     overhead = entry_overhead()
@@ -3305,19 +3627,21 @@ def main() -> int:
     # solves inlined: K1 must not launch there) and K4 the soil column
     wrappers = {"canopy_stability": canopy.canopy_stability,
                 "pdma_solve": pdma.pdma_solve,
-                "ci_hybrid_solve": ci_solver.ci_hybrid_solve}
+                "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
+                "snow_hydrology": snow.snow_hydrology}
     # end-to-end numbers from a run with no timer installed; the kernels'
     # times per launch from 12 steps around noon under the timers
     main_run, launches, main_pairs = main_path(files, wrappers)
     lap("main path")
-    t2, t4 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4:
+    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
+    with t2, t4, t5:
         _, timed, _ = drive(262144, 7, 12, files, "main path, timed",
                             wrappers, start_step=18)
-    on_path = timed_summaries(t2, t4, timed, "main path")
+    on_path = timed_summaries(t2, t4, t5, timed, "main path")
     k2_path = check_k2_on_path(t2.kept, "main path")
     k4_path = check_pdma_on_path(t4.kept, "main path")
-    del t2, t4
+    check_k5_on_path(t5.kept, "main path")
+    del t2, t4, t5
     lap("main path, timed")
     f32 = float32_path(files)
     lap("float32 path")
@@ -3326,10 +3650,10 @@ def main() -> int:
     if winter["snl_max"] == 0:
         raise AssertionError("winter path made no snow layers")
     lap("winter path")
-    winter_aging(winter_model, files, wrappers)
+    winter_k5 = winter_aging(winter_model, files, wrappers)["k5"]
+    lap("winter aging")
     snowy = clone(winter_model.state)
     del winter_model
-    lap("winter aging")
     refformats, on_ref = reference_formats(files, snowy, wrappers)
     del snowy
     lap("reference formats")
@@ -3389,6 +3713,8 @@ def main() -> int:
     k2t = next(c for c in k2_test["cases"] if c["mode"] == "mixed"
                and c["dtype"] == "float32" and c["warm_start"])
     f32_k2 = f32["on_path_k2"]
+    k5t = next(c for c in k5_test["cases"] if c["dtype"] == "float64"
+               and c["aging"] == "pinned" and not c["aero_0d"])
     k1s, k1n = on_sens["ci_hybrid_solve"], sens["noon"]["k1_on_path"]
     kernels = [
         dict(name="canopy_stability", route="cuda",
@@ -3446,6 +3772,45 @@ def main() -> int:
              land_launches=land_launches["ci_hybrid_solve"],
              refformats_launches=refformats["text"]["launches"][
                  "ci_hybrid_solve"]),
+        # K5 runs the snow-hydrology block once a step on every model path
+        # (the main path's float64 block with the pinned radius; ELM's aging
+        # on the landunits and winter paths); its test-problem numbers are
+        # the main path's configuration
+        dict(name="snow_hydrology", route="cuda",
+             source="elmkernels_torch/csrc/snow_hydrology.cu",
+             replaces="elmkernels_tpu/physics/snow_hydrology.py:57",
+             max_abs_err=max([c["max_abs"] for c in k5_test["cases"]]
+                             + [r["max_abs"] for r in K5_PATHS.values()]),
+             library_ms=None, plain_device_ms=k5t["plain_device_ms"],
+             plain_launches=k5t["plain_launches"],
+             registers_and_spills=k5_test["registers"],
+             host_ms_median_on_path=on_path["snow_hydrology"][
+                 "host_ms_median"],
+             second_launch_and_graph_replay_bit_for_bit=not any(
+                 c["relaunch_differing_fields"] or c["graph_differing_fields"]
+                 for c in k5_test["cases"]),
+             test_cases=[{k: c[k] for k in (
+                 "dtype", "aging", "aero_0d", "ms", "bound_ms", "bound_by",
+                 "share_of_bound", "plain_wall_ms", "plain_device_ms",
+                 "plain_launches")} for c in k5_test["cases"]],
+             path_checks={label: dict(calls=r["calls"], modes=r["modes"],
+                                      layered_columns_in=r[
+                                          "layered_columns_in"])
+                          for label, r in K5_PATHS.items()},
+             f32_launches=f32["launches"]["snow_hydrology"],
+             f32_ms=f32["on_path_k5"]["ms"],
+             f32_bound_ms=f32["on_path_k5"]["bound_ms"],
+             f32_share_of_bound=f32["on_path_k5"]["share_of_bound"],
+             winter_ms={k: v["on_path"]["ms"] for k, v in winter_k5.items()},
+             winter_bound_ms={k: v["on_path"]["bound_ms"]
+                              for k, v in winter_k5.items()},
+             sens_launches=sens_launches["snow_hydrology"],
+             sens_noon_launches=sens["noon"]["all_launches"][
+                 "snow_hydrology"],
+             **numbers("snow_hydrology", dict(
+                 plain_ms=k5t["plain_wall_ms"], test_ms=k5t["ms"],
+                 test_bound_ms=k5t["bound_ms"],
+                 test_share_of_bound=k5t["share_of_bound"]))),
         dict(name="pdma_solve", route="cuda",
              source="elmkernels_torch/csrc/pdma_solve.cu",
              replaces="elmkernels_tpu/physics/soil_temperature.py:282",

@@ -7,7 +7,8 @@ the flux phase (bare-ground and canopy Monin-Obukhov iterations with the
 photosynthesis root solve) and the column phase (soil/snow temperature
 solve, phase change, snow hydrology, surface fluxes, conservation
 diagnostics).  Tensors live on the device of the state; on the card the
-ci root solve and the pentadiagonal solve are CUDA kernels.
+canopy stability loop (K2, the ci solve inlined), the pentadiagonal solve
+(K4) and the snow-hydrology block (K5) are CUDA kernels.
 """
 
 from __future__ import annotations
@@ -586,67 +587,34 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
 
     # ---- snow_hydrology ----
     snl_sw, fse_sw = snl, frac_sno_eff  # inputs snow_water acts with
-    sw = sh.snow_water(land, do_capsnow, snl, dtime, frac_sno_eff, h2osno,
-                       s.qflx_sub_snow, s.qflx_evap_grnd, s.qflx_dew_snow,
-                       s.qflx_dew_grnd, gf.qflx_rain_grnd, pc2.qflx_snomelt,
-                       pc2.qflx_snow_melt, int_snow, frac_sno, h2osoi_liq,
-                       h2osoi_ice, s.mss, dz)
     # deposition rates: monthly-interpolated (StepForcing.aero) when a
     # deposition climatology is wired, else the static params
     if forcing.aero is None:
         aero_in = p.aero_in
     else:
         aero_in = {k: forcing.aero[i] for i, k in enumerate(AERO_DEP_KEYS)}
-    mss = sh.compute_aerosol_deposition(dtime, snl, aero_in, sw.mss)
-    bcphi, bcpho = sh.aerosol_phase_change(snl, dtime, s.qflx_sub_snow,
-                                           sw.h2osoi_liq, sw.h2osoi_ice,
-                                           mss["bcphi"], mss["bcpho"])
-    mss = dict(mss, bcphi=bcphi, bcpho=bcpho)
     qflx_rootsoi = sh.transpiration(veg_active, cf_stab.qflx_tran_veg,
                                     fl.rootr)
-    dz = sh.snow_compaction(land, snl, dtime, sw.int_snow, p.n_melt,
-                            sw.frac_sno, pc2.imelt, sfo.swe_old,
-                            sw.h2osoi_liq, sw.h2osoi_ice, t_soisno,
-                            sfo.frac_iceold, sw.dz)
-    st = sh.SnowState(snl, t_soisno, sw.h2osoi_ice, sw.h2osoi_liq,
-                      sfo.snw_rds, mss, dz, z, zi)
-    cb = sh.combine_layers(land, dtime, st, h2osno, snow_depth,
-                           frac_sno_eff, sw.frac_sno, sw.int_snow)
-    # ELM proper combines only over the snowc filter (columns WITH snow
-    # layers); layerless columns pass their pack scalars through
-    nolyr = snl == 0
-    cb = cb._replace(
-        h2osno=torch.where(nolyr, h2osno, cb.h2osno),
-        snow_depth=torch.where(nolyr, snow_depth, cb.snow_depth),
-        frac_sno=torch.where(nolyr, sw.frac_sno, cb.frac_sno),
-        frac_sno_eff=torch.where(nolyr, frac_sno_eff, cb.frac_sno_eff),
-        int_snow=torch.where(nolyr, sw.int_snow, cb.int_snow),
-        qflx_sl_top_soil=torch.where(nolyr, 0.0, cb.qflx_sl_top_soil),
-        qflx_snow2topsoi=torch.where(nolyr, 0.0, cb.qflx_snow2topsoi),
-        mflx_snowlyr_col=torch.where(nolyr, 0.0, cb.mflx_snowlyr_col))
-    st = sh.divide_layers(cb.frac_sno, cb.state)
-    st = sh.prune_snow_layers(st)
-    mss2, cnc = sh.update_aerosol_mass_and_concen(
-        dtime, st.snl, do_capsnow, gf.qflx_snwcp_ice, st.ice, st.liq,
-        st.mss)
-    if elm_correct_snow_aging:
-        snw_rds = sh.snow_aging(do_capsnow, st.snl, cb.frac_sno, dtime,
-                                gf.qflx_snwcp_ice, gf.qflx_snow_grnd,
-                                cb.h2osno, st.dz, st.liq, st.ice, st.t,
-                                pc2.qflx_snofrz_lyr, p.snowage_tau,
-                                p.snowage_kappa, p.snowage_drdt0, st.rds,
-                                elm_correct_clamp=True)
-    else:
-        # the reference's double clamp pins every radius: the same result
-        # without the table work (snow_hydrology.snow_aging_pinned)
-        snw_rds = sh.snow_aging_pinned(st.snl, cb.h2osno, st.rds)
-    snl, t_soisno = st.snl, st.t
-    h2osoi_ice, h2osoi_liq = st.ice, st.liq
-    dz, z, zi = st.dz, st.z, st.zi
-    h2osno, snow_depth = cb.h2osno, cb.snow_depth
-    frac_sno, frac_sno_eff = cb.frac_sno, cb.frac_sno_eff
-    int_snow = cb.int_snow
-    qflx_snow_melt = sw.qflx_snow_melt
+    # percolation, compaction, combine, divide, prune, aerosol
+    # concentrations and aging: K5 on the card
+    sb = sh.snow_hydrology_block(
+        land, dtime, do_capsnow, snl, frac_sno_eff, frac_sno, h2osno,
+        snow_depth, int_snow, s.qflx_sub_snow, s.qflx_evap_grnd,
+        s.qflx_dew_snow, s.qflx_dew_grnd, gf.qflx_rain_grnd,
+        pc2.qflx_snomelt, pc2.qflx_snow_melt, h2osoi_liq, h2osoi_ice,
+        t_soisno, dz, z, zi, s.mss, aero_in, p.n_melt, pc2.imelt,
+        sfo.swe_old, sfo.frac_iceold, sfo.snw_rds, gf.qflx_snwcp_ice,
+        gf.qflx_snow_grnd, pc2.qflx_snofrz_lyr, p.snowage_tau,
+        p.snowage_kappa, p.snowage_drdt0,
+        elm_correct_snow_aging=elm_correct_snow_aging)
+    mss2, cnc, snw_rds = sb.mss, sb.cnc, sb.snw_rds
+    snl, t_soisno = sb.snl, sb.t_soisno
+    h2osoi_ice, h2osoi_liq = sb.h2osoi_ice, sb.h2osoi_liq
+    dz, z, zi = sb.dz, sb.z, sb.zi
+    h2osno, snow_depth = sb.h2osno, sb.snow_depth
+    frac_sno, frac_sno_eff = sb.frac_sno, sb.frac_sno_eff
+    int_snow = sb.int_snow
+    qflx_snow_melt = sb.qflx_snow_melt
 
     # ---- surface_fluxes ----
     snotop2 = c.NLEVSNO - snl
@@ -686,7 +654,7 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
     errh2osno = ce.snow_water_balance_error(
         snl, sfu.qflx_dew_snow, sfu.qflx_dew_grnd, sfu.qflx_sub_snow,
         sfu.qflx_evap_grnd, qflx_snow_melt, sfu.qflx_snwcp_ice,
-        sfu.qflx_snwcp_liq, cb.qflx_sl_top_soil, frac_sno_eff,
+        sfu.qflx_snwcp_liq, sb.qflx_sl_top_soil, frac_sno_eff,
         gf.qflx_rain_grnd, gf.qflx_snow_grnd, pc1.qflx_h2osfc_to_ice,
         h2osno, sfo.h2osno_old, dtime, do_capsnow)
     # the snow balance re-timed to the fluxes snow_water applied: the
@@ -695,12 +663,12 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
     errh2osno_app = ce.snow_water_balance_error(
         snl, s.qflx_dew_snow, s.qflx_dew_grnd, s.qflx_sub_snow,
         s.qflx_evap_grnd, qflx_snow_melt, gf.qflx_snwcp_ice,
-        gf.qflx_snwcp_liq, cb.qflx_sl_top_soil, fse_sw,
+        gf.qflx_snwcp_liq, sb.qflx_sl_top_soil, fse_sw,
         gf.qflx_rain_grnd, gf.qflx_snow_grnd, pc1.qflx_h2osfc_to_ice,
         h2osno, sfo.h2osno_old, dtime, do_capsnow)
     # the negative-liquid walk's pack export is a source term
     errh2osno_app = errh2osno_app + torch.where(
-        snl > 0, sw.mflx_neg_snow * dtime, 0.0)
+        snl > 0, sb.mflx_neg_snow * dtime, 0.0)
     # layer-count transitions are accounting events: steady steps balance
     errh2osno_steady = torch.where(snl == s.snl, errh2osno_app, 0.0)
     # closed water ledger: re-charge the terms the stores were actually
@@ -715,9 +683,9 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
                            fse_sw * (s.qflx_evap_grnd - s.qflx_dew_grnd
                                      - rain_led))
     canopy_appl = cf_stab.qflx_evap_veg - cf_stab.qflx_tran_veg
-    out_applied = (ice_appl + liq_appl + canopy_appl + sw.qflx_top_soil
+    out_applied = (ice_appl + liq_appl + canopy_appl + sb.qflx_top_soil
                    + sfu.qflx_snwcp_liq + sfu.qflx_snwcp_ice
-                   + sw.mflx_neg_snow)
+                   + sb.mflx_neg_snow)
     errh2o_led = errh2o - (sfu.qflx_evap_tot + sfu.qflx_snwcp_ice
                            - out_applied) * dtime
 
@@ -753,12 +721,12 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
         eflx_lwrad_out=lw.eflx_lwrad_out, eflx_lwrad_net=lw.eflx_lwrad_net,
         qflx_evap_tot=sfu.qflx_evap_tot,
         qflx_tran_veg=cf_stab.qflx_tran_veg,
-        qflx_top_soil=sw.qflx_top_soil, qflx_rootsoi=qflx_rootsoi,
-        qflx_sl_top_soil=cb.qflx_sl_top_soil,
-        qflx_snow2topsoi=cb.qflx_snow2topsoi,
+        qflx_top_soil=sb.qflx_top_soil, qflx_rootsoi=qflx_rootsoi,
+        qflx_sl_top_soil=sb.qflx_sl_top_soil,
+        qflx_snow2topsoi=sb.qflx_snow2topsoi,
         qflx_snwcp_liq=sfu.qflx_snwcp_liq,
         qflx_snwcp_ice=sfu.qflx_snwcp_ice,
-        mflx_snowlyr=cb.mflx_snowlyr_col, mflx_neg_snow=sw.mflx_neg_snow,
+        mflx_snowlyr=sb.mflx_snowlyr_col, mflx_neg_snow=sb.mflx_neg_snow,
         fsa=tot.fsa, fsr=sfo.fsr_out, t_ref2m=cf_cf.t_ref2m, errh2o=errh2o,
         errh2o_led=errh2o_led,
         errh2osno=errh2osno, errh2osno_steady=errh2osno_steady,

@@ -7,7 +7,8 @@ respiration, CO2/O2 partial pressures), with a share of leaves pushed to
 the edges where the secant search brackets a root (Brent) or runs out of
 iterations.  The pentadiagonal systems are diagonally dominant with 0-5
 identity-padded snow rows, like the soil/snow temperature system.  The
-SNICAR inputs hold columns with 0-5 snow layers.  Numbers come from
+SNICAR inputs hold columns with 0-5 snow layers, and so do the snow
+hydrology block's, with every branch of the block reached.  Numbers come from
 ``numpy.random.default_rng(seed)``, so the CPU tests and the card draw the
 same inputs.
 """
@@ -351,3 +352,137 @@ def canopy_problem(n: int, seed: int, mode: str = "c3", dtype=torch.float64,
             args[k] = v.to(device=device, dtype=dtype
                            if v.is_floating_point() else v.dtype)
     return args
+
+
+def snow_problem(n: int, seed: int, dtype=torch.float64,
+                 elm_correct_snow_aging: bool = False,
+                 aero_scalar: bool = False, urbpoi: bool = False,
+                 device="cpu") -> dict:
+    """Seeded arguments of ``physics.snow_hydrology.snow_hydrology_block``
+    for ``n`` columns (by name), made in float64 and cast to ``dtype``.
+
+    Columns hold 0-5 snow layers; some layerless columns carry a pack
+    (``h2osno > 0``).  Layers are drawn too thin and too thick for every
+    rung of the divide ladder (single layers above 0.03 m, the thickest
+    near 1 m), some with ice <= 0.01 at the top or the bottom of the pack
+    (and some that dissolve the pack), some with negative liquid at the
+    top and some so dense that percolation is blocked; temperatures sit on
+    both sides of freezing with melting and refreezing layers
+    (``imelt``, ``qflx_snofrz_lyr``).  Land units are drawn per column
+    among soil, crop, ice sheet, wetland and urban (``urbpoi`` makes every
+    column soil-like, as an urban domain is); a tenth of the columns cap
+    their snow (``do_capsnow``).  The deposition rates are [n] (a monthly
+    climatology, as the model gives them) or 0-d (``aero_scalar``: the
+    kernel reads such a rate with a stride of 0; the plain block takes it
+    expanded to [n]).
+    Inactive positions hold stale values, which the block carries as the
+    step does.  The aging tables are ``data.synthetic``'s."""
+    from elmkernels_torch.data import synthetic
+    from elmkernels_torch.data.state import AERO_DEP_KEYS, AERO_SPECIES
+    rng = np.random.default_rng(seed)
+    u = rng.uniform
+    ns, nt = c.NLEVSNO, c.NLEVTOT
+    snl = rng.integers(0, ns + 1, n)
+    top = ns - snl
+    pos = np.arange(nt)[None, :]
+    act = (pos >= top[:, None]) & (pos < ns)
+    # layer thickness: thin, ordinary and thick layers on every rung
+    dz = np.where(u(0, 1, (n, nt)) < 0.3, u(0.002, 0.03, (n, nt)),
+                  u(0.02, 0.5, (n, nt)))
+    dz = np.where(u(0, 1, (n, nt)) < 0.08, u(0.5, 1.0, (n, nt)), dz)
+    fse = np.where(u(0, 1, n) < 0.1, 0.0, u(0.05, 1.0, n))
+    fse = np.where(u(0, 1, n) < 0.2, 1.0, fse)
+    frac_sno = np.where(u(0, 1, n) < 0.5, fse, u(0.0, 1.0, n))
+    # bulk density 30-900 kg/m3; a twentieth near ice (percolation blocked)
+    rho = u(30.0, 600.0, (n, nt))
+    rho = np.where(u(0, 1, (n, nt)) < 0.05, u(880.0, 917.0, (n, nt)), rho)
+    wet = u(0, 1, (n, nt)) < 0.4
+    liq_share = np.where(wet, u(0.0, 0.15, (n, nt)), 0.0)
+    mass = rho * dz * np.maximum(fse, 0.05)[:, None]
+    ice = mass * (1.0 - liq_share)
+    liq = mass * liq_share
+    # ice <= 0.01 at the top and at the bottom of some packs
+    tiny = u(0, 1, (n, nt)) < 0.06
+    ice = np.where(tiny, u(0.0, 0.01, (n, nt)), ice)
+    # negative liquid at the top of some packs
+    at_top = pos == top[:, None]
+    liq = np.where(at_top & (u(0, 1, (n, nt)) < 0.1),
+                   -u(0.0, 0.5, (n, nt)), liq)
+    t = np.where(u(0, 1, (n, nt)) < 0.3, u(272.0, 274.5, (n, nt)),
+                 u(240.0, 273.1, (n, nt)))
+    # soil rows: wet and frozen soil
+    soil = pos >= ns
+    liq = np.where(soil, u(0.0, 50.0, (n, nt)), liq)
+    ice = np.where(soil, u(0.0, 20.0, (n, nt)), ice)
+    t = np.where(soil, u(260.0, 290.0, (n, nt)), t)
+    dz = np.where(soil, u(0.02, 0.6, (n, nt)), dz)
+    # inactive snow positions: zeros, or stale values from earlier steps
+    stale = u(0, 1, (n, nt)) < 0.3
+    keep = act | soil | stale
+    liq, ice, t, dz = (np.where(keep, a, 0.0) for a in (liq, ice, t, dz))
+    # the mesh: soil nodes below 0, snow above, from the thicknesses
+    zi = np.zeros((n, nt + 1))
+    zi[:, ns + 1:] = np.cumsum(dz[:, ns:], axis=1)
+    for i in range(ns - 1, -1, -1):
+        zi[:, i] = np.where(act[:, i], zi[:, i + 1] - dz[:, i], 0.0)
+    z = np.where(act | soil, 0.5 * (zi[:, :-1] + zi[:, 1:]), 0.0)
+    h2osno = np.sum(np.where(act, liq + ice, 0.0), axis=1)
+    layerless_pack = (snl == 0) & (u(0, 1, n) < 0.5)
+    h2osno = np.where(layerless_pack, u(0.0, 30.0, n), h2osno)
+    snow_depth = np.where(snl > 0, np.sum(np.where(act, dz, 0.0), 1),
+                          h2osno / 250.0)
+    int_snow = np.where(u(0, 1, n) < 0.1, 0.0,
+                        np.maximum(h2osno, 0.0) * u(1.0, 3.0, n))
+
+    def flux(lo, hi, zero=0.3):
+        return np.where(u(0, 1, n) < zero, 0.0, u(lo, hi, n))
+    melt = u(0, 1, (n, nt)) < 0.25
+    imelt = np.where(melt, 1, np.where(u(0, 1, (n, nt)) < 0.15, 2, 0))
+    wx = ice[:, :ns] + liq[:, :ns]
+    swe_old = np.where(u(0, 1, (n, ns)) < 0.5, wx * u(1.0, 1.3, (n, ns)),
+                       wx * u(0.7, 1.0, (n, ns)))
+    frac_iceold = np.where(u(0, 1, (n, nt)) < 0.1, 0.0,
+                           u(0.0, 1.0, (n, nt)))
+    rds = np.where(u(0, 1, (n, ns)) < 0.2, c.SNW_RDS_MIN,
+                   u(c.SNW_RDS_MIN, c.SNW_RDS_MAX, (n, ns)))
+    rds = np.where(act[:, :ns] | stale[:, :ns], rds, 0.0)
+    snofrz = np.where(imelt[:, :ns] == 2, u(0.0, 2e-3, (n, ns)), 0.0)
+    mss = {k: np.where(act[:, :ns] | stale[:, :ns],
+                       u(0.0, 1e-6, (n, ns)), 0.0) for k in AERO_SPECIES}
+    if aero_scalar:
+        aero = {k: np.float64(u(1e-13, 1e-10)) for k in AERO_DEP_KEYS}
+    else:
+        aero = {k: u(1e-13, 1e-10, n) for k in AERO_DEP_KEYS}
+    land_types = np.array([c.ISTSOIL, c.ISTCROP, c.ISTICE, c.ISTICE_MEC,
+                           c.ISTWET, c.ISTURB_MIN, c.ISTURB_HD])
+    ltype = land_types[rng.integers(0, land_types.size, n)]
+    ltype = np.where(u(0, 1, n) < 0.4, c.ISTSOIL, ltype)
+    tables = synthetic.snow_aging_tables()
+
+    def f(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                            device=device)
+
+    def i64(a):
+        return torch.tensor(np.asarray(a), dtype=torch.int64, device=device)
+    return dict(
+        land=c.LandType(ltype=i64(ltype), urbpoi=urbpoi), dtime=1800.0,
+        do_capsnow=i64(u(0, 1, n) < 0.1), snl=i64(snl),
+        frac_sno_eff=f(fse), frac_sno=f(frac_sno), h2osno=f(h2osno),
+        snow_depth=f(snow_depth), int_snow=f(int_snow),
+        qflx_sub_snow=f(flux(-2e-5, 1e-4)),
+        qflx_evap_grnd=f(flux(-5e-5, 2e-4)),
+        qflx_dew_snow=f(flux(0.0, 5e-5, 0.5)),
+        qflx_dew_grnd=f(flux(0.0, 5e-5, 0.5)),
+        qflx_rain_grnd=f(flux(0.0, 2e-3, 0.5)),
+        qflx_snomelt=f(flux(0.0, 1e-3)), qflx_snow_melt=f(flux(0.0, 1e-3)),
+        h2osoi_liq=f(liq), h2osoi_ice=f(ice), t_soisno=f(t), dz=f(dz),
+        z=f(z), zi=f(zi), mss={k: f(v) for k, v in mss.items()},
+        aero_in={k: f(v) for k, v in aero.items()},
+        n_melt=f(u(1.0, 20.0, n)), imelt=i64(imelt), swe_old=f(swe_old),
+        frac_iceold=f(frac_iceold), snw_rds=f(rds),
+        qflx_snwcp_ice=f(flux(0.0, 1e-3, 0.5)),
+        qflx_snow_grnd=f(flux(0.0, 2e-3, 0.5)), qflx_snofrz_lyr=f(snofrz),
+        snowage_tau=f(tables["tau"]), snowage_kappa=f(tables["kappa"]),
+        snowage_drdt0=f(tables["drdsdt0"]),
+        elm_correct_snow_aging=elm_correct_snow_aging)

@@ -11,6 +11,13 @@ Python loops over the 5 snow positions with per-column masks, carrying
 column follows the reference's sequential control flow.  Functions that
 update a layer array in place work on their own copy.
 
+The step runs the ten functions of the block (``snow_water`` to the snow
+aging) through :func:`snow_hydrology_block`, which routes CUDA tensors
+that carry no tangent to K5 (``elmkernels_torch.ops.snow.snow_hydrology``,
+one thread a column runs the whole block) and everything else (CPU
+tensors; a differentiated call, for which K5 has no tangent version) to
+:func:`snow_hydrology_block_plain`, the chain of those functions.
+
 Kept deviation of the JAX package: the percolation clamp reads
 ``vol_ice[i+1]`` where the reference reads ``vol_ice[i+i]``
 (``snow_hydrology_impl.hh:388``).
@@ -24,6 +31,7 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
+from elmkernels_torch.ops import tangents
 from elmkernels_torch.physics.math_utils import (const, gather_layers,
                                                  levels, rdiv, safe_div,
                                                  take_layer)
@@ -801,3 +809,143 @@ def snow_aging(do_capsnow, snl, frac_sno, dtime, qflx_snwcp_ice,
     thin = (snl == 0) & (h2osno > 0.0)
     return torch.where(thin[:, None] & (lev == _NSNO - 1), c.SNW_RDS_MIN,
                        out)
+
+
+class SnowBlockOut(NamedTuple):
+    """What the step reads of the snow-hydrology block: the layer state
+    after divide and prune, the pack scalars after combine (layerless
+    columns passed through), the aerosol masses and concentrations, the
+    aged radius and the block's fluxes."""
+    snl: torch.Tensor
+    t_soisno: torch.Tensor     # [ncol, NLEVTOT]
+    h2osoi_ice: torch.Tensor
+    h2osoi_liq: torch.Tensor
+    dz: torch.Tensor
+    z: torch.Tensor
+    zi: torch.Tensor           # [ncol, NLEVTOT+1]
+    snw_rds: torch.Tensor      # [ncol, NLEVSNO]
+    mss: dict                  # per-species [ncol, NLEVSNO]
+    cnc: dict
+    h2osno: torch.Tensor
+    snow_depth: torch.Tensor
+    frac_sno: torch.Tensor
+    frac_sno_eff: torch.Tensor
+    int_snow: torch.Tensor
+    qflx_snow_melt: torch.Tensor
+    qflx_top_soil: torch.Tensor
+    qflx_sl_top_soil: torch.Tensor
+    qflx_snow2topsoi: torch.Tensor
+    mflx_snowlyr_col: torch.Tensor
+    mflx_neg_snow: torch.Tensor
+
+
+def snow_hydrology_block(land: c.LandType, dtime, do_capsnow, snl,
+                         frac_sno_eff, frac_sno, h2osno, snow_depth,
+                         int_snow, qflx_sub_snow, qflx_evap_grnd,
+                         qflx_dew_snow, qflx_dew_grnd, qflx_rain_grnd,
+                         qflx_snomelt, qflx_snow_melt, h2osoi_liq,
+                         h2osoi_ice, t_soisno, dz, z, zi, mss, aero_in,
+                         n_melt, imelt, swe_old, frac_iceold, snw_rds,
+                         qflx_snwcp_ice, qflx_snow_grnd, qflx_snofrz_lyr,
+                         snowage_tau, snowage_kappa, snowage_drdt0,
+                         elm_correct_snow_aging: bool = False
+                         ) -> SnowBlockOut:
+    """The snow-hydrology block of the step (the JAX package's
+    ``driver/step.py`` from ``snow_water`` to the snow aging): K5
+    (``ops.snow.snow_hydrology``) for CUDA tensors of which none carries
+    a tangent, :func:`snow_hydrology_block_plain` otherwise.  A failed
+    build or launch of K5 raises."""
+    args = dict(locals())
+    if uses_kernel(args):
+        from elmkernels_torch.ops.snow import snow_hydrology
+        return snow_hydrology(**args)
+    return snow_hydrology_block_plain(**args)
+
+
+def _tensors(args: dict):
+    for v in args.values():
+        if isinstance(v, torch.Tensor):
+            yield v
+        elif isinstance(v, dict):
+            yield from (t for t in v.values() if isinstance(t, torch.Tensor))
+
+
+def uses_kernel(args: dict) -> bool:
+    """Whether a call of :func:`snow_hydrology_block` with these arguments
+    (by name) runs K5: its tensors are on the card and none of them is
+    differentiated (``torch.func.jvp``, forward AD or autograd)."""
+    return (_on_card(args["t_soisno"])
+            and not any(tangents.carries_tangent(t)
+                        for t in _tensors(args)))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def snow_hydrology_block_plain(land: c.LandType, dtime, do_capsnow, snl,
+                               frac_sno_eff, frac_sno, h2osno, snow_depth,
+                               int_snow, qflx_sub_snow, qflx_evap_grnd,
+                               qflx_dew_snow, qflx_dew_grnd, qflx_rain_grnd,
+                               qflx_snomelt, qflx_snow_melt, h2osoi_liq,
+                               h2osoi_ice, t_soisno, dz, z, zi, mss, aero_in,
+                               n_melt, imelt, swe_old, frac_iceold, snw_rds,
+                               qflx_snwcp_ice, qflx_snow_grnd,
+                               qflx_snofrz_lyr, snowage_tau, snowage_kappa,
+                               snowage_drdt0,
+                               elm_correct_snow_aging: bool = False
+                               ) -> SnowBlockOut:
+    """The block as the chain of its functions, in the step's order:
+    percolation, aerosol deposition and phase change, compaction, combine
+    (layerless columns pass their pack scalars through: ELM combines only
+    over the snowc filter), divide, prune, aerosol concentrations, and
+    the snow aging (``snow_aging`` with ELM's clamp when
+    ``elm_correct_snow_aging``, else ``snow_aging_pinned``)."""
+    sw = snow_water(land, do_capsnow, snl, dtime, frac_sno_eff, h2osno,
+                    qflx_sub_snow, qflx_evap_grnd, qflx_dew_snow,
+                    qflx_dew_grnd, qflx_rain_grnd, qflx_snomelt,
+                    qflx_snow_melt, int_snow, frac_sno, h2osoi_liq,
+                    h2osoi_ice, mss, dz)
+    mss = compute_aerosol_deposition(dtime, snl, aero_in, sw.mss)
+    bcphi, bcpho = aerosol_phase_change(snl, dtime, qflx_sub_snow,
+                                        sw.h2osoi_liq, sw.h2osoi_ice,
+                                        mss["bcphi"], mss["bcpho"])
+    mss = dict(mss, bcphi=bcphi, bcpho=bcpho)
+    dz_c = snow_compaction(land, snl, dtime, sw.int_snow, n_melt,
+                           sw.frac_sno, imelt, swe_old, sw.h2osoi_liq,
+                           sw.h2osoi_ice, t_soisno, frac_iceold, sw.dz)
+    st = SnowState(snl, t_soisno, sw.h2osoi_ice, sw.h2osoi_liq, snw_rds,
+                   mss, dz_c, z, zi)
+    cb = combine_layers(land, dtime, st, h2osno, snow_depth, frac_sno_eff,
+                        sw.frac_sno, sw.int_snow)
+    # ELM proper combines only over the snowc filter (columns WITH snow
+    # layers); layerless columns pass their pack scalars through
+    nolyr = snl == 0
+    cb = cb._replace(
+        h2osno=torch.where(nolyr, h2osno, cb.h2osno),
+        snow_depth=torch.where(nolyr, snow_depth, cb.snow_depth),
+        frac_sno=torch.where(nolyr, sw.frac_sno, cb.frac_sno),
+        frac_sno_eff=torch.where(nolyr, frac_sno_eff, cb.frac_sno_eff),
+        int_snow=torch.where(nolyr, sw.int_snow, cb.int_snow),
+        qflx_sl_top_soil=torch.where(nolyr, 0.0, cb.qflx_sl_top_soil),
+        qflx_snow2topsoi=torch.where(nolyr, 0.0, cb.qflx_snow2topsoi),
+        mflx_snowlyr_col=torch.where(nolyr, 0.0, cb.mflx_snowlyr_col))
+    st = divide_layers(cb.frac_sno, cb.state)
+    st = prune_snow_layers(st)
+    mss2, cnc = update_aerosol_mass_and_concen(
+        dtime, st.snl, do_capsnow, qflx_snwcp_ice, st.ice, st.liq, st.mss)
+    if elm_correct_snow_aging:
+        rds = snow_aging(do_capsnow, st.snl, cb.frac_sno, dtime,
+                         qflx_snwcp_ice, qflx_snow_grnd, cb.h2osno, st.dz,
+                         st.liq, st.ice, st.t, qflx_snofrz_lyr, snowage_tau,
+                         snowage_kappa, snowage_drdt0, st.rds,
+                         elm_correct_clamp=True)
+    else:
+        # the reference's double clamp pins every radius: the same result
+        # without the table work (snow_aging_pinned)
+        rds = snow_aging_pinned(st.snl, cb.h2osno, st.rds)
+    return SnowBlockOut(
+        st.snl, st.t, st.ice, st.liq, st.dz, st.z, st.zi, rds, mss2, cnc,
+        cb.h2osno, cb.snow_depth, cb.frac_sno, cb.frac_sno_eff, cb.int_snow,
+        sw.qflx_snow_melt, sw.qflx_top_soil, cb.qflx_sl_top_soil,
+        cb.qflx_snow2topsoi, cb.mflx_snowlyr_col, sw.mflx_neg_snow)

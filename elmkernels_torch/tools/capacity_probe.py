@@ -43,10 +43,10 @@ import torch
 
 
 def _launches() -> dict:
-    from elmkernels_torch.ops import canopy, ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
     return {k.__name__: k.launches for k in (
         canopy.canopy_stability, ci_solver.ci_hybrid_solve,
-        pdma.pdma_solve, pdma.pdma_solve_f32)}
+        pdma.pdma_solve, pdma.pdma_solve_f32, snow.snow_hydrology)}
 
 
 def probe(ncol: int, nsteps: int, device=None) -> dict:

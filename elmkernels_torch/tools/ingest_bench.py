@@ -65,9 +65,9 @@ def date_start(start, dtime: float, window: int):
 
 def _launch_counts(reset: bool = False) -> dict:
     """The kernel wrappers' launch counts (zeroed first with ``reset``)."""
-    from elmkernels_torch.ops import canopy, ci_solver, pdma
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
     ks = (canopy.canopy_stability, ci_solver.ci_hybrid_solve,
-          pdma.pdma_solve, pdma.pdma_solve_f32)
+          pdma.pdma_solve, pdma.pdma_solve_f32, snow.snow_hydrology)
     if reset:
         for k in ks:
             k.launches = 0

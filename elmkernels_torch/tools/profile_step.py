@@ -96,7 +96,8 @@ _INPUTS = {"run": ("step_inputs",),
 # ctypes)
 _PORT_MODULES = {"canopy_kernel": "ops.canopy (K2)",
                  "ci_hybrid_kernel": "ops.ci_solver (K1)",
-                 "pdma_kernel": "ops.pdma (K4)"}
+                 "pdma_kernel": "ops.pdma (K4)",
+                 "snow_kernel": "ops.snow (K5)"}
 _PORT_KERNELS = tuple(_PORT_MODULES)
 
 

@@ -408,6 +408,32 @@ def test_a_failed_capture_raises_and_does_not_run_eagerly(grid, stand_in,
         m.run_scan(_date(), 3)
 
 
+def test_the_snow_block_captures_routed_to_k5(grid, stand_in, monkeypatch):
+    """The step's snow-hydrology block routed as on a card
+    (``snow_hydrology_block`` to ``ops.snow.snow_hydrology``; here a
+    stand-in that counts a launch and runs the plain block, not exempted
+    from the strict capture): the capture passes, each replay adds K5's
+    launch, once a step, and the state equals the eager loop's on the
+    plain block bit for bit."""
+    from elmkernels_torch.ops import snow
+    from elmkernels_torch.physics import snow_hydrology
+
+    def k5(**args):
+        k5.launches += 1
+        return snow_hydrology.snow_hydrology_block_plain(**args)
+    k5.launches = 0
+    eager = torch_model(grid)
+    with graphs.disable_graphs():
+        eager.run_scan(_date(), 4)
+    monkeypatch.setattr(snow_hydrology, "_on_card", lambda t: True)
+    monkeypatch.setattr(snow, "snow_hydrology", k5)
+    m = torch_model(grid)
+    m.run_scan(_date(), 4)
+    assert len(m._graphs.captures) == 1 and m._graphs.replays == 3
+    assert k5.launches == 4
+    _assert_state_equal(eager.state, m.state)
+
+
 @pytest.mark.parametrize("flags", ["production", "exact"])
 def test_the_step_captures_with_no_host_wait(grid, stand_in, flags):
     """The strict stand-in's capture of the step under each set of flags:

@@ -344,6 +344,101 @@ def test_canopy_dispatch_on_card(card):
             args, t_veg=args["t_veg"].clone().requires_grad_()))
 
 
+# ---- K5, the snow-hydrology block -------------------------------------------
+
+
+def _snow_fields(out) -> dict:
+    d = out._asdict()
+    for k in ("mss", "cnc"):
+        d.update({f"{k}_{s}": v for s, v in d.pop(k).items()})
+    return d
+
+
+def _plain_snow_args(args: dict) -> dict:
+    n = args["snl"].shape[0]
+    return dict(args, aero_in={k: v.expand(n)
+                               for k, v in args["aero_in"].items()})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [N, 4001, 33, 31, 1])
+@pytest.mark.parametrize("aero_scalar", [False, True],
+                         ids=["aero_col", "aero_0d"])
+@pytest.mark.parametrize("elm", [False, True], ids=["pinned", "elm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_snow_kernel_matches_plain(card, dtype, elm, aero_scalar, n):
+    """K5 against the plain block at atol 0: every output, NaNs in the same
+    places (0-d deposition rates against the plain block on them
+    expanded); and a second launch on the same inputs equal to the first
+    bit for bit."""
+    from elmkernels_torch.ops import snow
+    from elmkernels_torch.physics import snow_hydrology as tsh
+    args = testing.snow_problem(n, 13, dtype, elm, aero_scalar, device=card)
+    got = _snow_fields(snow.snow_hydrology(**args))
+    again = _snow_fields(snow.snow_hydrology(**args))
+    want = _snow_fields(tsh.snow_hydrology_block_plain(
+        **_plain_snow_args(args)))
+    for f in want:
+        assert got[f].dtype == want[f].dtype, f
+        assert _same(got[f], want[f]), f
+        assert _same(got[f], again[f]), f
+
+
+@pytest.mark.cuda
+def test_snow_kernel_captured_and_replayed(card):
+    """A K5 call captured in a CUDA graph and replayed on new inputs
+    written into the captured ones: equal to an eager call on those
+    inputs bit for bit; the capture counts one launch, as a replay adds
+    through the step's graphs."""
+    from elmkernels_torch.ops import snow
+    from elmkernels_torch.physics import snow_hydrology as tsh
+    args = testing.snow_problem(N, 21, torch.float64, True, device=card)
+    other = testing.snow_problem(N, 22, torch.float64, True, device=card)
+    snow.snow_hydrology(**args)          # built and warm
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        snow.snow_hydrology(**args)
+    torch.cuda.current_stream(card).wait_stream(side)
+    before = snow.snow_hydrology.launches
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = snow.snow_hydrology(**args)
+    assert snow.snow_hydrology.launches == before + 1
+    for k, v in args.items():
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            v.copy_(other[k])
+        elif isinstance(v, dict):
+            for s, t in v.items():
+                t.copy_(other[k][s])
+    graph.replay()
+    torch.cuda.synchronize(card)
+    want = _snow_fields(tsh.snow_hydrology_block_plain(**args))
+    got = _snow_fields(captured)
+    for f in want:
+        assert _same(got[f], want[f]), f
+
+
+@pytest.mark.cuda
+def test_snow_dispatch_on_card(card):
+    """On the card ``snow_hydrology_block`` launches K5 once; under
+    ``torch.func.jvp`` it runs the plain block, and a differentiated
+    tensor handed to K5's wrapper raises."""
+    from elmkernels_torch.ops import snow
+    from elmkernels_torch.physics import snow_hydrology as tsh
+    args = testing.snow_problem(1024, 17, torch.float64, device=card)
+    k5 = snow.snow_hydrology.launches
+    tsh.snow_hydrology_block(**args)
+    assert snow.snow_hydrology.launches == k5 + 1
+    torch.func.jvp(
+        lambda h: tsh.snow_hydrology_block(**dict(args, h2osno=h)).h2osno,
+        (args["h2osno"],), (torch.ones_like(args["h2osno"]),))
+    assert snow.snow_hydrology.launches == k5 + 1
+    with pytest.raises(RuntimeError, match="snow_hydrology_block"):
+        snow.snow_hydrology(**dict(
+            args, h2osno=args["h2osno"].clone().requires_grad_()))
+
+
 # ---- the captured step (driver/graphs.py) --------------------------------
 
 GRAPH_NCOL, GRAPH_STEPS = 4096, 6

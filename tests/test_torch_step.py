@@ -113,6 +113,32 @@ def test_snow_layer_case(files):
     assert int(tm.state.snl.max()) > 0
 
 
+def test_snow_layer_case_through_k5(files, tmp_path, monkeypatch):
+    """The snow-layer case with the step's snow-hydrology block run by K5
+    (``csrc/snow_hydrology.cu``) built for the host, as
+    ``test_torch_snow_kernel.py`` builds it, in place of the plain block:
+    routed as a card routes it (``snow_hydrology_block`` to
+    ``ops.snow.snow_hydrology``), once a step, 10 steps in lockstep with
+    the JAX step at 1e-10."""
+    from elmkernels_torch.ops import snow
+    from elmkernels_torch.physics import snow_hydrology as tsh
+    from test_torch_snow_kernel import build_host_lib, host_block
+    lib = build_host_lib(tmp_path)
+    calls = []
+
+    def k5(**args):
+        calls.append(int(args["snl"].max()))
+        return host_block(lib, args)
+    monkeypatch.setattr(tsh, "_on_card", lambda t: True)
+    monkeypatch.setattr(snow, "snow_hydrology", k5)
+    jm = tp.jax_model(files, 2, **EXACT)
+    jm.run(JDate.from_ymd(1985, 1, 1), 700)
+    tm = tp.torch_model(files, 2, **EXACT)
+    tp.carry_model(jm, tm)
+    _lockstep(jm, tm, 1, 1, 10, tp.RTOL, exact_atol, start_steps=700)
+    assert len(calls) == 10 and max(calls) > 0
+
+
 def test_port_winter_drive_contracts(files):
     """The port's own 100-step winter drive (production flags) meets the
     JAX package's test_driver contracts."""
