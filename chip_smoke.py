@@ -44,8 +44,9 @@ an eager run of the same steps:
    and ELM's aging (and 0-d deposition rates once), and against itself (a
    second launch, a launch captured in a CUDA graph and replayed)
    (:func:`k5_test_phase`: K5's ms against its bound, the plain block's
-   wall and device ms and launches; K5's registers, spills and resident
-   warps in its four instantiations);
+   wall and device ms and launches; K5's registers, spills, shared memory
+   a block and resident warps in its four instantiations, none of the
+   float64 ones spilling);
    and times each wrapper's host side (:func:`entry_overhead`, K2's
    included);
 4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
@@ -830,25 +831,37 @@ def k5_timer(keep: int = 0):
 def k5_bound(call: dict, out):
     """(bytes ms, operations ms) of one K5 launch.  Bytes: each [ncol]
     input read once (a 0-d one not at all), of the layered inputs the
-    positions the kernel reads (every row of the six layer fields, which
-    it copies through, the 5 snow positions of the others and of
-    ``imelt``), ``snl``, ``do_capsnow`` and the masks, the aging tables
-    once; each output written once.  Operations: K5_COLUMN_FLOPS a
-    column."""
+    positions the block needs (every row of t, ice, liq and dz, which it
+    copies through; z and zi from the top soil position down, since the
+    block rebuilds the snow positions of both; the 5 snow positions of the
+    others and of ``imelt``; ``swe_old`` or ``frac_iceold`` (by land type)
+    at each active layer that melts, where compaction can read one; with
+    ELM's aging the refreezing rates of the active layers after the block,
+    ``out.snl`` of them, and the aging tables once, which the pinned radius
+    reads neither of), ``snl``, ``do_capsnow`` and the masks; each output
+    written once.  Operations: K5_COLUMN_FLOPS a column."""
+    import torch
     from elmkernels_torch import constants as c
     from elmkernels_torch.ops import snow
     k = snow.kernel_inputs(call)
     n, item = k.n, k.layers[0].element_size()
     nlev, nsno = k.nlevtot, c.NLEVSNO
     rows = dict(h2osoi_liq=nlev, h2osoi_ice=nlev, t_soisno=nlev, dz=nlev,
-                z=nlev, zi=nlev + 1)
+                z=nlev - nsno, zi=nlev + 1 - nsno, swe_old=0, frac_iceold=0,
+                qflx_snofrz_lyr=0)
     per_col = sum(item for t in k.fields if t.dim())
     per_col += sum(item * rows.get(name, nsno) for name in snow.LAYER_FIELDS)
     per_col += 8 * (1 + nsno) + 8 * bool(k.do_capsnow.dim())
     per_col += bool(k.soil_like.dim()) + bool(k.soil_crop.dim())
-    nbytes = n * per_col + sum(t.numel() * item for t in k.tables)
+    nbytes = n * per_col
+    active = (torch.arange(nsno, device=k.snl.device)[None, :]
+              >= (nsno - k.snl)[:, None])
+    nbytes += item * int((active & (k.imelt[:, :nsno] == 1)).sum())
+    if k.elm:
+        nbytes += (item * int(out.snl.sum())
+                   + sum(t.numel() * item for t in k.tables))
     # writes: snl, the [ncol] outputs, the layers and the species
-    nspecies = len(k.layers) - len(rows) - 4
+    nspecies = len(call["mss"])
     nbytes += n * (8 + item * (len(snow.OUT_FIELDS) + 5 * nlev + nlev + 1
                                + nsno * (1 + 2 * nspecies)))
     dtype = str(k.dtype).replace("torch.", "")
@@ -919,8 +932,10 @@ def check_k5_on_path(kept, label: str) -> dict:
 
 
 def k5_registers() -> dict:
-    """K5's registers and spilled bytes a thread (``ptxas``) and resident
-    blocks an SM (``snow.layout``), for each of its four instantiations."""
+    """K5's registers and spilled bytes a thread (``ptxas``), its dynamic
+    shared memory a block and resident warps an SM (``snow.layout``), for
+    each of its four instantiations; fails if a float64 one spills or
+    the launch's shared memory is not the wrapper's ``shared_bytes``."""
     import torch
     from elmkernels_torch.ops import build, snow
     report = build.ptxas_report("snow_hydrology")
@@ -939,13 +954,21 @@ def k5_registers() -> dict:
             registers=int(r.group(1)) if r else None,
             spill_stores=int(sp.group(1)) if sp else None,
             spill_loads=int(sp.group(2)) if sp else None,
-            local_bytes=lay["local_bytes"],
+            local_bytes=lay["local_bytes"], shared_bytes=lay["shared_bytes"],
             warps_per_sm=lay["blocks_per_sm"] * lay["threads"] // 32)
-    phase("K5 snow_kernel registers, spills and resident warps an SM: "
-          + json.dumps(regs))
+        if lay["shared_bytes"] != snow.shared_bytes(getattr(torch, dtype)):
+            raise AssertionError(f"K5 {dtype}: {lay['shared_bytes']} B of "
+                                 f"shared memory a block, the wrapper says "
+                                 f"{snow.shared_bytes(getattr(torch, dtype))}")
+    phase("K5 snow_kernel registers, spills, shared memory and resident "
+          "warps an SM: " + json.dumps(regs))
     if len(regs) != 4:
         raise AssertionError(f"ptxas reported {len(regs)} of K5's 4 "
                              f"kernels: {report[-2000:]}")
+    spilled = {k: v for k, v in regs.items() if k.startswith("float64")
+               and (v["spill_stores"] or v["spill_loads"])}
+    if spilled:
+        raise AssertionError(f"K5 spills in float64: {spilled}")
     return regs
 
 
@@ -1003,6 +1026,111 @@ def reduction_order() -> dict:
     return res
 
 
+# exp, acos and pow compiled as K5 compiles them (inline, --fmad=false)
+# beside the same functions compiled with contraction on, as PyTorch's
+# kernels are: the bits of each pair over the same inputs
+K5_MATH_SRC = r"""
+#include <math.h>
+#include <cuda_runtime.h>
+__device__ double c_exp(double x);
+__device__ float c_exp(float x);
+__device__ double c_acos(double x);
+__device__ float c_acos(float x);
+__device__ double c_pow(double x, double p);
+__device__ float c_pow(float x, float p);
+template <typename T>
+__device__ bool same(T a, T b) {
+  return (a == b && signbit(a) == signbit(b)) || (isnan(a) && isnan(b));
+}
+template <typename T>
+__global__ void probe(const T* e, const T* c, const T* b, const T* p,
+                      long long n, unsigned long long* diff) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  if (!same(exp(e[i]), c_exp(e[i]))) atomicAdd(diff + 0, 1ULL);
+  if (!same(acos(c[i]), c_acos(c[i]))) atomicAdd(diff + 1, 1ULL);
+  if (!same(pow(b[i], p[i]), c_pow(b[i], p[i]))) atomicAdd(diff + 2, 1ULL);
+}
+#define ENTRY(NAME, T)                                                     \
+  extern "C" int NAME(const void* e, const void* c, const void* b,        \
+                      const void* p, long long n, void* d) {              \
+    probe<T><<<(n + 255) / 256, 256>>>(                                   \
+        (const T*)e, (const T*)c, (const T*)b, (const T*)p, n,            \
+        (unsigned long long*)d);                                          \
+    return cudaGetLastError();                                            \
+  }
+ENTRY(k5_math_f64, double)
+ENTRY(k5_math_f32, float)
+"""
+K5_MATH_CONTRACTED_SRC = r"""
+#include <math.h>
+__device__ double c_exp(double x) { return exp(x); }
+__device__ float c_exp(float x) { return expf(x); }
+__device__ double c_acos(double x) { return acos(x); }
+__device__ float c_acos(float x) { return acosf(x); }
+__device__ double c_pow(double x, double p) { return pow(x, p); }
+__device__ float c_pow(float x, float p) { return powf(x, p); }
+"""
+K5_MATH_INPUTS = 1 << 26
+
+
+def k5_math_rounding() -> dict:
+    """Inputs of exp, acos and pow in the ranges K5 gives them (exp of
+    [-50, 5], acos of [-1, 1], pow of [0, 1) to [0, 25)), K5_MATH_INPUTS x 4
+    of each in float64 and float32, through each function compiled inline
+    without contraction (as K5 compiles exp, acos and float32 pow) and with
+    contraction (as PyTorch's kernels are built): the inputs whose bits
+    differ.  Fails if exp, acos or float32 pow differ anywhere; float64 pow,
+    which K5 takes from snow_math.cu, is reported."""
+    import ctypes
+    import torch
+    from elmkernels_torch.ops import build
+    d = REPO / "build" / "probe"
+    d.mkdir(parents=True, exist_ok=True)
+    (d / "k5_math.cu").write_text(K5_MATH_SRC)
+    (d / "k5_math_c.cu").write_text(K5_MATH_CONTRACTED_SRC)
+    flags = [f for f in build.NVCC_FLAGS if f != "-shared"] + ["-dc"]
+    steps = ([*flags, "-o", str(d / "k5_math.o"), str(d / "k5_math.cu")],
+             ["--fmad=true" if f == "--fmad=false" else f for f in flags]
+             + ["-o", str(d / "k5_math_c.o"), str(d / "k5_math_c.cu")],
+             [*build._ARCH, "-rdc=true", "-shared", "-Xcompiler", "-fPIC",
+              "-o", str(d / "libk5_math.so"), str(d / "k5_math.o"),
+              str(d / "k5_math_c.o")])
+    for cmd in steps:
+        proc = subprocess.run([build._nvcc(), *cmd], capture_output=True,
+                              text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"the K5 math probe did not build:\n"
+                                 f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(str(d / "libk5_math.so"))
+    g = torch.Generator(device="cuda").manual_seed(K5_SEED)
+    n, res = K5_MATH_INPUTS, {}
+    for dtype, fn in ((torch.float64, lib.k5_math_f64),
+                      (torch.float32, lib.k5_math_f32)):
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong,
+                                               ctypes.c_void_p]
+        diff = torch.zeros(3, dtype=torch.int64, device="cuda")
+
+        def u(lo, hi):
+            return (torch.rand(n, generator=g, device="cuda",
+                               dtype=torch.float64) * (hi - lo) + lo).to(dtype)
+        for _ in range(4):
+            e, c, b, p = u(-50, 5), u(-1, 1), u(0, 1), u(0, 25)
+            build.check(fn(e.data_ptr(), c.data_ptr(), b.data_ptr(),
+                           p.data_ptr(), n, diff.data_ptr()), "k5_math")
+        torch.cuda.synchronize()
+        res[str(dtype).replace("torch.", "")] = dict(
+            zip(("exp", "acos", "pow"), diff.tolist()), inputs=4 * n)
+    phase("K5 math rounding, inline against contracted (differing "
+          "inputs): " + json.dumps(res))
+    if (res["float64"]["exp"] or res["float64"]["acos"]
+            or any(res["float32"][k] for k in ("exp", "acos", "pow"))):
+        raise AssertionError(f"exp, acos or float32 pow no longer round "
+                             f"alike inline and contracted, which K5 "
+                             f"relies on: {res}")
+    return res
+
+
 def k5_test_phase() -> dict:
     """K5 against snow_hydrology_block_plain on seeded inputs
     (``ops.testing.snow_problem``: 0-5 layers, every branch of the block)
@@ -1014,13 +1142,15 @@ def k5_test_phase() -> dict:
     bound, the plain block's wall ms (host clock to a synchronize) and its
     device ms and launches (torch.profiler); K5's registers, spills and
     resident warps (:func:`k5_registers`); the order of PyTorch's sums
-    that K5 copies (:func:`reduction_order`)."""
+    that K5 copies (:func:`reduction_order`); the math functions that K5
+    compiles inline rounding as PyTorch's do (:func:`k5_math_rounding`)."""
     import torch
     from elmkernels_torch.ops import snow, testing
     from elmkernels_torch.physics.snow_hydrology import \
         snow_hydrology_block_plain
     regs = k5_registers()
     order = reduction_order()
+    math = k5_math_rounding()
     cases = []
     for dtype in (torch.float64, torch.float32):
         for elm in (False, True):
@@ -1065,7 +1195,8 @@ def k5_test_phase() -> dict:
                                          f"plain version or from itself: "
                                          f"{res}")
                 cases.append(res)
-    return dict(cases=cases, registers=regs, reduction_order=order)
+    return dict(cases=cases, registers=regs, reduction_order=order,
+                math_rounding=math)
 
 
 def k5_winter(model, start, label: str, kernels: dict) -> dict:
@@ -3784,6 +3915,7 @@ def main() -> int:
              library_ms=None, plain_device_ms=k5t["plain_device_ms"],
              plain_launches=k5t["plain_launches"],
              registers_and_spills=k5_test["registers"],
+             math_inline_vs_contracted_differing=k5_test["math_rounding"],
              host_ms_median_on_path=on_path["snow_hydrology"][
                  "host_ms_median"],
              second_launch_and_graph_replay_bit_for_bit=not any(

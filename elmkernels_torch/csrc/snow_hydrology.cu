@@ -23,11 +23,57 @@
 // position of every field is computed as the plain block computes it, the
 // inactive ones included, since the step keeps them.
 //
-// The layer fields live in registers: every loop over the positions is
-// unrolled, and a position chosen at run time (the top layer, the merge
-// partner, the scratch layout's source) is read and written by predicated
-// selects over the unrolled positions (pick, shift_down), never by an index
-// into an array, which would put the array in local memory.
+// Bound: bytes.  A column reads ~1.6 KB and writes ~1.6 KB (float64) for a
+// few thousand operations; 41 % of those bytes are the soil rows (positions
+// 6-19 of t, ice, liq, dz and z, 5-20 of zi), which pass through.  So the
+// design moves the bytes as the card moves them best and keeps a thread's
+// registers for the arithmetic:
+// - A block of kB columns, one thread each, stages its rows through shared
+//   memory.  Each layered field's tile is walked as one flat range
+//   (TileWalk): element k is row k / w, position k % w of the w positions
+//   read, so consecutive threads read consecutive addresses wherever the
+//   row stride is the width (the step's fresh [n, 20] fields), and runs of
+//   w elements where it is larger (a view of the packed carry).
+// - The snow positions go to the block's shared memory by cp.async, which
+//   passes through no register: a thread issues all of a phase's copies,
+//   then waits once.  Slot s of column r lies at [s * kLd + r], kLd = kB +
+//   13 (13 times 5 is 1 modulo 32, so the 5-position tiles fill and empty
+//   without bank conflicts, and a thread reading its own slots never
+//   conflicts).
+// - The outputs leave the same way: each thread writes its results into
+//   its slots, then the block stores each tile as one flat range, kBatch
+//   elements in flight a thread; the [ncol] outputs leave as soon as they
+//   are final.  The soil positions go from the input straight into the
+//   same pass (the liquid as (x + 0) + 0, as snow_water's two additions of
+//   0 give it), never through the thread that computes the column: each
+//   output row is written whole at once, since sectors written in two
+//   parts far apart in time cost the card several times their bytes (a
+//   soil copy at the start took 0.38 ms for 0.10 ms of bytes).
+// - Only the snow layers' ice and liq (positions 0-4), which every step of
+//   the block reads, live in registers.  The temperatures, thicknesses,
+//   aerosol masses and grain radii live in the thread's slots, where a
+//   position chosen at run time is an index, not a select; imelt as one
+//   byte a position.  The few fields a layer reads only where it compacts
+//   and melts (swe_old, frac_iceold) or ages (the refreezing rates) come
+//   straight from the inputs there.  z and zi (positions 0-4) are not
+//   read: the block's last mesh rebuild sets every active position from
+//   zi[5] and the thicknesses, and pruning zeroes the others, so they are
+//   computed when the outputs are written.
+// - The hot rows are staged, read into registers, and their slots then
+//   take the cold state (kSlots slots a column), so that four blocks of 128
+//   threads (16 warps, 128 registers a thread) fit on an SM in float64 with
+//   no register spilled.
+// - Work whose result the plain block throws away by a select on the
+//   column (the flux of an inactive position, the rates of a layer that
+//   does not compact, a merge that is not made, a rung of divide whose
+//   layer is not thick, the aging of an inactive layer) is not done: every
+//   output keeps its bits, and a column without snow layers (the July
+//   site of the main path) runs little besides the staging.
+// A position chosen at run time in the register arrays (the top layer, the
+// merge partner, divide's top-anchored source) is reached by selects over
+// the unrolled positions (pick, shift_down), never by an index, which would
+// put the array in local memory.  divide_layers' ladder records each rung's
+// proportions and flags, then replays them on one species' masses at a time.
 //
 // The arithmetic is the plain block's, operation by operation and in its
 // order (build with --fmad=false), as PyTorch's elementwise kernels compute
@@ -37,16 +83,21 @@
 //   in double the same way;
 // - tensor / number multiplies by the number's reciprocal, taken in double
 //   and rounded to T, on the card, and divides on the CPU (divs);
-// - x ** 3.0 and x ** 2.0 are products; a tensor power, acos and exp come
-//   from snow_math.cu, compiled apart with contraction on as PyTorch's
-//   kernels are; clamp, minimum and maximum propagate NaN (nmin, nmax);
+// - x ** 3.0 and x ** 2.0 are products; a float64 tensor power comes from
+//   snow_math.cu, compiled apart with contraction on as PyTorch's kernels
+//   are, since the CUDA library's float64 pow rounds some inputs
+//   differently without it; acos, exp and float32 pow round alike either
+//   way (the same bits on 268 M inputs in K5's ranges, on the card) and are
+//   inline, which keeps their call sites from costing registers; clamp,
+//   minimum and maximum propagate NaN (nmin, nmax);
 // - torch.sum over the 5 positions adds as PyTorch's reduction does on the
 //   card (four lanes: ((x0 + x4) + x2) + (x1 + x3)) and torch.cumsum as its
-//   Sklansky scan does; on the CPU both add in order (sum5, cumsum5).
+//   Sklansky scan does; on the CPU both add in order (sum5, cumsum5_at).
 //
 // The same source built by a host compiler (the device code is HD inline
 // functions; the kernel and its launch sit under __CUDACC__) is what the
-// CPU tests run, one column at a time (run_column).
+// CPU tests run, one column at a time (run_column: a block of one column,
+// whose slots are a plain array).
 
 #include <math.h>
 #include <stdint.h>
@@ -55,16 +106,16 @@
 #include <cuda_runtime.h>
 #define HD __host__ __device__ __forceinline__
 #define UNROLL _Pragma("unroll")
-// snow_math.cu: pow, acos and exp compiled with contracted multiply-adds
+// snow_math.cu: float64 pow compiled with contracted multiply-adds
 extern __device__ double snow_pow(double x, double p);
-extern __device__ float snow_pow(float x, float p);
-extern __device__ double snow_acos(double x);
-extern __device__ float snow_acos(float x);
-extern __device__ double snow_exp(double x);
-extern __device__ float snow_exp(float x);
 #else
 #define HD inline
 #define UNROLL
+#endif
+
+// A store to an output (the host tests count them through this hook)
+#ifndef K5_STORE
+#define K5_STORE(ptr, v) (*(ptr) = (v))
 #endif
 
 namespace {
@@ -93,6 +144,24 @@ enum {
 // nlevtot + 1], snw_rds, the masses and the concentrations [ncol, 5]
 enum { qT, qIce, qLiq, qDz, qZ, qZi, qRds, qMss, qCnc = qMss + kSpecies,
        kLayOut = qCnc + kSpecies };
+
+// A column's slots, in three uses.  First the hot rows as staged: ice and
+// liq at positions 0-4; the thread reads them into registers.
+enum { hIce = 0, hLiq = hIce + kSno, kHotSlots = hLiq + kSno };
+// Then the cold state: the masses (species k at cMss + 5k), the grain radii,
+// and, from the staging to the outputs, the temperatures and the
+// thicknesses (positions 0-5), zi[5] and the top soil row's ice and liq
+// (position 5)
+enum { cMss = 0, cRds = cMss + kSpecies * kSno, cT = cRds + kSno,
+       cDz = cT + kSno + 1, cZi5 = cDz + kSno + 1, cIce5 = cZi5 + 1,
+       cLiq5 = cIce5 + 1, kSlots = cLiq5 + 1 };
+// Last the layered outputs other than t and dz (which leave from cT and
+// cDz), snw_rds (from cRds, where the aging leaves it) and the masses and
+// concentrations (from cMss): ice and liq at positions 0-5, z and zi at 0-4
+enum { rIce = 0, rLiq = rIce + kSno + 1, rZ = rLiq + kSno + 1,
+       rZi = rZ + kSno, kOutSlots = rZi + kSno };
+static_assert(int(kHotSlots) <= int(cT) && int(kOutSlots) <= int(cRds),
+              "the hot rows leave cT and up alone, the outputs cRds and up");
 
 // Python-level constants, in ops/snow.py's CONSTS order
 struct Consts {
@@ -146,29 +215,23 @@ HD T divs(T a, double s) {
 #endif
 }
 
-template <typename T>
-HD T tpow(T x, T p) {
+// a tensor power: float64 from snow_math.cu (an out-of-line call), float32
+// inline
+HD double tpow(double x, double p) {
 #ifdef __CUDA_ARCH__
   return snow_pow(x, p);
 #else
   return pow(x, p);
 #endif
 }
+HD float tpow(float x, float p) { return powf(x, p); }
 template <typename T>
 HD T tacos(T x) {
-#ifdef __CUDA_ARCH__
-  return snow_acos(x);
-#else
   return acos(x);
-#endif
 }
 template <typename T>
 HD T texp(T x) {
-#ifdef __CUDA_ARCH__
-  return snow_exp(x);
-#else
   return exp(x);
-#endif
 }
 
 // torch.sum(x, dim=1) over the 5 positions: on the card four lanes of
@@ -184,18 +247,17 @@ HD T sum5(const T (&x)[kSno]) {
 #endif
 }
 
-// torch.cumsum(x, dim=1) over the 5 positions
+// element p of torch.cumsum(x, dim=1) over the 5 positions, c[p], from
+// x[p], x[p - 1], c[p - 1] and c[1], so that a loop over the positions
+// holds two sums, not five: on the card the Sklansky scan's c[3] =
+// (x[3] + x[2]) + c[1], else c[p] = x[p] + c[p - 1]; on the CPU in order
 template <typename T>
-HD void cumsum5(const T (&x)[kSno], T (&c)[kSno]) {
-  c[0] = x[0];
-  c[1] = x[1] + x[0];
-  c[2] = x[2] + c[1];
+HD T cumsum5_at(int p, T x, T x_prev, T c_prev, T c1) {
+  if (p == 0) return x;
 #ifdef __CUDA_ARCH__
-  c[3] = (x[3] + x[2]) + c[1];
-#else
-  c[3] = x[3] + c[2];
+  if (p == 3) return (x + x_prev) + c1;
 #endif
-  c[4] = x[4] + c[3];
+  return x + c_prev;
 }
 
 // a read-only load (the non-coherent path on the card)
@@ -205,6 +267,12 @@ HD T load(const T* p) {
   return __ldg(p);
 #else
   return *p;
+#endif
+}
+
+HD void block_sync() {
+#ifdef __CUDA_ARCH__
+  __syncthreads();
 #endif
 }
 
@@ -253,43 +321,226 @@ HD Merged<T> combine_vals(T dz2, T wliq2, T wice2, T t2, T dz1, T wliq1,
   return {dz1 + dz2, wliq, wice, tc};
 }
 
-// One column's snow: positions 0-4 the snow layers, 5 the top soil row
-// (liq, ice, t, dz and zi read it; combine and snow_water write liq/ice)
-template <typename T>
-struct Pack {
-  T t[kSno + 1], ice[kSno + 1], liq[kSno + 1], dz[kSno + 1];
-  T z[kSno], zi[kSno + 1], rds[kSno];
-  T mss[kSpecies][kSno];
-  int snl;
+// ---- the block's tiles -------------------------------------------------------
+
+// A block's threads walk a tile, positions [p0, p0 + w) of rows [0, rows),
+// as one flat range whose element k is row k / w, position p0 + k % w;
+// thread tid of nt takes k = tid, tid + nt, ...
+struct TileWalk {
+  int total, dr, dq, w, r, q;
+  HD TileWalk(int tid, int nt, int rows, int w_)
+      : total(rows * w_), dr(nt / w_), dq(nt % w_), w(w_), r(tid / w_),
+        q(tid % w_) {}
+  HD void next() {
+    r += dr;
+    q += dq;
+    if (q >= w) {
+      q -= w;
+      ++r;
+    }
+  }
 };
 
-// z(i) = zi(i+1) - dz/2, zi(i) = zi(i+1) - dz from the bottom snow layer
-// up, for the active layers (_rebuild_snow_mesh)
-template <typename T>
-HD void rebuild_mesh(Pack<T>& P) {
-  const int top = kSno - P.snl;
-  UNROLL for (int i = kSno - 1; i >= 0; --i) {
-    if (i >= top) {
-      P.z[i] = P.zi[i + 1] - T(0.5) * P.dz[i];
-      P.zi[i] = P.zi[i + 1] - P.dz[i];
+// f(r, p) for this thread's elements of the tile
+template <typename F>
+HD void for_tile(int tid, int nt, int rows, int p0, int w, F&& f) {
+  TileWalk t(tid, nt, rows, w);
+  for (int k = tid; k < t.total; k += nt) {
+    f(t.r, p0 + t.q);
+    t.next();
+  }
+}
+
+// A copy through registers: dst(r, p, src(r, p)) for this thread's
+// elements, kBatch loads in flight before their stores
+constexpr int kBatch = 8;
+
+template <typename T, typename Src, typename Dst>
+HD void tile_pass(int tid, int nt, int rows, int p0, int w, Src&& src,
+                  Dst&& dst) {
+  TileWalk t(tid, nt, rows, w);
+  for (int k0 = tid; k0 < t.total; k0 += kBatch * nt) {
+    T v[kBatch];
+    const TileWalk at = t;
+    UNROLL for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u * nt < t.total) v[u] = src(t.r, p0 + t.q);
+      t.next();
+    }
+    TileWalk back = at;
+    UNROLL for (int u = 0; u < kBatch; ++u) {
+      if (k0 + u * nt < t.total) dst(back.r, p0 + back.q, v[u]);
+      back.next();
     }
   }
 }
+
+// *dst = *src from device to shared memory without passing through a
+// register (cp.async): a thread issues all of a phase's copies, then waits
+// once (async_wait) before the block's barrier
+template <typename T>
+HD void async_copy(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"(sizeof(T)));
+#else
+  *dst = *src;
+#endif
+}
+
+HD void async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
+}
+
+// The block's shared arrays: slot s of the block's row r at
+// slots[s * ld + r]; imelt == 1 at position p of row r at melt[p * mld + r]
+template <typename T>
+struct Tile {
+  const Args<T>& A;
+  long long i0;   // the block's first column
+  int rows;       // its columns (the last block may have fewer than kB)
+  int tid, nt;    // this thread, of nt
+  T* slots;
+  unsigned char* melt;
+  int ld, mld;
+
+  HD const T* row(int k, int r) const {
+    return A.lay[k] + (i0 + r) * A.lay_stride[k];
+  }
+  // the positions [p0, p0 + w) of layered input k into slots s0 + p - p0
+  // (cp.async)
+  HD void stage(int k, int s0, int p0, int w) const {
+    for_tile(tid, nt, rows, p0, w, [&](int r, int p) {
+      async_copy(slots + (s0 + p - p0) * ld + r, row(k, r) + p);
+    });
+  }
+  // slots s0 + p of every row into positions [0, w) of output q (row
+  // width w)
+  HD void store(int q, int s0, int w) const {
+    T* out = A.lay_out[q] + i0 * w;
+    tile_pass<T>(tid, nt, rows, 0, w,
+                 [&](int r, int p) { return slots[(s0 + p) * ld + r]; },
+                 [&](int r, int p, T v) { K5_STORE(out + r * w + p, v); });
+  }
+  // whole rows of output q (width wq): positions [0, ns) from slots s0 + p,
+  // the rest straight from layered input k, the liquid as snow_water
+  // leaves the soil rows, with 0 added twice.  Each row leaves in one pass,
+  // so no sector of it is written in parts at different times.
+  HD void store_rows(int q, int s0, int ns, int k, int wq) const {
+    T* out = A.lay_out[q] + i0 * wq;
+    const bool liq = k == lLiq;
+    tile_pass<T>(tid, nt, rows, 0, wq,
+                 [&](int r, int p) {
+                   if (p < ns) return slots[(s0 + p) * ld + r];
+                   const T v = load(row(k, r) + p);
+                   return liq ? (v + T(0)) + T(0) : v;
+                 },
+                 [&](int r, int p, T v) { K5_STORE(out + r * wq + p, v); });
+  }
+};
+
+// The first phase: positions 0-5 of t, ice, liq and dz and zi[5] into
+// their slots (cp.async), meanwhile imelt into its bytes
+template <typename T>
+HD void stage_hot(const Tile<T>& B) {
+  B.stage(lT, cT, 0, kSno + 1);
+  B.stage(lIce, hIce, 0, kSno);
+  B.stage(lLiq, hLiq, 0, kSno);
+  B.stage(lDz, cDz, 0, kSno + 1);
+  B.stage(lIce, cIce5, kSno, 1);
+  B.stage(lLiq, cLiq5, kSno, 1);
+  B.stage(lZi, cZi5, kSno, 1);
+  const Args<T>& A = B.A;
+  tile_pass<long long>(
+      B.tid, B.nt, B.rows, 0, kSno,
+      [&](int r, int p) {
+        return load(A.imelt + (B.i0 + r) * A.imelt_stride + p);
+      },
+      [&](int r, int p, long long v) { B.melt[p * B.mld + r] = v == 1; });
+  async_wait();
+}
+
+// The second: the masses and the radii into the cold slots (cp.async)
+template <typename T>
+HD void stage_cold(const Tile<T>& B) {
+  UNROLL for (int k = 0; k < kSpecies; ++k)
+    B.stage(lMss + k, cMss + k * kSno, 0, kSno);
+  B.stage(lSnwRds, cRds, 0, kSno);
+  async_wait();
+}
+
+template <typename T>
+HD void store_masses(const Tile<T>& B, int q) {
+  UNROLL for (int k = 0; k < kSpecies; ++k)
+    B.store(q + k, cMss + k * kSno, kSno);
+}
+
+// The layers: t, ice, liq and dz (snow positions and the soil-top row from
+// the slots), z and zi (the snow positions), each with the soil rows from
+// the inputs; the radii
+template <typename T>
+HD void store_layers(const Tile<T>& B) {
+  const int L = B.A.nlevtot;
+  B.store_rows(qT, cT, kSno + 1, lT, L);
+  B.store_rows(qIce, rIce, kSno + 1, lIce, L);
+  B.store_rows(qLiq, rLiq, kSno + 1, lLiq, L);
+  B.store_rows(qDz, cDz, kSno + 1, lDz, L);
+  B.store_rows(qZ, rZ, kSno, lZ, L);
+  B.store_rows(qZi, rZi, kSno, lZi, L + 1);
+  B.store(qRds, cRds, kSno);
+}
+
+// ---- a column --------------------------------------------------------------
+
+// A column's slots (its row of the block's shared arrays)
+template <typename T>
+struct Slots {
+  T* s;
+  const unsigned char* melt;
+  int ld, mld;
+  HD T& operator[](int k) const { return s[k * ld]; }
+  HD T& mss(int k, int p) const { return s[(cMss + k * kSno + p) * ld]; }
+  HD T& rds(int p) const { return s[(cRds + p) * ld]; }
+  HD T& t(int p) const { return s[(cT + p) * ld]; }
+  HD T& ice5() const { return s[cIce5 * ld]; }
+  HD T& liq5() const { return s[cLiq5 * ld]; }
+  HD T& dz(int p) const { return s[(cDz + p) * ld]; }
+  HD bool melting(int p) const { return melt[p * mld] != 0; }
+};
+
+// One column's snow: positions 0-4 the snow layers, 5 the top soil row
+// (liq, ice, t and dz read it; combine and snow_water write liq/ice).  The
+// layers' ice, liq and dz in registers, the rest (the temperatures and the
+// soil row included) in its slots
+template <typename T>
+struct Pack {
+  T ice[kSno], liq[kSno];
+  Slots<T> S;
+  int snl;
+  // ice and liq at position p of 0-5
+  HD T ice_at(int p) const { return p == kSno ? S.ice5() : pick(ice, p); }
+  HD T liq_at(int p) const { return p == kSno ? S.liq5() : pick(liq, p); }
+};
 
 template <typename T>
 struct Column {
   const Args<T>& A;
   long long i;
   HD T in(int k) const { return load(&A.in[k][i * A.in_stride[k]]); }
-  HD T lay(int k, int p) const {
-    return load(&A.lay[k][i * A.lay_stride[k] + p]);
-  }
 };
 
-// What combine hands on besides the layers
+// combine's [ncol] results
 template <typename T>
 struct Combined {
   T h2osno, snow_depth, frac_sno, fse, int_snow, qsl, qs2t, mflx;
+};
+
+// What combine hands on to divide and the aging
+template <typename T>
+struct Handed {
+  T frac_sno, h2osno;
 };
 
 // ---- 1-3: snow_water, compute_aerosol_deposition, aerosol_phase_change ----
@@ -303,6 +554,7 @@ template <typename T>
 HD Water<T> snow_water(const Column<T>& C, Pack<T>& P, bool cap, T fse) {
   const double dtime = C.A.dtime;
   const Consts& K = C.A.K;
+  const Slots<T>& S = P.S;
   const T Tdt = T(dtime);
   const int top = kSno - P.snl;
   const T sub = C.in(iSubSnow), evap = C.in(iEvapGrnd);
@@ -314,68 +566,97 @@ HD Water<T> snow_water(const Column<T>& C, Pack<T>& P, bool cap, T fse) {
   const T add_nc = (fse * (dew_snow - sub)) * Tdt;
   const T liq_cap = ((-fse) * evap) * Tdt;
   const T liq_nc = (fse * ((rain + dew_grnd) - evap)) * Tdt;
-  UNROLL for (int p = 0; p <= kSno; ++p) {
-    const T wgdif = cap ? P.ice[p] - sub_cap : P.ice[p] + add_nc;
+  {
+    // (the other positions' liquid takes 0 twice)
+    const T ice_t = P.ice_at(top), liq_t = P.liq_at(top);
+    const T wgdif = cap ? ice_t - sub_cap : ice_t + add_nc;
     const bool neg = wgdif < T(0);
-    const bool at_top = p == top;
-    P.ice[p] = at_top ? (neg ? T(0) : wgdif) : P.ice[p];
-    P.liq[p] = P.liq[p] + ((at_top && neg) ? wgdif : T(0));
-    P.liq[p] = P.liq[p] + (at_top ? (cap ? liq_cap : liq_nc) : T(0));
+    const T ice_new = neg ? T(0) : wgdif;
+    const T liq_new =
+        (liq_t + (neg ? wgdif : T(0))) + (cap ? liq_cap : liq_nc);
+    UNROLL for (int p = 0; p < kSno; ++p) {
+      P.ice[p] = p == top ? ice_new : P.ice[p];
+      P.liq[p] = p == top ? liq_new : (P.liq[p] + T(0)) + T(0);
+    }
+    S.ice5() = top == kSno ? ice_new : S.ice5();
+    S.liq5() = top == kSno ? liq_new : (S.liq5() + T(0)) + T(0);
   }
   // zero negative liquid downward from the top, to the first
   // non-negative layer (impl:317-324)
-  bool running = pick(P.liq, top) < T(0);
+  bool running = P.liq_at(top) < T(0);
   T mflx_neg = T(0);
   UNROLL for (int p = 0; p <= kSno; ++p) {
-    const T w = P.liq[p];
+    const T w = p < kSno ? P.liq[p] : S.liq5();
     const bool below = p >= top;
     const bool hit = running && below && w < T(0);
-    P.liq[p] = hit ? T(0) : w;
+    if (p < kSno) {
+      P.liq[p] = hit ? T(0) : w;
+    } else if (hit) {
+      S.liq5() = T(0);
+    }
     mflx_neg = hit ? divs(w, dtime) : mflx_neg;
     running = running && (!below || hit);
   }
-  // porosity and partial volumes (impl:327-335)
-  T vol_ice[kSno], eff_por[kSno], vol_liq[kSno];
-  UNROLL for (int p = 0; p < kSno; ++p) {
-    const T dzf = P.dz[p] * fse;
+  // porosity and partial volumes (impl:327-335) of position p, from the
+  // layers as they stand before percolation (position p's liquid changes
+  // only at step p of it)
+  auto volumes = [&](int p, T& vol_ice, T& eff_por, T& vol_liq) {
+    const T dzf = P.S.dz(p) * fse;
     const T den_i = dzf * T(K.denice);
     const T den_l = dzf * T(K.denh2o);
-    vol_ice[p] = nmin(den_i != T(0) ? P.ice[p] / den_i : T(0), T(1));
-    eff_por[p] = T(1) - vol_ice[p];
-    vol_liq[p] = nmin(eff_por[p], den_l != T(0) ? P.liq[p] / den_l : T(0));
-  }
+    vol_ice = nmin(den_i != T(0) ? P.ice[p] / den_i : T(0), T(1));
+    eff_por = T(1) - vol_ice;
+    vol_liq = nmin(eff_por, den_l != T(0) ? P.liq[p] / den_l : T(0));
+  };
   // percolation with aerosol scavenging (impl:353-461)
   const double scv[kSpecies] = {0.20, 0.03, 0.02, 0.02, 0.01, 0.01};
   T qin = T(0), qout = T(0), qin_a[kSpecies];
   UNROLL for (int k = 0; k < kSpecies; ++k) qin_a[k] = T(0);
+  // (an inactive position only adds 0 to its liquid and its masses: its
+  // flux, which the plain block computes and discards, is not computed)
+  T vi = T(0), ep = T(0), vl = T(0);
+  if (top == 0) volumes(0, vi, ep, vl);
   UNROLL for (int i = 0; i < kSno; ++i) {
+    // position i + 1's volumes (the bottom layer's own at the bottom)
+    T vi1 = vi, ep1 = ep, vl1 = vl;
+    if (i + 1 < kSno && i + 1 >= top) volumes(i + 1, vi1, ep1, vl1);
     const bool act = i >= top;
     P.liq[i] = P.liq[i] + (act ? qin : T(0));
-    UNROLL for (int k = 0; k < kSpecies; ++k)
-      P.mss[k][i] = P.mss[k][i] + (act ? qin_a[k] : T(0));
-    const int ip1 = i + 1 < kSno ? i + 1 : kSno - 1;
-    const T base = nmax(((vol_liq[i] - T(0.033) * eff_por[i]) * P.dz[i]) * fse,
-                        T(0));
-    // (the reference reads vol_ice[i+i] here: corrected to i+1)
-    const T capq = (((T(1) - vol_ice[ip1]) - vol_liq[ip1]) * P.dz[ip1]) * fse;
-    const bool blocked = eff_por[i] < T(0.05) || eff_por[ip1] < T(0.05);
-    T q = i < kSno - 1 ? (blocked ? T(0) : nmin(base, capq)) : base;
-    q = q * T(1000.0);
+    T q = T(0);
+    if (act) {
+      const int ip1 = i + 1 < kSno ? i + 1 : kSno - 1;
+      const T base = nmax(((vl - T(0.033) * ep) * P.S.dz(i)) * fse, T(0));
+      // (the reference reads vol_ice[i+i] here: corrected to i+1)
+      const T capq = (((T(1) - vi1) - vl1) * P.S.dz(ip1)) * fse;
+      const bool blocked = ep < T(0.05) || ep1 < T(0.05);
+      q = i < kSno - 1 ? (blocked ? T(0) : nmin(base, capq)) : base;
+      q = q * T(1000.0);
+    }
     P.liq[i] = P.liq[i] + (act ? -q : T(0));
     qin = act ? q : qin;
     qout = act ? q : qout;
-    const T liqice = nmax(P.liq[i] + P.ice[i], T(1.0e-30));
-    UNROLL for (int k = 0; k < kSpecies; ++k) {
-      const T mk = P.mss[k][i];
-      const T qa = nmin((q * T(scv[k])) * (mk / liqice), mk);
-      P.mss[k][i] = mk + (act ? -qa : T(0));
-      qin_a[k] = act ? qa : qin_a[k];
+    // the masses take what flowed in from above, then lose what the flux
+    // scavenges
+    if (act) {
+      const T liqice = nmax(P.liq[i] + P.ice[i], T(1.0e-30));
+      UNROLL for (int k = 0; k < kSpecies; ++k) {
+        const T mk = S.mss(k, i) + qin_a[k];
+        const T qa = nmin((q * T(scv[k])) * (mk / liqice), mk);
+        S.mss(k, i) = mk + -qa;
+        qin_a[k] = qa;
+      }
+    } else {
+      UNROLL for (int k = 0; k < kSpecies; ++k)
+        S.mss(k, i) = (S.mss(k, i) + T(0)) + T(0);
     }
+    vi = vi1;
+    ep = ep1;
+    vl = vl1;
   }
   // layer thickness floor (impl:468-470)
   UNROLL for (int p = 0; p < kSno; ++p) {
     if (p >= top) {
-      P.dz[p] = nmax(P.dz[p], divs(P.liq[p], K.denh2o) +
+      P.S.dz(p) = nmax(P.S.dz(p), divs(P.liq[p], K.denh2o) +
                                   divs(P.ice[p], K.denice));
     }
   }
@@ -395,6 +676,7 @@ HD Water<T> snow_water(const Column<T>& C, Pack<T>& P, bool cap, T fse) {
 
 template <typename T>
 HD void aerosols_in(const Column<T>& C, Pack<T>& P) {
+  const Slots<T>& S = P.S;
   const T Tdt = T(C.A.dtime);
   const int top = kSno - P.snl;
   // deposition into the top layer (aerosol_physics_impl.hh:34-60)
@@ -407,100 +689,154 @@ HD void aerosols_in(const Column<T>& C, Pack<T>& P) {
   UNROLL for (int k = 0; k < kSpecies; ++k) {
     const T d = add[k] * Tdt;
     UNROLL for (int p = 0; p < kSno; ++p)
-      P.mss[k][p] = P.mss[k][p] + ((p == top && has) ? d : T(0));
+      S.mss(k, p) = S.mss(k, p) + ((p == top && has) ? d : T(0));
   }
   // within-ice BC to external BC with the sublimated mass
   // (snow_hydrology_impl.hh:492-543)
-  const T tot = pick(P.liq, top) + pick(P.ice, top);
+  const T tot = P.liq_at(top) + P.ice_at(top);
   const T subsnow = nmax(C.in(iSubSnow) * Tdt, T(0));
   const T frc = nmin(tot > T(0) ? subsnow / tot : T(0), T(1));
   UNROLL for (int p = 0; p < kSno; ++p) {
-    const T dm = p == top ? P.mss[0][p] * frc : T(0);
-    P.mss[0][p] = P.mss[0][p] - dm;
-    P.mss[1][p] = P.mss[1][p] + dm;
+    const T m0 = S.mss(0, p);
+    const T dm = p == top ? m0 * frc : T(0);
+    S.mss(0, p) = m0 - dm;
+    S.mss(1, p) = S.mss(1, p) + dm;
   }
 }
 
 // ---- 4: snow_compaction (snow_hydrology_impl.hh:546-637) -------------------
 
 template <typename T>
-HD void compaction(const Column<T>& C, Pack<T>& P, T frac_sno, T int_snow,
-                   bool soil_crop) {
+HD void compaction(const Column<T>& C, Pack<T>& P, T frac_sno, T int_snow) {
   const double dtime = C.A.dtime;
   const Consts& K = C.A.K;
+  const Slots<T>& S = P.S;
   const int top = kSno - P.snl;
   const T fs = frac_sno;
   const T fs_safe = fs != T(0) ? fs : T(1);
-  T wx[kSno], wx_act[kSno], cum[kSno];
-  UNROLL for (int p = 0; p < kSno; ++p) {
-    wx[p] = P.ice[p] + P.liq[p];
-    wx_act[p] = p >= top ? wx[p] : T(0);
-  }
-  cumsum5(wx_act, cum);
-  const T wsum = sum5(wx_act);
-  const T int_safe = int_snow != T(0) ? int_snow : T(1);
-  const T n_melt = C.in(iNMelt);
   const T rdt = T(-1.0 / dtime);
+  // ELM's melt form on soil and crop (read here, where it is needed)
+  const bool soil_crop = C.A.soil_crop[C.i * C.A.soil_crop_stride] != 0;
+  // (a position that does not compact keeps its thickness: the rates the
+  // plain block computes for it and discards are not computed)
+  unsigned compacts = 0;  // a bit a position
   UNROLL for (int p = 0; p < kSno; ++p) {
-    const T ice = P.ice[p], liq = P.liq[p], dz = P.dz[p];
+    const T ice = P.ice[p], liq = P.liq[p], dz = P.S.dz(p);
     const T dz_safe = dz != T(0) ? dz : T(1);
-    const T vd = T(1) - (divs(ice, K.denice) + divs(liq, K.denh2o)) /
-                            (fs_safe * dz_safe);
-    const bool compact = p >= top && vd > T(0.001) && ice > T(0.1);
+    if (p >= top) {
+      const T vd = T(1) - (divs(ice, K.denice) + divs(liq, K.denh2o)) /
+                              (fs_safe * dz_safe);
+      if (vd > T(0.001) && ice > T(0.1)) compacts |= 1u << p;
+    }
+  }
+  // the melt compaction's snow-covered fraction takes two values: at the
+  // top layer, from the pack's mass, and below it, from no mass; each is
+  // computed once, where a melting layer of a soil or crop column needs it
+  T fsno_top = T(0), fsno_below = T(0);
+  if (soil_crop) {
+    bool top_melts = false, below_melts = false;
+    UNROLL for (int p = 0; p < kSno; ++p) {
+      if (((compacts >> p) & 1u) && S.melting(p)) {
+        top_melts = top_melts || p == top;
+        below_melts = below_melts || p != top;
+      }
+    }
+    const T int_safe = int_snow != T(0) ? int_snow : T(1);
+    auto fsno_melt = [&](T wsum) {
+      const T x = nmin(wsum / int_safe, T(1));
+      return T(1) - tpow(divs(tacos(T(2.0) * x - T(1.0)), K.pi),
+                         C.in(iNMelt));
+    };
+    if (top_melts) {
+      T wx_act[kSno];
+      UNROLL for (int q = 0; q < kSno; ++q)
+        wx_act[q] = q >= top ? P.ice[q] + P.liq[q] : T(0);
+      fsno_top = fsno_melt(sum5(wx_act));
+    }
+    if (below_melts) fsno_below = fsno_melt(T(0));
+  }
+  // the active layers' running mass from the top
+  T c_prev = T(0), c1 = T(0), x_prev = T(0);
+  UNROLL for (int p = 0; p < kSno; ++p) {
+    const T ice = P.ice[p], liq = P.liq[p], dz = P.S.dz(p);
+    const T wx = ice + liq;
+    // overburden: exclusive prefix sum of the layer mass from the top
+    const T x_act = p >= top ? wx : T(0);
+    const T cum = cumsum5_at(p, x_act, x_prev, c_prev, c1);
+    const T burden = cum - x_act;
+    if (p == 1) c1 = cum;
+    c_prev = cum;
+    x_prev = x_act;
+    if (!((compacts >> p) & 1u)) continue;
+    const T dz_safe = dz != T(0) ? dz : T(1);
     const T bi = ice / (fs_safe * dz_safe);
-    const T wx_safe = wx[p] != T(0) ? wx[p] : T(1);
-    const T fi = ice / wx_safe;
-    const T td = T(K.tfrz) - P.t[p];
+    const T wx_safe = wx != T(0) ? wx : T(1);
+    const T td = T(K.tfrz) - S.t(p);
     const T dexpf = texp(T(-0.04) * td);
     T ddz1 = T(-2.777e-6) * dexpf;
     if (bi > T(100.0)) ddz1 = ddz1 * texp(T(-46.0e-3) * (bi - T(100.0)));
     if (liq > (T(0.01) * dz) * fs) ddz1 = ddz1 * T(2.0);
-    // overburden: exclusive prefix sum of the layer mass from the top
-    const T burden = cum[p] - wx_act[p];
-    const T ddz2 = divs((-(burden + divs(wx[p], 2.0))) *
+    const T ddz2 = divs((-(burden + divs(wx, 2.0))) *
                             texp(T(-0.08) * td - T(23.e-3) * bi),
                         9.0e+5);
-    // melt compaction: ELM's fractional-area form on soil and crop
-    const T swe = C.lay(lSweOld, p);
-    T ddz3_sc = nmin(nmax((swe - wx[p]) / wx_safe, T(0)), T(1));
-    const bool shrunk = (swe - wx[p]) > T(0);
-    const T x = nmin((p == top ? wsum : T(0)) / int_safe, T(1));
-    const T fsno_melt =
-        T(1) - tpow(divs(tacos(T(2.0) * x - T(1.0)), K.pi), n_melt);
-    ddz3_sc = ddz3_sc - (shrunk ? nmax((fsno_melt - fs) / fs_safe, T(0))
-                                : T(0));
-    ddz3_sc = rdt * ddz3_sc;
-    const T fio = C.lay(lFracIceold, p);
-    const T fio_safe = fio != T(0) ? fio : T(1);
-    const T ddz3_ns = rdt * nmax((fio - fi) / fio_safe, T(0));
-    T ddz3 = soil_crop ? ddz3_sc : ddz3_ns;
-    const long long imelt = C.A.imelt[C.i * C.A.imelt_stride + p];
-    ddz3 = imelt == 1 ? ddz3 : T(0);
+    T ddz3 = T(0);
+    if (S.melting(p)) {
+      if (soil_crop) {
+        // melt compaction: ELM's fractional-area form on soil and crop
+        const T swe = load(C.A.lay[lSweOld] + C.i * C.A.lay_stride[lSweOld] + p);
+        T ddz3_sc = nmin(nmax((swe - wx) / wx_safe, T(0)), T(1));
+        const bool shrunk = (swe - wx) > T(0);
+        const T fsno_melt = p == top ? fsno_top : fsno_below;
+        ddz3_sc = ddz3_sc - (shrunk ? nmax((fsno_melt - fs) / fs_safe, T(0))
+                                    : T(0));
+        ddz3 = rdt * ddz3_sc;
+      } else {
+        const T fi = ice / wx_safe;
+        const T fio =
+            load(C.A.lay[lFracIceold] + C.i * C.A.lay_stride[lFracIceold] + p);
+        const T fio_safe = fio != T(0) ? fio : T(1);
+        ddz3 = rdt * nmax((fio - fi) / fio_safe, T(0));
+      }
+    }
     const T pdzdtc = (ddz1 + ddz2) + ddz3;
-    const T dz_comp = nmax(dz * (T(1) + pdzdtc * T(dtime)),
-                           (divs(ice, K.denice) + divs(liq, K.denh2o)) /
-                               fs_safe);
-    P.dz[p] = compact ? dz_comp : dz;
+    P.S.dz(p) = nmax(dz * (T(1) + pdzdtc * T(dtime)),
+                   (divs(ice, K.denice) + divs(liq, K.denh2o)) / fs_safe);
   }
 }
 
 // ---- 5: combine_layers (snow_hydrology_impl.hh:648-897) --------------------
 
+// where(on and lo < p <= hi): slot base + p = slot base + p - 1
 template <typename T>
-HD void shift_layers(Pack<T>& P, bool on, int lo, int hi) {
-  shift_down(P.t, on, lo, hi);
-  shift_down(P.liq, on, lo, hi);
-  shift_down(P.ice, on, lo, hi);
-  shift_down(P.dz, on, lo, hi);
-  shift_down(P.rds, on, lo, hi);
-  UNROLL for (int k = 0; k < kSpecies; ++k) shift_down(P.mss[k], on, lo, hi);
+HD void shift_down_slots(const Slots<T>& S, int base, bool on, int lo,
+                         int hi) {
+  UNROLL for (int p = kSno - 1; p >= 1; --p) {
+    if (on && p > lo && p <= hi) S[base + p] = S[base + p - 1];
+  }
 }
 
 template <typename T>
-HD Combined<T> combine(const Column<T>& C, Pack<T>& P, bool soil_like,
-                       T fse, T frac_sno, T int_snow) {
+HD void shift_layers(Pack<T>& P, bool on, int lo, int hi) {
+  shift_down_slots(P.S, cT, on, lo, hi);
+  shift_down(P.liq, on, lo, hi);
+  shift_down(P.ice, on, lo, hi);
+  shift_down_slots(P.S, cDz, on, lo, hi);
+  shift_down_slots(P.S, cRds, on, lo, hi);
+  UNROLL for (int k = 0; k < kSpecies; ++k)
+    shift_down_slots(P.S, cMss + k * kSno, on, lo, hi);
+}
+
+// (step 6 too: the [ncol] results leave before the merges of thin layers,
+// which change none of them)
+template <typename T>
+HD Handed<T> combine(const Column<T>& C, Pack<T>& P, T fse,
+                     const Water<T>& W, int snl0) {
+  const T frac_sno = W.frac_sno, int_snow = W.int_snow;
+  // the merges into the soil row on soil, crop and urban columns
+  const bool soil_like = C.A.soil_like[C.i * C.A.soil_like_stride] != 0;
   const double dtime = C.A.dtime;
   const Consts& K = C.A.K;
+  const Slots<T>& S = P.S;
   Combined<T> R;
   R.qsl = T(0);
   R.qs2t = T(0);
@@ -514,8 +850,13 @@ HD Combined<T> combine(const Column<T>& C, Pack<T>& P, bool soil_like,
     // merge the mass into the layer below (soil-like land units); the
     // bottom layer's into the soil row
     if (msl) {
-      P.liq[i + 1] = P.liq[i + 1] + liq_i;
-      P.ice[i + 1] = P.ice[i + 1] + ice_i;
+      if (i + 1 < kSno) {
+        P.liq[i + 1] = P.liq[i + 1] + liq_i;
+        P.ice[i + 1] = P.ice[i + 1] + ice_i;
+      } else {
+        S.liq5() = S.liq5() + liq_i;
+        S.ice5() = S.ice5() + ice_i;
+      }
     }
     T q = T(0);
     if (i == kSno - 1) {
@@ -524,9 +865,9 @@ HD Combined<T> combine(const Column<T>& C, Pack<T>& P, bool soil_like,
     }
     R.mflx = R.mflx + q;
     if (i < kSno - 1 && msl) {
-      P.dz[i + 1] = P.dz[i + 1] + P.dz[i];
+      P.S.dz(i + 1) = P.S.dz(i + 1) + P.S.dz(i);
       UNROLL for (int k = 0; k < kSpecies; ++k)
-        P.mss[k][i + 1] = P.mss[k][i + 1] + P.mss[k][i];
+        S.mss(k, i + 1) = S.mss(k, i + 1) + S.mss(k, i);
     }
     // shift the layers above down one
     const int topc = kSno - P.snl;
@@ -540,7 +881,7 @@ HD Combined<T> combine(const Column<T>& C, Pack<T>& P, bool soil_like,
     UNROLL for (int p = 0; p < kSno; ++p) {
       const bool a = p >= top;
       wt[p] = a ? P.ice[p] + P.liq[p] : T(0);
-      d[p] = a ? P.dz[p] : T(0);
+      d[p] = a ? P.S.dz(p) : T(0);
       wi[p] = a ? P.ice[p] : T(0);
       wl[p] = a ? P.liq[p] : T(0);
     }
@@ -554,13 +895,14 @@ HD Combined<T> combine(const Column<T>& C, Pack<T>& P, bool soil_like,
                     (fsd < T(0.01) || h2osno / fsd_safe < T(50.0));
   P.snl = gone ? 0 : P.snl;
   h2osno = gone ? zwice : h2osno;
-  UNROLL for (int k = 0; k < kSpecies; ++k)
-    UNROLL for (int p = 0; p < kSno; ++p)
-      P.mss[k][p] = gone ? T(0) : P.mss[k][p];
+  if (gone) {
+    UNROLL for (int k = 0; k < kSpecies; ++k)
+      UNROLL for (int p = 0; p < kSno; ++p) S.mss(k, p) = T(0);
+  }
   snow_depth = (gone && h2osno <= T(0)) ? T(0) : snow_depth;
   const bool gsl = gone && soil_like;
   P.liq[kSno - 1] = gsl ? T(0) : P.liq[kSno - 1];
-  P.liq[kSno] = P.liq[kSno] + (gsl ? zwliq : T(0));
+  S.liq5() = S.liq5() + (gsl ? zwliq : T(0));
   R.qs2t = gsl ? divs(zwliq, dtime) : R.qs2t;
   R.mflx = R.mflx + (gsl ? divs(zwliq, dtime) : T(0));
   const bool none_left = h2osno <= T(0);
@@ -569,207 +911,263 @@ HD Combined<T> combine(const Column<T>& C, Pack<T>& P, bool soil_like,
   R.frac_sno = none_left ? T(0) : frac_sno;
   R.fse = none_left ? T(0) : fse;
   R.int_snow = none_left ? T(0) : int_snow;
+  const T f = R.fse;
+  // 6: ELM combines only over the snowc filter (columns with snow layers):
+  // a layerless column passes its pack scalars through
+  if (snl0 == 0) {
+    R.h2osno = C.in(iH2osno);
+    R.snow_depth = C.in(iSnowDepth);
+    R.frac_sno = W.frac_sno;
+    R.fse = fse;
+    R.int_snow = W.int_snow;
+    R.qsl = T(0);
+    R.qs2t = T(0);
+    R.mflx = T(0);
+  }
+  const long long i = C.i;
+  T* const* o = C.A.out;
+  K5_STORE(o[oH2osno] + i, R.h2osno);
+  K5_STORE(o[oSnowDepth] + i, R.snow_depth);
+  K5_STORE(o[oFracSno] + i, R.frac_sno);
+  K5_STORE(o[oFse] + i, R.fse);
+  K5_STORE(o[oIntSnow] + i, R.int_snow);
+  K5_STORE(o[oSlTopSoil] + i, R.qsl);
+  K5_STORE(o[oSnow2topsoi] + i, R.qs2t);
+  K5_STORE(o[oMflxSnowlyr] + i, R.mflx);
+  const Handed<T> out{R.frac_sno, R.h2osno};
   // merge below-minimum layers with a neighbour (impl:813-890)
   const double dzmin[kSno] = {0.010, 0.015, 0.025, 0.055, 0.115};
   const int top_old2 = kSno - P.snl;
   int mssi = 0;
   bool stop = P.snl <= 1;
-  const T f = R.fse;
   UNROLL for (int i = 0; i < kSno; ++i) {
-    const T dz_i = P.dz[i];
-    const T fse_dz = f * dz_i;
-    const T fse_dz_safe = fse_dz != T(0) ? fse_dz : T(1);
-    T dmin = T(dzmin[0]);
-    UNROLL for (int k = 1; k < kSno; ++k) dmin = mssi == k ? T(dzmin[k]) : dmin;
-    const bool thin = fse_dz < dmin ||
-                      (P.ice[i] + P.liq[i]) / fse_dz_safe < T(50.0);
-    const bool m = !stop && i >= top_old2 && thin;
-    const int topc = kSno - P.snl;
-    // the first position merges downward, the last upward, the middle
-    // ones with the thinner neighbour (impl:823-834): nb: j = i+1, l = i;
-    // else j = i, l = i-1
-    bool nb;
-    if (i == 0) {
-      nb = true;
-    } else if (i == kSno - 1) {
-      nb = false;
-    } else {
-      nb = i == topc || !((P.dz[i - 1] + dz_i) < (P.dz[i + 1] + dz_i));
+    // (a position that is not merged computes no merge: the plain block's
+    // merged values for it are discarded)
+    const bool cand = !stop && i >= top_old2;
+    bool m = false;
+    if (cand) {
+      const T dz_i = P.S.dz(i);
+      const T fse_dz = f * dz_i;
+      const T fse_dz_safe = fse_dz != T(0) ? fse_dz : T(1);
+      T dmin = T(dzmin[0]);
+      UNROLL for (int k = 1; k < kSno; ++k)
+        dmin = mssi == k ? T(dzmin[k]) : dmin;
+      m = fse_dz < dmin || (P.ice[i] + P.liq[i]) / fse_dz_safe < T(50.0);
     }
-    const int ja = i + 1 < kSno ? i + 1 : i;
-    const int lb = i > 0 ? i - 1 : 0;
-    const int j = nb ? i + 1 : i;
-    const T wl_j = nb ? P.liq[ja] : P.liq[i], wl_l = nb ? P.liq[i] : P.liq[lb];
-    const T wi_j = nb ? P.ice[ja] : P.ice[i], wi_l = nb ? P.ice[i] : P.ice[lb];
-    const T t_j = nb ? P.t[ja] : P.t[i], t_l = nb ? P.t[i] : P.t[lb];
-    const T dz_j = nb ? P.dz[ja] : P.dz[i], dz_l = nb ? P.dz[i] : P.dz[lb];
-    const T r_j = nb ? P.rds[ja] : P.rds[i], r_l = nb ? P.rds[i] : P.rds[lb];
-    const T tot = ((wl_j + wi_j) + wl_l) + wi_l;
-    const T rds_new = (r_j * (wl_j + wi_j) + r_l * (wl_l + wi_l)) /
-                      (tot != T(0) ? tot : T(1));
-    const Merged<T> M =
-        combine_vals(dz_l, wl_l, wi_l, t_l, dz_j, wl_j, wi_j, t_j, K);
+    const int topc = kSno - P.snl;
     if (m) {
+      const T dz_i = P.S.dz(i);
+      // the first position merges downward, the last upward, the middle
+      // ones with the thinner neighbour (impl:823-834): nb: j = i+1, l = i;
+      // else j = i, l = i-1
+      bool nb;
+      if (i == 0) {
+        nb = true;
+      } else if (i == kSno - 1) {
+        nb = false;
+      } else {
+        nb = i == topc ||
+             !((P.S.dz(i - 1) + dz_i) < (P.S.dz(i + 1) + dz_i));
+      }
+      const int ja = i + 1 < kSno ? i + 1 : i;
+      const int lb = i > 0 ? i - 1 : 0;
+      const int j = nb ? i + 1 : i;
+      const T wl_j = nb ? P.liq[ja] : P.liq[i];
+      const T wl_l = nb ? P.liq[i] : P.liq[lb];
+      const T wi_j = nb ? P.ice[ja] : P.ice[i];
+      const T wi_l = nb ? P.ice[i] : P.ice[lb];
+      const T t_j = S.t(nb ? ja : i), t_l = S.t(nb ? i : lb);
+      const T dz_j = S.dz(nb ? ja : i), dz_l = S.dz(nb ? i : lb);
+      const T r_j = S.rds(nb ? ja : i), r_l = S.rds(nb ? i : lb);
+      const T tot = ((wl_j + wi_j) + wl_l) + wi_l;
+      const T rds_new = (r_j * (wl_j + wi_j) + r_l * (wl_l + wi_l)) /
+                        (tot != T(0) ? tot : T(1));
+      const Merged<T> M =
+          combine_vals(dz_l, wl_l, wi_l, t_l, dz_j, wl_j, wi_j, t_j, K);
       if (nb) {
         P.liq[ja] = M.wliq;
         P.ice[ja] = M.wice;
-        P.t[ja] = M.t;
-        P.dz[ja] = M.dz;
-        P.rds[ja] = rds_new;
+        S.t(ja) = M.t;
+        P.S.dz(ja) = M.dz;
+        S.rds(ja) = rds_new;
         UNROLL for (int k = 0; k < kSpecies; ++k)
-          P.mss[k][ja] = P.mss[k][ja] + P.mss[k][i];
+          S.mss(k, ja) = S.mss(k, ja) + S.mss(k, i);
       } else {
         P.liq[i] = M.wliq;
         P.ice[i] = M.wice;
-        P.t[i] = M.t;
-        P.dz[i] = M.dz;
-        P.rds[i] = rds_new;
+        S.t(i) = M.t;
+        P.S.dz(i) = M.dz;
+        S.rds(i) = rds_new;
         UNROLL for (int k = 0; k < kSpecies; ++k)
-          P.mss[k][i] = P.mss[k][i] + P.mss[k][lb];
+          S.mss(k, i) = S.mss(k, i) + S.mss(k, lb);
       }
+      // shift the layers above down one (impl:865-879): from j-1 to the
+      // top
+      shift_layers(P, (j - 1) > topc, topc - 1, j - 1);
     }
-    // shift the layers above down one (impl:865-879): from j-1 to the top
-    shift_layers(P, m && (j - 1) > topc, topc - 1, j - 1);
     P.snl = m ? P.snl - 1 : P.snl;
     stop = stop || (m && P.snl <= 1);
     mssi = (!stop && i >= top_old2 && !m) ? mssi + 1 : mssi;
   }
-  rebuild_mesh(P);
-  return R;
+  // (the mesh is rebuilt after divide, which sets every active position)
+  return out;
 }
 
-// ---- 7: divide_layers (snow_hydrology_impl.hh:907-1285) --------------------
+// ---- 7-8: divide_layers (snow_hydrology_impl.hh:907-1285), then
+// prune_snow_layers (t, ice, liq and dz above the top; z and zi when the
+// outputs are written)
 
 template <typename T>
 HD void divide(Pack<T>& P, T frac_sno, const Consts& K) {
+  const Slots<T>& S = P.S;
   const int snl = P.snl;
   const int top = kSno - snl;
   const T fs = frac_sno;
   const T fs_safe = fs != T(0) ? fs : T(1);
-  // top-anchored scratch: index k holds layer top + k
-  T dzs[kSno], swice[kSno], swliq[kSno], tsno[kSno], rds[kSno];
-  T ms[kSpecies][kSno];
+  // top-anchored scratch: index k holds layer top + k.  The temperatures'
+  // scratch is their own slots, shifted up in place (slot top + k is read
+  // before slot k is written, and the old values above the new top are
+  // pruned afterwards)
+  T dzs[kSno], swice[kSno], swliq[kSno], rds[kSno];
   UNROLL for (int k = 0; k < kSno; ++k) {
     const bool in = k < snl;
     const int src = top + k < kSno - 1 ? top + k : kSno - 1;
-    dzs[k] = (in ? pick<T, kSno + 1>(P.dz, src) : T(0)) * fs;
-    swice[k] = in ? pick<T, kSno + 1>(P.ice, src) : T(0);
-    swliq[k] = in ? pick<T, kSno + 1>(P.liq, src) : T(0);
-    tsno[k] = in ? pick<T, kSno + 1>(P.t, src) : T(0);
-    rds[k] = in ? pick(P.rds, src) : T(0);
-    UNROLL for (int s = 0; s < kSpecies; ++s)
-      ms[s][k] = in ? pick(P.mss[s], src) : T(0);
+    dzs[k] = (in ? S.dz(src) : T(0)) * fs;
+    swice[k] = in ? pick(P.ice, src) : T(0);
+    swliq[k] = in ? pick(P.liq, src) : T(0);
+    S.t(k) = in ? S.t(src) : T(0);
+    rds[k] = in ? S.rds(src) : T(0);
   }
   int msno = snl;
   // one layer thicker than 0.03: split it in two (impl:962-986)
-  if (msno == 1 && dzs[0] > T(0.03)) {
+  const bool split0 = msno == 1 && dzs[0] > T(0.03);
+  if (split0) {
     dzs[0] = dzs[1] = divs(dzs[0], 2.0);
     swice[0] = swice[1] = divs(swice[0], 2.0);
     swliq[0] = swliq[1] = divs(swliq[0], 2.0);
-    UNROLL for (int s = 0; s < kSpecies; ++s)
-      ms[s][0] = ms[s][1] = divs(ms[s][0], 2.0);
-    tsno[1] = tsno[0];
+    S.t(1) = S.t(0);
     rds[1] = rds[0];
     msno = 2;
   }
   // the ladder: trim layer k to dmax, push the excess into k+1, then maybe
-  // split k+1
+  // split k+1.  Each rung's proportions and flags are kept for the masses,
+  // which follow the same steps one species at a time below.
   const double dmaxs[4] = {0.02, 0.05, 0.11, 0.23};
   const int split_msno[3] = {2, 3, 4};
   const double split_dz[3] = {0.07, 0.18, 0.41};
+  unsigned thick_k = 0, split_k = 0;  // a bit a rung
+  T propor_x_k[4], propor_k[4];
   UNROLL for (int k = 0; k < 4; ++k) {
     const T dmax = T(dmaxs[k]);
     const T dzs_k = dzs[k];
     const bool thick = msno > k + 1 && dzs_k > dmax;
+    // (a rung whose layer is not thick changes nothing: the plain block's
+    // values for it are discarded)
+    if (!thick) continue;
+    thick_k |= 1u << k;
     const T dz_k = dzs_k != T(0) ? dzs_k : T(1);
     const T drr = dzs_k - dmax;
     const T propor_x = drr / dz_k;
     const T zwice = propor_x * swice[k];
     const T zwliq = propor_x * swliq[k];
     const T propor = dmax / dz_k;
-    if (thick) {
-      swice[k] = swice[k] * propor;
-      swliq[k] = swliq[k] * propor;
-      UNROLL for (int s = 0; s < kSpecies; ++s) {
-        ms[s][k + 1] = ms[s][k + 1] + propor_x * ms[s][k];
-        ms[s][k] = ms[s][k] * propor;
-      }
-      dzs[k] = dmax;
-    }
+    propor_x_k[k] = propor_x;
+    propor_k[k] = propor;
+    swice[k] = swice[k] * propor;
+    swliq[k] = swliq[k] * propor;
+    dzs[k] = dmax;
     const T tot = ((swliq[k + 1] + swice[k + 1]) + zwliq) + zwice;
-    const T rds_next = (rds[k + 1] * (swliq[k + 1] + swice[k + 1]) +
-                        rds[k] * (zwliq + zwice)) /
-                       (tot != T(0) ? tot : T(1));
-    if (thick) rds[k + 1] = rds_next;
+    rds[k + 1] = (rds[k + 1] * (swliq[k + 1] + swice[k + 1]) +
+                  rds[k] * (zwliq + zwice)) /
+                 (tot != T(0) ? tot : T(1));
     const Merged<T> M =
-        combine_vals(drr, zwliq, zwice, tsno[k], dzs[k + 1], swliq[k + 1],
-                     swice[k + 1], tsno[k + 1], K);
-    if (thick) {
-      dzs[k + 1] = M.dz;
-      swliq[k + 1] = M.wliq;
-      swice[k + 1] = M.wice;
-      tsno[k + 1] = M.t;
-    }
+        combine_vals(drr, zwliq, zwice, S.t(k), dzs[k + 1], swliq[k + 1],
+                     swice[k + 1], S.t(k + 1), K);
+    dzs[k + 1] = M.dz;
+    swliq[k + 1] = M.wliq;
+    swice[k + 1] = M.wice;
+    S.t(k + 1) = M.t;
     if (k == 3) break;  // the last rung never splits
     // subdivide layer k+1
-    const bool split =
-        thick && msno <= split_msno[k] && dzs[k + 1] > T(split_dz[k]);
-    const T dtdz = (tsno[k] - tsno[k + 1]) / divs(dzs[k] + dzs[k + 1], 2.0);
+    const bool split = msno <= split_msno[k] && dzs[k + 1] > T(split_dz[k]);
+    if (!split) continue;
+    split_k |= 1u << k;
+    const T dtdz = (S.t(k) - S.t(k + 1)) / divs(dzs[k] + dzs[k + 1], 2.0);
     const T half_dz = divs(dzs[k + 1], 2.0);
-    const T t_up = tsno[k + 1];
+    const T t_up = S.t(k + 1);
     const T hq = divs(dtdz * half_dz, 2.0);
     const T t_low = t_up - hq;
     // the reference's warm check differs across the rungs (impl:1041,
     // 1118, 1194)
     const bool warm = k == 1 ? t_up >= T(K.tfrz) : t_low >= T(K.tfrz);
-    if (split) {
-      dzs[k + 1] = dzs[k + 2] = half_dz;
-      swice[k + 1] = swice[k + 2] = divs(swice[k + 1], 2.0);
-      swliq[k + 1] = swliq[k + 2] = divs(swliq[k + 1], 2.0);
-      tsno[k + 2] = warm ? t_up : t_low;
-      tsno[k + 1] = warm ? t_up : t_up + hq;
-      UNROLL for (int s = 0; s < kSpecies; ++s)
-        ms[s][k + 1] = ms[s][k + 2] = divs(ms[s][k + 1], 2.0);
-      rds[k + 2] = rds[k + 1];
-      msno = k + 3;
-    }
+    dzs[k + 1] = dzs[k + 2] = half_dz;
+    swice[k + 1] = swice[k + 2] = divs(swice[k + 1], 2.0);
+    swliq[k + 1] = swliq[k + 2] = divs(swliq[k + 1], 2.0);
+    S.t(k + 2) = warm ? t_up : t_low;
+    S.t(k + 1) = warm ? t_up : t_up + hq;
+    rds[k + 2] = rds[k + 1];
+    msno = k + 3;
   }
-  // back to the bottom-anchored layout (impl:1263-1284)
+  // back to the bottom-anchored layout (impl:1263-1284); the positions
+  // above the new top are pruned (step 8: prune_snow_layers), so no old
+  // layer outlives the copy into the scratch
   P.snl = msno;
   const int top_new = kSno - msno;
-  T dzb[kSno];
-  UNROLL for (int k = 0; k < kSno; ++k) dzb[k] = dzs[k] / fs_safe;
   UNROLL for (int p = 0; p < kSno; ++p) {
     const int back = p - top_new;
-    if (back >= 0) {
-      P.dz[p] = pick(dzb, back);
-      P.ice[p] = pick(swice, back);
-      P.liq[p] = pick(swliq, back);
-      P.t[p] = pick(tsno, back);
-      P.rds[p] = pick(rds, back);
-      UNROLL for (int s = 0; s < kSpecies; ++s) P.mss[s][p] = pick(ms[s], back);
+    const bool in = back >= 0;
+    P.S.dz(p) = in ? pick(dzs, back) / fs_safe : T(0);
+    P.ice[p] = in ? pick(swice, back) : T(0);
+    P.liq[p] = in ? pick(swliq, back) : T(0);
+    if (in) S.rds(p) = pick(rds, back);
+  }
+  // (descending: slot p - top_new is read before it is written)
+  UNROLL for (int p = kSno - 1; p >= 0; --p) {
+    const int back = p - top_new;
+    S.t(p) = back >= 0 ? S.t(back) : T(0);
+  }
+  // the masses: each species through the ladder's steps
+  UNROLL for (int s = 0; s < kSpecies; ++s) {
+    T ms[kSno];
+    UNROLL for (int k = 0; k < kSno; ++k) {
+      const int src = top + k < kSno - 1 ? top + k : kSno - 1;
+      ms[k] = k < snl ? S.mss(s, src) : T(0);
+    }
+    if (split0) ms[0] = ms[1] = divs(ms[0], 2.0);
+    UNROLL for (int k = 0; k < 4; ++k) {
+      if ((thick_k >> k) & 1u) {
+        ms[k + 1] = ms[k + 1] + propor_x_k[k] * ms[k];
+        ms[k] = ms[k] * propor_k[k];
+      }
+      if (k < 3 && ((split_k >> k) & 1u))
+        ms[k + 1] = ms[k + 2] = divs(ms[k + 1], 2.0);
+    }
+    UNROLL for (int p = 0; p < kSno; ++p) {
+      const int back = p - top_new;
+      if (back >= 0) S.mss(s, p) = pick(ms, back);
     }
   }
-  rebuild_mesh(P);
 }
 
 // ---- 10: snow aging (snow_hydrology_impl.hh:80-225) ------------------------
 
+// (each position's radius replaces the old one in its slot)
 template <typename T>
-HD void aging_pinned(const Pack<T>& P, T h2osno, const Consts& K,
-                     T (&out)[kSno]) {
+HD void aging_pinned(const Pack<T>& P, T h2osno, const Consts& K) {
   const int top = kSno - P.snl;
   const bool layered = P.snl > 0;
   UNROLL for (int p = 0; p < kSno; ++p) {
     const bool active = p >= top && layered;
-    out[p] = active ? T(K.rds_min) : (layered ? T(0) : P.rds[p]);
+    P.S.rds(p) = active ? T(K.rds_min) : (layered ? T(0) : P.S.rds(p));
   }
-  if (P.snl == 0 && h2osno > T(0)) out[kSno - 1] = T(K.rds_min);
+  if (P.snl == 0 && h2osno > T(0)) P.S.rds(kSno - 1) = T(K.rds_min);
 }
 
+// (an active layer reads its refreezing rate straight from the input: no
+// other needs one)
 template <typename T>
 HD void aging_elm(const Column<T>& C, const Pack<T>& P, bool cap, T frac_sno,
-                  T h2osno, T (&out)[kSno]) {
+                  T h2osno) {
   const Args<T>& A = C.A;
   const Consts& K = A.K;
   const double dtime = A.dtime;
@@ -779,13 +1177,22 @@ HD void aging_elm(const Column<T>& C, const Pack<T>& P, bool cap, T frac_sno,
   const T newsnow =
       nmax((cap ? C.in(iSnwcpIce) : C.in(iSnowGrnd)) * T(dtime), T(0));
   UNROLL for (int p = 0; p < kSno; ++p) {
-    const T liq = P.liq[p], ice = P.ice[p], t = P.t[p], dz = P.dz[p];
+    // (only an active layer ages: the radius the plain block computes for
+    // the others is discarded)
+    const bool active = p >= top && layered;
+    const T rds = P.S.rds(p);
+    if (!active) {
+      P.S.rds(p) = layered ? T(0) : rds;
+      continue;
+    }
+    const T liq = P.liq[p], ice = P.ice[p], t = P.S.t(p), dz = P.S.dz(p);
     const T h = liq + ice;
     const T h_safe = h != T(0) ? h : T(1);
     // temperatures at the layer's top and bottom interfaces
-    const T t_m1 = p == 0 ? P.t[0] : P.t[p > 0 ? p - 1 : 0];
-    const T dz_m1 = p == 0 ? P.dz[0] : P.dz[p > 0 ? p - 1 : 0];
-    const T t_p1 = P.t[p + 1], dz_p1 = P.dz[p + 1];
+    const T t_m1 = P.S.t(p > 0 ? p - 1 : 0);
+    const T dz_m1 = P.S.dz(p > 0 ? p - 1 : 0);
+    const T t_p1 = P.S.t(p + 1);
+    const T dz_p1 = P.S.dz(p + 1);
     const T sb = dz + dz_p1, st = dz + dz_m1;
     const T den_b = sb != T(0) ? sb : T(1);
     const T den_t = st != T(0) ? st : T(1);
@@ -803,7 +1210,6 @@ HD void aging_elm(const Column<T>& C, const Pack<T>& P, bool cap, T frac_sno,
                              A.n_rhos + ri;
     const T tau = load(&A.tau[at]), kappa = load(&A.kappa[at]);
     const T drdt0 = load(&A.drdt0[at]);
-    const T rds = P.rds[p];
     T dr_fresh = rds - T(K.rds_min);
     dr_fresh = fabs(dr_fresh) < T(1.0e-8) ? T(0) : dr_fresh;
     const T kappa_safe = kappa != T(0) ? kappa : T(1);
@@ -816,7 +1222,10 @@ HD void aging_elm(const Column<T>& C, const Pack<T>& P, bool cap, T frac_sno,
                                                   frc_liq))) /
                      (T(4.0 * K.pi) * (rds_safe * rds_safe)));
     dr = dr + dr_wet;
-    const T refrz = nmax(C.lay(lSnofrz, p) * T(dtime), T(0));
+    const T refrz =
+        nmax(load(A.lay[lSnofrz] + C.i * A.lay_stride[lSnofrz] + p) *
+                 T(dtime),
+             T(0));
     T frc_refrz = refrz / h_safe;
     T frc_new = at_top ? newsnow / h_safe : T(0);
     const T both = frc_refrz + frc_new;
@@ -829,129 +1238,136 @@ HD void aging_elm(const Column<T>& C, const Pack<T>& P, bool cap, T frac_sno,
           T(1000.0) * frc_refrz;
     r = r < T(K.rds_min) ? T(K.rds_min) : r;
     r = r > T(K.rds_max) ? T(K.rds_max) : r;
-    const bool active = p >= top && layered;
-    out[p] = active ? r : (layered ? T(0) : rds);
+    P.S.rds(p) = r;
   }
-  if (P.snl == 0 && h2osno > T(0)) out[kSno - 1] = T(K.rds_min);
+  if (P.snl == 0 && h2osno > T(0)) P.S.rds(kSno - 1) = T(K.rds_min);
 }
 
-// ---- the block, one column ---------------------------------------------------
+// ---- the block ---------------------------------------------------------------
 
+// Columns i0 .. i0 + B.rows - 1, thread B.tid of B.nt computing column
+// i0 + B.tid (if there is one).  Every thread runs every staging pass and
+// reaches every barrier.
 template <typename T, bool ELM>
-HD void run_column(const Args<T>& A, long long i) {
-  const Column<T> C{A, i};
+HD void run_block(const Tile<T>& B) {
+  const Args<T>& A = B.A;
   const Consts& K = A.K;
-  const int L = A.nlevtot;
+  const bool live = B.tid < B.rows;
+  const long long i = B.i0 + B.tid;
+  const Column<T> C{A, i};
   Pack<T> P;
-  P.snl = static_cast<int>(A.snl[i]);
-  const int snl0 = P.snl;
-  UNROLL for (int p = 0; p <= kSno; ++p) {
-    P.t[p] = C.lay(lT, p);
-    P.ice[p] = C.lay(lIce, p);
-    P.liq[p] = C.lay(lLiq, p);
-    P.dz[p] = C.lay(lDz, p);
-    P.zi[p] = C.lay(lZi, p);
-  }
-  UNROLL for (int p = 0; p < kSno; ++p) {
-    P.z[p] = C.lay(lZ, p);
-    P.rds[p] = C.lay(lSnwRds, p);
-    UNROLL for (int k = 0; k < kSpecies; ++k) P.mss[k][p] = C.lay(lMss + k, p);
-  }
-  const bool cap = A.do_capsnow[i * A.capsnow_stride] != 0;
-  const bool soil_like = A.soil_like[i * A.soil_like_stride] != 0;
-  const bool soil_crop = A.soil_crop[i * A.soil_crop_stride] != 0;
-  const T fse = C.in(iFse);
+  P.S = Slots<T>{B.slots + B.tid, B.melt + B.tid, B.ld, B.mld};
+  const Slots<T>& S = P.S;
 
-  // 1-3: percolation, deposition, BC phase change
-  const Water<T> W = snow_water(C, P, cap, fse);
-  aerosols_in(C, P);
-  // 4: compaction
-  compaction(C, P, W.frac_sno, W.int_snow, soil_crop);
-  // 5: combine
-  Combined<T> R = combine(C, P, soil_like, fse, W.frac_sno, W.int_snow);
-  // 6: ELM combines only over the snowc filter (columns with snow layers):
-  // a layerless column passes its pack scalars through
-  if (snl0 == 0) {
-    R.h2osno = C.in(iH2osno);
-    R.snow_depth = C.in(iSnowDepth);
-    R.frac_sno = W.frac_sno;
-    R.fse = fse;
-    R.int_snow = W.int_snow;
-    R.qsl = T(0);
-    R.qs2t = T(0);
-    R.mflx = T(0);
-  }
-  // 7-8: divide, prune the inactive layers
-  divide(P, R.frac_sno, K);
-  const int top = kSno - P.snl;
-  UNROLL for (int p = 0; p < kSno; ++p) {
-    if (p < top) {
-      P.t[p] = P.ice[p] = P.liq[p] = P.dz[p] = P.z[p] = P.zi[p] = T(0);
+  stage_hot(B);
+  block_sync();
+  if (live) {
+    UNROLL for (int p = 0; p < kSno; ++p) {
+      P.ice[p] = S[hIce + p];
+      P.liq[p] = S[hLiq + p];
     }
   }
-  // 10: aging (before 9 here: it reads no aerosol)
-  T rds_out[kSno];
-  if (ELM) {
-    aging_elm(C, P, cap, R.frac_sno, R.h2osno, rds_out);
-  } else {
-    aging_pinned(P, R.h2osno, K, rds_out);
-  }
+  block_sync();
+  stage_cold(B);
+  block_sync();
 
-  // outputs
-  A.snl_out[i] = P.snl;
+  // the [ncol] outputs leave as soon as they are final; what the later
+  // steps read stays
   T* const* o = A.out;
-  o[oH2osno][i] = R.h2osno;
-  o[oSnowDepth][i] = R.snow_depth;
-  o[oFracSno][i] = R.frac_sno;
-  o[oFse][i] = R.fse;
-  o[oIntSnow][i] = R.int_snow;
-  o[oSnowMelt][i] = W.snow_melt;
-  o[oTopSoil][i] = W.top_soil;
-  o[oSlTopSoil][i] = R.qsl;
-  o[oSnow2topsoi][i] = R.qs2t;
-  o[oMflxSnowlyr][i] = R.mflx;
-  o[oMflxNeg][i] = W.mflx_neg;
-  T* const* q = A.lay_out;
-  const long long r = i * L, rz = i * (L + 1), r5 = i * kSno;
-  UNROLL for (int p = 0; p < kSno; ++p) {
-    q[qT][r + p] = P.t[p];
-    q[qIce][r + p] = P.ice[p];
-    q[qLiq][r + p] = P.liq[p];
-    q[qDz][r + p] = P.dz[p];
-    q[qZ][r + p] = P.z[p];
-    q[qZi][rz + p] = P.zi[p];
-    q[qRds][r5 + p] = rds_out[p];
+  bool cap = false;
+  int top = kSno;
+  T frac_sno = T(0), h2osno = T(0);
+  if (live) {
+    P.snl = static_cast<int>(A.snl[i]);
+    const int snl0 = P.snl;
+    cap = A.do_capsnow[i * A.capsnow_stride] != 0;
+    const T fse = C.in(iFse);
+    // 1-3: percolation, deposition, BC phase change
+    const Water<T> W = snow_water(C, P, cap, fse);
+    K5_STORE(o[oSnowMelt] + i, W.snow_melt);
+    K5_STORE(o[oTopSoil] + i, W.top_soil);
+    K5_STORE(o[oMflxNeg] + i, W.mflx_neg);
+    aerosols_in(C, P);
+    // 4: compaction
+    compaction(C, P, W.frac_sno, W.int_snow);
+    // 5-6: combine, then the layerless pass-through
+    const Handed<T> H = combine(C, P, fse, W, snl0);
+    frac_sno = H.frac_sno;
+    h2osno = H.h2osno;
+    // 7-8: divide, prune the inactive layers
+    divide(P, frac_sno, K);
+    top = kSno - P.snl;
   }
-  q[qIce][r + kSno] = P.ice[kSno];
-  q[qLiq][r + kSno] = P.liq[kSno];
-  q[qT][r + kSno] = P.t[kSno];
-  q[qDz][r + kSno] = P.dz[kSno];
-  q[qZ][r + kSno] = C.lay(lZ, kSno);
-  q[qZi][rz + kSno] = P.zi[kSno];
-  // the soil rows pass through (snow_water adds 0 to the liquid twice)
-  for (int p = kSno + 1; p < L; ++p) {
-    q[qT][r + p] = C.lay(lT, p);
-    q[qIce][r + p] = C.lay(lIce, p);
-    q[qLiq][r + p] = (C.lay(lLiq, p) + T(0)) + T(0);
-    q[qDz][r + p] = C.lay(lDz, p);
-    q[qZ][r + p] = C.lay(lZ, p);
-    q[qZi][rz + p] = C.lay(lZi, p);
-  }
-  q[qZi][rz + L] = C.lay(lZi, L);
-  // 9: snow-cap rescaling of the masses and the concentrations
-  // (aerosol_physics_impl.hh:63-107)
-  const T cap_add = C.in(iSnwcpIce) * T(A.dtime);
-  UNROLL for (int p = 0; p < kSno; ++p) {
-    const bool above = p < top;
-    const T snowmass = above ? T(1.0e-12) : P.ice[p] + P.liq[p];
-    const T scl = (p == top && cap) ? snowmass / (snowmass + cap_add)
-                                    : (above ? T(0) : T(1));
-    UNROLL for (int k = 0; k < kSpecies; ++k) {
-      const T m = P.mss[k][p] * scl;
-      q[qMss + k][r5 + p] = m;
-      q[qCnc + k][r5 + p] = m / snowmass;
+
+  // 10: aging (before 9 here: it reads no aerosol)
+  // 9: snow-cap rescaling of the masses (aerosol_physics_impl.hh:63-107)
+  T snowmass[kSno];
+  if (live) {
+    if (ELM) {
+      aging_elm(C, P, cap, frac_sno, h2osno);
+    } else {
+      aging_pinned(P, h2osno, K);
+    }
+    K5_STORE(A.snl_out + i, static_cast<long long>(P.snl));
+    const T cap_add = C.in(iSnwcpIce) * T(A.dtime);
+    UNROLL for (int p = 0; p < kSno; ++p) {
+      const bool above = p < top;
+      snowmass[p] = above ? T(1.0e-12) : P.ice[p] + P.liq[p];
+      const T scl = (p == top && cap) ? snowmass[p] / (snowmass[p] + cap_add)
+                                      : (above ? T(0) : T(1));
+      UNROLL for (int k = 0; k < kSpecies; ++k)
+        S.mss(k, p) = S.mss(k, p) * scl;
     }
   }
+  block_sync();
+  store_masses(B, qMss);
+  block_sync();
+  // the concentrations (above the top a mass is 0 unless NaN, and 0 over
+  // the 1e-12 there is that 0, its sign kept)
+  if (live) {
+    UNROLL for (int p = 0; p < kSno; ++p) {
+      const bool above = p < top;
+      UNROLL for (int k = 0; k < kSpecies; ++k) {
+        const T m = S.mss(k, p);
+        S.mss(k, p) = (above && m == T(0)) ? m : m / snowmass[p];
+      }
+    }
+  }
+  block_sync();
+  store_masses(B, qCnc);
+  block_sync();
+  // the layers; z and zi as the last mesh rebuild (after divide) gives
+  // them, zero above the top (z(i) = zi(i+1) - dz/2, zi(i) = zi(i+1) - dz
+  // from the bottom snow layer up: _rebuild_snow_mesh)
+  if (live) {
+    UNROLL for (int p = 0; p < kSno; ++p) {
+      S[rIce + p] = P.ice[p];
+      S[rLiq + p] = P.liq[p];
+    }
+    S[rIce + kSno] = S.ice5();
+    S[rLiq + kSno] = S.liq5();
+    T zi_below = S[cZi5];
+    UNROLL for (int p = kSno - 1; p >= 0; --p) {
+      T z = T(0), zi = T(0);
+      if (p >= top) {
+        z = zi_below - T(0.5) * P.S.dz(p);
+        zi = zi_below - P.S.dz(p);
+      }
+      S[rZ + p] = z;
+      S[rZi + p] = zi;
+      zi_below = zi;
+    }
+  }
+  block_sync();
+  store_layers(B);
+}
+
+// One column on the host: a block of one thread, its slots a plain array
+template <typename T, bool ELM>
+void run_column(const Args<T>& A, long long i) {
+  T slots[kSlots];
+  unsigned char melt[kSno];
+  run_block<T, ELM>(Tile<T>{A, i, 1, 0, 1, slots, melt, 1, 1});
 }
 
 template <typename T>
@@ -1001,46 +1417,100 @@ Args<T> make_args(long long n, const void* const* in,
   return A;
 }
 
+// ---- the launch --------------------------------------------------------------
+
+// Columns (threads) a block, and the stride of a slot in the block's
+// shared arrays (see the note at the top)
+constexpr int kB = 128;
+constexpr int kLd = kB + 13;
+
+// Dynamic shared memory a block: the slots, then imelt's bytes
+template <typename T>
+constexpr int smem_bytes() {
+  return kSlots * kLd * static_cast<int>(sizeof(T)) + kSno * kB;
+}
+
 #ifdef __CUDACC__
 
-constexpr int kThreads = 128;
+// Resident blocks an SM asked of ptxas: four in float64 (128 registers a
+// thread, 16 warps), six in float32 (80 registers, 24 warps); the slots
+// allow them (4 x 57,040 B and 6 x 28,840 B of the SM's 228 KB)
+template <typename T>
+struct MinBlocks;
+template <>
+struct MinBlocks<double> {
+  static constexpr int value = 4;
+};
+template <>
+struct MinBlocks<float> {
+  static constexpr int value = 6;
+};
 
 template <typename T, bool ELM>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kB, MinBlocks<T>::value)
     snow_kernel(const Args<T> A) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i < A.n) run_column<T, ELM>(A, i);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long i0 = static_cast<long long>(blockIdx.x) * kB;
+  const long long left = A.n - i0;
+  const int rows = left < kB ? static_cast<int>(left) : kB;
+  run_block<T, ELM>(Tile<T>{A, i0, rows, static_cast<int>(threadIdx.x), kB,
+                            reinterpret_cast<T*>(smem),
+                            smem + kSlots * kLd * sizeof(T), kLd, kB});
+}
+
+constexpr int kMaxDevices = 64;
+
+// Sets the kernel's dynamic shared memory limit, once per device
+template <typename T, bool ELM>
+int prepare() {
+  static bool done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    err = cudaFuncSetAttribute(snow_kernel<T, ELM>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes<T>());
+    if (err != cudaSuccess) return err;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
+template <typename T, bool ELM>
+int launch_as(const Args<T>& A, cudaStream_t s) {
+  const int err = prepare<T, ELM>();
+  if (err != cudaSuccess) return err;
+  const unsigned grid = static_cast<unsigned>((A.n + kB - 1) / kB);
+  snow_kernel<T, ELM><<<grid, kB, smem_bytes<T>(), s>>>(A);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(int elm, const Args<T>& A, cudaStream_t s) {
   if (A.n <= 0) return cudaSuccess;
-  const unsigned grid =
-      static_cast<unsigned>((A.n + kThreads - 1) / kThreads);
-  if (elm) {
-    snow_kernel<T, true><<<grid, kThreads, 0, s>>>(A);
-  } else {
-    snow_kernel<T, false><<<grid, kThreads, 0, s>>>(A);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return elm ? launch_as<T, true>(A, s) : launch_as<T, false>(A, s);
 }
 
 // {threads a block, registers a thread, local memory bytes a thread
-// (spills), resident blocks an SM}
+// (spills), resident blocks an SM, dynamic shared memory bytes a block}
 template <typename T, bool ELM>
 int layout_of(int* out) {
+  cudaError_t err = static_cast<cudaError_t>(prepare<T, ELM>());
+  if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, snow_kernel<T, ELM>);
+  err = cudaFuncGetAttributes(&attr, snow_kernel<T, ELM>);
   if (err != cudaSuccess) return err;
   int per_sm = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, snow_kernel<T, ELM>, kThreads, 0);
+      &per_sm, snow_kernel<T, ELM>, kB, smem_bytes<T>());
   if (err != cudaSuccess) return err;
-  out[0] = kThreads;
+  out[0] = kB;
   out[1] = attr.numRegs;
   out[2] = static_cast<int>(attr.localSizeBytes);
   out[3] = per_sm;
+  out[4] = smem_bytes<T>();
   return cudaSuccess;
 }
 
@@ -1084,7 +1554,8 @@ SNOW_ENTRY(snow_hydrology_f32, float)
 
 // What K5's launch uses on the current device, float64 if `f64`, ELM's
 // aging if `elm`: out = {threads a block, registers a thread, local memory
-// bytes a thread, resident blocks an SM}.  Returns a CUDA error code.
+// bytes a thread, resident blocks an SM, dynamic shared memory bytes a
+// block}.  Returns a CUDA error code.
 extern "C" int snow_hydrology_layout(int f64, int elm, int* out) {
   switch ((f64 != 0) * 2 + (elm != 0)) {
     case 0: return layout_of<float, false>(out);

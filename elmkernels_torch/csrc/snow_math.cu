@@ -1,20 +1,16 @@
-// pow, acos and exp for K5 (snow_hydrology.cu), compiled on their own with
+// float64 pow for K5 (snow_hydrology.cu), compiled on its own with
 // contracted multiply-adds (--fmad=true) and linked into K5's library as
 // relocatable device code.
 //
-// PyTorch's own elementwise kernels are built with contraction on, and a
-// CUDA math function inlined from its headers may round some inputs
-// differently when its body is compiled without it (K2's double pow does:
-// canopy_pow.cu).  K5's own arithmetic stays uncontracted (--fmad=false),
-// as the plain block's operations are separate kernels; its
-// transcendental functions come from here, so that each is PyTorch's
-// torch.pow (of two tensors), torch.acos and torch.exp bit for bit.
+// PyTorch's own elementwise kernels are built with contraction on, and the
+// CUDA math library's float64 pow rounds some inputs differently when its
+// body is compiled without it (9,675 of 268 M inputs in K5's ranges on the
+// card; K2's canopy_pow.cu found the same).  K5's own arithmetic stays
+// uncontracted (--fmad=false), as the plain block's operations are separate
+// kernels; its float64 tensor power comes from here, so that it is
+// PyTorch's torch.pow of two tensors bit for bit.  acos, exp and float32
+// pow round alike either way, and K5 compiles them inline.
 
 #include <math.h>
 
 __device__ double snow_pow(double x, double p) { return pow(x, p); }
-__device__ float snow_pow(float x, float p) { return powf(x, p); }
-__device__ double snow_acos(double x) { return acos(x); }
-__device__ float snow_acos(float x) { return acosf(x); }
-__device__ double snow_exp(double x) { return exp(x); }
-__device__ float snow_exp(float x) { return expf(x); }

@@ -19,7 +19,12 @@ reads them, without copies: a 0-d input (a deposition rate, a land-type
 mask) goes as itself with a stride of 0, a layered input as itself with
 its row stride (the CPU tests give the same layout to the kernel's host
 build).  The outputs are fresh tensors: no input is written.
-:func:`layout` reads the launch's registers and spills on the card.
+:func:`layout` reads the launch's registers, spills, shared memory and
+resident blocks on the card.
+
+The kernel runs a block of ``THREADS`` columns, one thread each, and
+stages the block's rows through shared memory: each thread holds
+``SLOTS`` values there (:func:`shared_bytes`).
 """
 
 from __future__ import annotations
@@ -70,6 +75,16 @@ CONSTS = (c.TFRZ, c.DENICE, c.DENH2O, c.CPICE, c.CPWAT, c.HFUS, c.ELM_PI,
           c.SNW_RDS_MIN, c.SNW_RDS_MAX)
 _CONSTS = (ctypes.c_double * len(CONSTS))(*CONSTS)
 _NSNO = c.NLEVSNO
+# columns a block, a column's shared-memory slots, and the slot stride's
+# padding (csrc/snow_hydrology.cu's kB, kSlots and kLd - kB)
+THREADS, SLOTS, _PAD = 128, 50, 13
+
+
+def shared_bytes(dtype) -> int:
+    """Dynamic shared memory of one K5 block in ``dtype``: the slots of its
+    columns, then a byte a column for each snow position's ``imelt``."""
+    item = torch.empty((), dtype=dtype).element_size()
+    return SLOTS * (THREADS + _PAD) * item + _NSNO * THREADS
 
 
 def land_masks(land: c.LandType):
@@ -281,12 +296,13 @@ def _entry(dtype):
 def layout(dtype=torch.float64, elm: bool = False) -> dict:
     """What K5's launch uses on the current device in ``dtype`` with
     ELM's aging or the pinned radius: threads a block, registers a
-    thread, local (spilled) bytes a thread and resident blocks an SM.
-    Needs a card."""
+    thread, local (spilled) bytes a thread, resident blocks an SM and
+    dynamic shared memory bytes a block.  Needs a card."""
     lib = build.load("snow_hydrology")
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     build.check(lib.snow_hydrology_layout(
         ctypes.c_int(dtype == torch.float64), ctypes.c_int(int(elm)), out),
         "snow_hydrology_layout")
-    keys = ("threads", "registers", "local_bytes", "blocks_per_sm")
+    keys = ("threads", "registers", "local_bytes", "blocks_per_sm",
+            "shared_bytes")
     return dict(zip(keys, out))

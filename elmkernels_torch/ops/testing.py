@@ -15,6 +15,8 @@ same inputs.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -486,3 +488,46 @@ def snow_problem(n: int, seed: int, dtype=torch.float64,
         snowage_tau=f(tables["tau"]), snowage_kappa=f(tables["kappa"]),
         snowage_drdt0=f(tables["drdsdt0"]),
         elm_correct_snow_aging=elm_correct_snow_aging)
+
+
+# the layered arguments of snow_hydrology_block ([ncol, L] or [ncol, 5])
+SNOW_LAYERED = ("h2osoi_liq", "h2osoi_ice", "t_soisno", "dz", "z", "zi",
+                "imelt", "swe_old", "frac_iceold", "snw_rds",
+                "qflx_snofrz_lyr")
+
+
+def snow_layers_as_views(args: dict) -> dict:
+    """``snow_problem``'s arguments with every layered input (the masses and
+    ``imelt`` included) a view of an array twice as wide: the same values,
+    a row stride twice the width, as the packed carry's fields are views of
+    one wide buffer."""
+    def view(t):
+        return torch.cat([t, torch.full_like(t, -7)], 1)[:, :t.shape[1]]
+    out = dict(args, **{k: view(args[k]) for k in SNOW_LAYERED})
+    out["mss"] = {k: view(v) for k, v in args["mss"].items()}
+    return out
+
+
+def snow_columns_interleaved(args: dict) -> dict:
+    """``snow_problem``'s columns reordered so that consecutive columns
+    cycle through the layer counts 0-5 as long as each lasts: every warp
+    of the kernel then mixes packs of every depth."""
+    snl = args["snl"].cpu()
+    n = snl.shape[0]
+    groups = [torch.nonzero(snl == k).flatten().tolist()
+              for k in range(c.NLEVSNO + 1)]
+    order = [g[j] for j in range(max(map(len, groups), default=0))
+             for g in groups if j < len(g)]
+    perm = torch.tensor(order, dtype=torch.int64, device=args["snl"].device)
+
+    def take(v):
+        if isinstance(v, torch.Tensor) and v.dim() and v.shape[0] == n:
+            return v.index_select(0, perm)
+        if isinstance(v, dict):
+            return {k: take(x) for k, x in v.items()}
+        return v
+    out = {k: take(v) for k, v in args.items()
+           if not k.startswith("snowage_")}
+    land = args["land"]
+    out["land"] = dataclasses.replace(land, ltype=take(land.ltype))
+    return dict(args, **out)

@@ -108,12 +108,18 @@ def _probe_targets(mod):
     return [mod.REPO / "build" / "probe" / "libk1t_probe.so"]
 
 
+def _k5_math_targets(mod):
+    return [mod.REPO / "build" / "probe" / "libk5_math.so"]
+
+
 LOADERS = {
     ("elmkernels_torch/ops/build.py", "load"):
         ("str(_target(name))", _build_targets),
     ("elmkernels_torch/io/native.py", "_load"):
         ("str(build())", _native_targets),
     ("chip_smoke.py", "k1t_probe"): ("str(lib)", _probe_targets),
+    ("chip_smoke.py", "k5_math_rounding"):
+        ("str(d / 'libk5_math.so')", _k5_math_targets),
 }
 _CTYPES_LOADS = {"CDLL", "PyDLL", "LoadLibrary"}
 

@@ -361,19 +361,28 @@ def _plain_snow_args(args: dict) -> dict:
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [N, 4001, 33, 31, 1])
+@pytest.mark.parametrize("layout", ["rows", "views", "interleaved"])
+@pytest.mark.parametrize("n", [N, 4001, 129, 127, 33, 31, 1])
 @pytest.mark.parametrize("aero_scalar", [False, True],
                          ids=["aero_col", "aero_0d"])
 @pytest.mark.parametrize("elm", [False, True], ids=["pinned", "elm"])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_snow_kernel_matches_plain(card, dtype, elm, aero_scalar, n):
+def test_snow_kernel_matches_plain(card, dtype, elm, aero_scalar, n, layout):
     """K5 against the plain block at atol 0: every output, NaNs in the same
     places (0-d deposition rates against the plain block on them
     expanded); and a second launch on the same inputs equal to the first
-    bit for bit."""
+    bit for bit.  Widths around K5's 128-column blocks (127, 129, 4001);
+    the layered inputs as fresh rows, as views of wider arrays (a row
+    stride twice the width: ``testing.snow_layers_as_views``), or the
+    columns reordered so that every warp mixes packs of 0-5 layers
+    (``testing.snow_columns_interleaved``)."""
     from elmkernels_torch.ops import snow
     from elmkernels_torch.physics import snow_hydrology as tsh
     args = testing.snow_problem(n, 13, dtype, elm, aero_scalar, device=card)
+    if layout == "views":
+        args = testing.snow_layers_as_views(args)
+    elif layout == "interleaved":
+        args = testing.snow_columns_interleaved(args)
     got = _snow_fields(snow.snow_hydrology(**args))
     again = _snow_fields(snow.snow_hydrology(**args))
     want = _snow_fields(tsh.snow_hydrology_block_plain(

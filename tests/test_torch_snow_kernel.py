@@ -17,7 +17,9 @@ through the same argument layout as on the card
   float32, with per-column and 0-d deposition rates and an urban domain;
 
 and the wrapper's layout (no copies: a 0-d rate goes with a stride of 0),
-and the routing of ``physics.snow_hydrology.snow_hydrology_block``.
+the block staging's index arithmetic (every block's threads run each
+staging pass in turn: each element lands in its slot or output once), and
+the routing of ``physics.snow_hydrology.snow_hydrology_block``.
 
 Tolerance.  float64: the golden tolerance (``torch_parity.RTOL``/``ATOL``,
 rtol 1e-10 with a 1e-12 floor), with ``snl`` equal on every column.  Bit
@@ -89,21 +91,125 @@ extern "C" void layout(int* out) {
   out[2] = kOut;
   out[3] = kLayOut;
   out[4] = kConsts;
+  out[5] = kB;
+  out[6] = kSlots;
+  out[7] = smem_bytes<double>();
+  out[8] = smem_bytes<float>();
 }
 """
+
+# K5's block staging on the host: a block's kB threads run each staging
+# pass in turn (the passes are separated by barriers on the card), every
+# output store counted (K5_STORE); the slots after each pass, then the
+# stores of the outputs from slots that hold (column * 100 + slot)
+TILE_HARNESS = r"""
+#include <cmath>
+#include <unordered_map>
+#include <vector>
+static std::unordered_map<const void*, int> g_writes;
+template <typename P, typename V>
+inline void count_store(P* p, V v) {
+  *p = v;
+  ++g_writes[static_cast<const void*>(p)];
+}
+#define K5_STORE(ptr, v) count_store((ptr), (v))
+#include "SOURCE"
+#define PARAMS                                                              \
+  long long n, const void* const* in, const long long* in_stride,          \
+      const void* const* lay, const long long* lay_stride,                 \
+      const void* snl, const void* do_capsnow, long long capsnow_stride,   \
+      const void* imelt, long long imelt_stride, const void* soil_like,    \
+      long long soil_like_stride, const void* soil_crop,                   \
+      long long soil_crop_stride, const void* tau, const void* kappa,      \
+      const void* drdt0, int n_t, int n_tgrd, int n_rhos, int nlevtot,     \
+      double dtime, const double* consts, void* snl_out, void* const* out, \
+      void* const* lay_out
+#define ARGS(T)                                                             \
+  make_args<T>(n, in, in_stride, lay, lay_stride, snl, do_capsnow,         \
+               capsnow_stride, imelt, imelt_stride, soil_like,             \
+               soil_like_stride, soil_crop, soil_crop_stride, tau, kappa,  \
+               drdt0, n_t, n_tgrd, n_rhos, nlevtot, dtime, consts,         \
+               snl_out, out, lay_out)
+template <typename T>
+void stage_all(const Args<T>& A, T* hot, T* cold, unsigned char* melt_out) {
+  std::vector<T> slots(kSlots * kLd);
+  std::vector<unsigned char> melt(kSno * kB);
+  for (long long i0 = 0; i0 < A.n; i0 += kB) {
+    const int rows = A.n - i0 < kB ? static_cast<int>(A.n - i0) : kB;
+    auto tile = [&](int tid) {
+      return Tile<T>{A, i0, rows, tid, kB, slots.data(), melt.data(),
+                     kLd, kB};
+    };
+    std::fill(slots.begin(), slots.end(), T(NAN));
+    for (int t = 0; t < kB; ++t) stage_hot(tile(t));
+    for (int r = 0; r < rows; ++r)
+      for (int s = 0; s < kSlots; ++s)
+        hot[(i0 + r) * kSlots + s] = slots[s * kLd + r];
+    for (int t = 0; t < kB; ++t) stage_cold(tile(t));
+    for (int r = 0; r < rows; ++r) {
+      for (int s = 0; s < kSlots; ++s)
+        cold[(i0 + r) * kSlots + s] = slots[s * kLd + r];
+      for (int p = 0; p < kSno; ++p)
+        melt_out[(i0 + r) * kSno + p] = melt[p * kB + r];
+    }
+    for (int r = 0; r < kB; ++r)
+      for (int s = 0; s < kSlots; ++s)
+        slots[s * kLd + r] = T((i0 + r) * 100 + s);
+    for (int t = 0; t < kB; ++t) store_masses(tile(t), qMss);
+    for (int t = 0; t < kB; ++t) store_masses(tile(t), qCnc);
+    for (int t = 0; t < kB; ++t) store_layers(tile(t));
+  }
+}
+extern "C" void stage_f64(PARAMS, void* hot, void* cold,
+                          unsigned char* melt) {
+  stage_all<double>(ARGS(double), static_cast<double*>(hot),
+                    static_cast<double*>(cold), melt);
+}
+extern "C" void stage_f32(PARAMS, void* hot, void* cold,
+                          unsigned char* melt) {
+  stage_all<float>(ARGS(float), static_cast<float*>(hot),
+                   static_cast<float*>(cold), melt);
+}
+extern "C" void run_f64(int elm, PARAMS) {
+  const Args<double> A = ARGS(double);
+  for (long long i = 0; i < n; ++i) {
+    if (elm) run_column<double, true>(A, i);
+    else run_column<double, false>(A, i);
+  }
+}
+extern "C" void reset_writes() { g_writes.clear(); }
+extern "C" void write_counts(const void* base, long long nelem, int elem,
+                             int* out) {
+  for (long long j = 0; j < nelem; ++j) {
+    auto it = g_writes.find(static_cast<const char*>(base) + j * elem);
+    out[j] = it == g_writes.end() ? 0 : it->second;
+  }
+}
+extern "C" void tile_layout(int* out) {
+  const int v[] = {kB, kSlots, hIce, hLiq, cMss, cRds, cT, cDz, cZi5, cIce5,
+                   cLiq5, rIce, rLiq, rZ, rZi};
+  for (int k = 0; k < 15; ++k) out[k] = v[k];
+}
+"""
+
+
+def _compile(d: pathlib.Path, harness: str) -> ctypes.CDLL:
+    """``harness`` (with K5's source for SOURCE) built by ``g++`` in
+    directory ``d`` and loaded; skips where no ``g++`` is installed."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler (g++)")
+    (d / "harness.cpp").write_text(harness.replace("SOURCE", str(SOURCE)))
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
+                    "-fPIC", "-o", str(d / "libharness.so"),
+                    str(d / "harness.cpp")], check=True, timeout=300)
+    return ctypes.CDLL(str(d / "libharness.so"))
 
 
 def build_host_lib(d: pathlib.Path):
     """K5's host build (HARNESS) in directory ``d``, loaded; skips where no
     ``g++`` is installed."""
-    cxx = shutil.which("g++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler (g++)")
-    (d / "harness.cpp").write_text(HARNESS.replace("SOURCE", str(SOURCE)))
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-shared",
-                    "-fPIC", "-o", str(d / "libharness.so"),
-                    str(d / "harness.cpp")], check=True, timeout=300)
-    lib = ctypes.CDLL(str(d / "libharness.so"))
+    lib = _compile(d, HARNESS)
     for name in ("snow_host_f64", "snow_host_f32"):
         getattr(lib, name).argtypes = snow.ARGTYPES[:-1]  # no stream
         getattr(lib, name).restype = None
@@ -179,15 +285,19 @@ def _assert_f32_close(got, want):
 
 
 def test_layout_matches_the_wrapper(host_lib):
-    """The kernel's sizes are the wrapper's, and the wrapper hands the
-    inputs over without copies: a 0-d deposition rate as itself with a
+    """The kernel's sizes are the wrapper's (the fields; a block of
+    ``snow.THREADS`` columns with ``snow.SLOTS`` shared slots a column and
+    ``snow.shared_bytes`` a block), and the wrapper hands the inputs over
+    without copies: a 0-d deposition rate as itself with a
     stride of 0, each [ncol] input and each layered one as itself with its
     stride; the outputs are fresh tensors."""
-    out = (ctypes.c_int * 5)()
+    out = (ctypes.c_int * 9)()
     host_lib.layout(out)
     assert list(out) == [len(snow.IN_FIELDS), len(snow.LAYER_FIELDS),
                          len(snow.OUT_FIELDS), 7 + 2 * len(AERO_SPECIES),
-                         len(snow.CONSTS)]
+                         len(snow.CONSTS), snow.THREADS, snow.SLOTS,
+                         snow.shared_bytes(torch.float64),
+                         snow.shared_bytes(torch.float32)]
     assert set(snow.OUT_FIELDS) | {
         "snl", "t_soisno", "h2osoi_ice", "h2osoi_liq", "dz", "z", "zi",
         "snw_rds", "mss", "cnc"} == set(tsh.SnowBlockOut._fields)
@@ -215,6 +325,112 @@ def test_layout_matches_the_wrapper(host_lib):
     host_block(host_lib, args)
     for name, v in before.items():
         assert torch.equal(v, layered[name]), name
+
+
+@pytest.fixture(scope="module")
+def tile_lib(tmp_path_factory):
+    lib = _compile(tmp_path_factory.mktemp("snow_tiles"), TILE_HARNESS)
+    for name in ("stage_f64", "stage_f32"):
+        getattr(lib, name).argtypes = snow.ARGTYPES[1:-1] + [ctypes.c_void_p] * 3
+        getattr(lib, name).restype = None
+    lib.run_f64.argtypes = snow.ARGTYPES[:-1]
+    lib.write_counts.argtypes = [ctypes.c_void_p, ctypes.c_longlong,
+                                 ctypes.c_int, ctypes.c_void_p]
+    for name in ("run_f64", "reset_writes", "write_counts", "tile_layout"):
+        getattr(lib, name).restype = None
+    return lib
+
+
+def _write_counts(lib, t: torch.Tensor) -> torch.Tensor:
+    counts = torch.empty(t.shape, dtype=torch.int32)
+    lib.write_counts(t.data_ptr(), t.numel(), t.element_size(),
+                     counts.data_ptr())
+    return counts
+
+
+@pytest.mark.parametrize("views", [False, True], ids=["rows", "views"])
+@pytest.mark.parametrize("n", [1, snow.THREADS - 1, snow.THREADS + 1, N])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tile_mapping(tile_lib, dtype, n, views):
+    """K5's block staging (csrc/snow_hydrology.cu: stage_hot, stage_cold,
+    store_masses, store_layers), each pass run by every
+    thread of each block of ``snow.THREADS`` columns in turn, at widths
+    that are not a multiple of the block (1, B - 1, B + 1, 4,000), with
+    the layered inputs as fresh rows and as views of arrays twice as wide
+    (a row stride larger than the width): every snow position lands in its
+    column's slot; the soil rows (t, ice, liq, dz from position 6, z and
+    zi from 5) equal the inputs, the liquid as (x + 0) + 0; each output
+    element is stored exactly once and from its own slot.  Then the whole
+    host build stores every element of every output exactly once."""
+    lay = (ctypes.c_int * 15)()
+    tile_lib.tile_layout(lay)
+    (B, nslots, hIce, hLiq, cMss, cRds, cT, cDz, cZi5, cIce5, cLiq5, rIce,
+     rLiq, rZ, rZi) = lay
+    assert B == snow.THREADS
+    args = testing.snow_problem(n, 5, dtype, True)
+    if views:
+        args = testing.snow_layers_as_views(args)
+    k = snow.kernel_inputs(args)
+    assert all(t.stride(0) == (2 if views else 1) * t.shape[1]
+               for t in k.layers)
+    snl_out, outs, lay_out = k.outputs()
+    for t in (snl_out, *outs, *lay_out):
+        t.fill_(-1)
+    hot = torch.empty(n, nslots, dtype=dtype)
+    cold = torch.empty(n, nslots, dtype=dtype)
+    melt = torch.empty(n, tc.NLEVSNO, dtype=torch.uint8)
+    tile_lib.reset_writes()
+    getattr(tile_lib, "stage_f64" if dtype == torch.float64
+            else "stage_f32")(*k.pointers(snl_out, outs, lay_out),
+                              hot.data_ptr(), cold.data_ptr(),
+                              melt.data_ptr())
+    a, ns, L = args, tc.NLEVSNO, tc.NLEVTOT
+    # the slots: the snow layers' ice and liq for the registers; the
+    # temperatures and thicknesses (0-5), zi[5] and the top soil row's ice
+    # and liq stay through the second phase
+    for name, s0 in (("h2osoi_ice", hIce), ("h2osoi_liq", hLiq)):
+        assert torch.equal(hot[:, s0:s0 + ns], a[name][:, :ns]), name
+    for got in (hot, cold):
+        for name, s0 in (("t_soisno", cT), ("dz", cDz)):
+            assert torch.equal(got[:, s0:s0 + ns + 1], a[name][:, :ns + 1])
+        for name, s0 in (("zi", cZi5), ("h2osoi_ice", cIce5),
+                         ("h2osoi_liq", cLiq5)):
+            assert torch.equal(got[:, s0], a[name][:, ns]), name
+    for j, sp in enumerate(AERO_SPECIES):
+        s0 = cMss + j * ns
+        assert torch.equal(cold[:, s0:s0 + ns], a["mss"][sp][:, :ns]), sp
+    assert torch.equal(cold[:, cRds:cRds + ns], a["snw_rds"][:, :ns])
+    assert torch.equal(melt, (a["imelt"][:, :ns] == 1).to(torch.uint8))
+    # the outputs: the soil rows from the inputs, the rest from the slots
+    col = torch.arange(n, dtype=torch.float64)[:, None] * 100
+
+    def code(s0, w):
+        return (col + s0 + torch.arange(w)).to(dtype)
+    t, ice, liq, dz, z, zi, rds = lay_out[:7]
+    for got, name, s0 in ((t, "t_soisno", cT), (ice, "h2osoi_ice", rIce),
+                          (liq, "h2osoi_liq", rLiq), (dz, "dz", cDz)):
+        soil = a[name][:, ns + 1:]
+        if name == "h2osoi_liq":
+            soil = (soil + 0.0) + 0.0
+        assert torch.equal(got[:, ns + 1:], soil), name
+        assert torch.equal(got[:, :ns + 1], code(s0, ns + 1)), name
+    assert torch.equal(z[:, ns:], a["z"][:, ns:])
+    assert torch.equal(zi[:, ns:], a["zi"][:, ns:])
+    assert torch.equal(z[:, :ns], code(rZ, ns))
+    assert torch.equal(zi[:, :ns], code(rZi, ns))
+    assert torch.equal(rds, code(cRds, ns))
+    nsp = len(AERO_SPECIES)
+    for j in range(nsp):
+        assert torch.equal(lay_out[7 + j], code(cMss + j * ns, ns))
+        assert torch.equal(lay_out[7 + nsp + j], code(cMss + j * ns, ns))
+    for j, got in enumerate(lay_out):
+        assert bool((_write_counts(tile_lib, got) == 1).all()), j
+    # the whole block, column by column, stores each output once
+    if dtype == torch.float64:
+        tile_lib.reset_writes()
+        tile_lib.run_f64(1, *k.pointers(snl_out, outs, lay_out))
+        for j, got in enumerate((snl_out, *outs, *lay_out)):
+            assert bool((_write_counts(tile_lib, got) == 1).all()), j
 
 
 # ---- against the JAX package's functions -----------------------------------
