@@ -1,0 +1,8 @@
+"""Percent of the traced coupled steps in which no device operation ran: 1 minus
+the union of the device intervals over their wall time."""
+
+from portbench import trace
+
+
+def read(rec: dict):
+    return trace.idle_share(rec)
