@@ -23,6 +23,7 @@ from elmkernels_torch.data.state import StepForcing, StepPhenology
 from elmkernels_torch.driver import step as step_mod
 from elmkernels_torch.driver.model import Model
 from elmkernels_torch.utils import checkpoint
+from elmkernels_torch.utils.clock import span
 from elmkernels_torch.utils.dates import Date
 
 
@@ -103,8 +104,11 @@ class MinimalInterface:
         return self
 
     def _exchange(self, d: step_mod.StepDiagnostics) -> ExchangeFluxes:
-        return ExchangeFluxes(*(_host(getattr(d, k))
-                                for k in ExchangeFluxes._fields))
+        """The exchange fluxes on the host: the wait for the card and the
+        copies back (span ``elm.coupled.exchange``)."""
+        with span("elm.coupled.exchange"):
+            return ExchangeFluxes(*(_host(getattr(d, k))
+                                    for k in ExchangeFluxes._fields))
 
     def advance(self, date: Date, dt_seconds: float) -> ExchangeFluxes:
         assert dt_seconds == self.model.dtime
@@ -121,7 +125,11 @@ class MinimalInterface:
         the FSDS spectral split, the rain/snow partition) runs in the step
         as in :meth:`advance`.  ``atm_qbot`` is specific humidity, so the
         step runs with ``qbot_is_rh=False`` whatever the model's own
-        provider delivers; every other flag is the model's."""
+        provider delivers; every other flag is the model's.
+
+        Its spans (``utils/clock.py``): ``elm.coupled.inputs``,
+        ``elm.coupled.copy_in``, ``elm.coupled.step`` and, in
+        :meth:`_exchange`, ``elm.coupled.exchange``."""
         assert dt_seconds == self.model.dtime
         m = self.model
 
@@ -136,24 +144,27 @@ class MinimalInterface:
             a = arr(x)
             return np.stack([a, a])
 
-        forc = StepForcing(
-            wt1=1.0, wt2=0.0, tbot=pair(atm.atm_tbot),
-            pbot=pair(atm.atm_pbot), qbot=pair(atm.atm_qbot),
-            flds=pair(atm.atm_flds), wind=pair(atm.atm_wind),
-            fsds=arr(atm.atm_fsds), prec=arr(atm.atm_prec),
-            decday=date.decimal_doy() + 1.0)
-        forc = m._attach_aero(forc, date)
-        phen_step = StepPhenology(
-            wt1=1.0, wt2=0.0, mlai=pair(phen.lai), msai=pair(phen.sai),
-            mhtop=pair(phen.htop), mhbot=pair(phen.hbot))
-        m.state, d = step_mod.advance(
-            m.land, m.psnveg, m.albveg, m.snicar, m.params, m.state,
-            m._to_device(forc), m._to_device(phen_step), m.dtime,
-            psn_mode=m.psn_mode, qbot_is_rh=False,
-            mixed_radiation=m.mixed_radiation,
-            elm_correct_seb=m.elm_correct_seb, warm_start=m.warm_start,
-            mixed_canopy=m.mixed_canopy, het_ltype=m.het_ltype,
-            elm_correct_snow_aging=m.elm_correct_snow_aging)
+        with span("elm.coupled.inputs"):
+            forc = StepForcing(
+                wt1=1.0, wt2=0.0, tbot=pair(atm.atm_tbot),
+                pbot=pair(atm.atm_pbot), qbot=pair(atm.atm_qbot),
+                flds=pair(atm.atm_flds), wind=pair(atm.atm_wind),
+                fsds=arr(atm.atm_fsds), prec=arr(atm.atm_prec),
+                decday=date.decimal_doy() + 1.0)
+            forc = m._attach_aero(forc, date)
+            phen_step = StepPhenology(
+                wt1=1.0, wt2=0.0, mlai=pair(phen.lai), msai=pair(phen.sai),
+                mhtop=pair(phen.htop), mhbot=pair(phen.hbot))
+        with span("elm.coupled.copy_in"):
+            forc, phen_step = m._to_device(forc), m._to_device(phen_step)
+        with span("elm.coupled.step"):
+            m.state, d = step_mod.advance(
+                m.land, m.psnveg, m.albveg, m.snicar, m.params, m.state,
+                forc, phen_step, m.dtime, psn_mode=m.psn_mode,
+                qbot_is_rh=False, mixed_radiation=m.mixed_radiation,
+                elm_correct_seb=m.elm_correct_seb, warm_start=m.warm_start,
+                mixed_canopy=m.mixed_canopy, het_ltype=m.het_ltype,
+                elm_correct_snow_aging=m.elm_correct_snow_aging)
         return self._exchange(d)
 
     def get_primary_vars(self) -> dict:

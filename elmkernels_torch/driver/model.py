@@ -67,6 +67,7 @@ from elmkernels_torch.data.state import (AERO_DEP_KEYS, ModelState,
 from elmkernels_torch.driver import graphs
 from elmkernels_torch.driver import step as step_mod
 from elmkernels_torch.physics.photosynthesis import psn_mode_of
+from elmkernels_torch.utils.clock import span
 from elmkernels_torch.utils.dates import Date, month_indices
 from elmkernels_torch.utils.device import resolve_device
 from elmkernels_torch.utils.packing import PackedCarry, template_of
@@ -604,24 +605,29 @@ class Model:
         """A device loop's ``nsteps`` steps of ``(forcing, phenology)``
         from ``steps``: eager, or through the graph, whose reductions are
         copied into one [nsteps, 14] block with no host wait.  ``poll()``
-        runs after each step."""
+        runs after each step.  Each step, from taking its inputs from
+        ``steps`` to the poll, is the span ``elm.window.step``."""
         graphed = graphs.uses_graphs(self.device)
         carry = self._carry_of(graphed)
+        steps = iter(steps)
         if not graphed:
             out = []
-            for forc, phen in steps:
-                out.append(self._loop_step(carry, forc, phen))
-                if poll is not None:
-                    poll()
+            for _ in range(nsteps):
+                with span("elm.window.step"):
+                    out.append(self._loop_step(carry, *next(steps)))
+                    if poll is not None:
+                        poll()
             return self._window_diags(out)
         rows = torch.empty((nsteps, len(ScanDiagnostics._fields)),
                            dtype=torch.float64, device=self.device)
         dtypes = ()
-        for k, (forc, phen) in enumerate(steps):
-            (_, packed, dtypes), _ = self._graph_step(carry, forc, phen)
-            rows[k].copy_(packed)
-            if poll is not None:
-                poll()
+        for k in range(nsteps):
+            with span("elm.window.step"):
+                (_, packed, dtypes), _ = self._graph_step(carry,
+                                                          *next(steps))
+                rows[k].copy_(packed)
+                if poll is not None:
+                    poll()
         return self._window_fields([rows[:, i].to(dt) for i, dt in
                                     enumerate(dtypes)])
 
@@ -798,16 +804,20 @@ class _NextWindow:
             self._copy()
 
     def _copy(self) -> None:
+        """Take the host part (span ``elm.window.wait``, opened even when
+        it is ready) and issue its copy (span ``elm.window.copy``)."""
         m = self.model
-        self.host = self.fut.result()
-        pinned = self.host[2] if self.series else self.host
-        if self.side is None:
-            self.payload = m._put(pinned)
-            return
-        with torch.cuda.stream(self.side):
-            self.payload = m._put(pinned)
-            self.copied = torch.cuda.Event()
-            self.copied.record(self.side)
+        with span("elm.window.wait"):
+            self.host = self.fut.result()
+        with span("elm.window.copy"):
+            pinned = self.host[2] if self.series else self.host
+            if self.side is None:
+                self.payload = m._put(pinned)
+                return
+            with torch.cuda.stream(self.side):
+                self.payload = m._put(pinned)
+                self.copied = torch.cuda.Event()
+                self.copied.record(self.side)
 
     def take(self):
         """(host part, device payload), ready for the compute stream."""

@@ -50,7 +50,13 @@ one JSON line, and writes it to ``--out`` when given:
   of the step's three phases, each wrapped here in a ``record_function``
   range (a kernel or copy counts for the range whose device span it starts
   in); under replay the step's three phases run inside the graph, where
-  no range reaches, and read 0;
+  no range reaches, and read 0.  Under ``--loop windows`` the window's
+  copy is the program's own span ``elm.window.copy``
+  (``driver/model.py``, ``utils/clock.py``), read here as
+  ``window_copy``: a host operation with no annotation on the device
+  timeline, whose device span is that of the copies launched inside it
+  (each device operation matched to its runtime call by correlation id).
+  Every other range is this tool's;
 - ``device_ms_by_module``: device milliseconds per step of each module of
   the port whose functions issued the work (physics and ops modules; the
   innermost one where they nest; ``driver.step`` for the step's own).
@@ -234,10 +240,10 @@ def _by_module(eager, dev_ms, n: int) -> dict:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def _syncs_where(prof, DeviceType) -> dict:
+def _syncs_where(prof, DeviceType, program) -> dict:
     """The host waits of a profile by where they were made: the input
     range around them (or ``steps``) and the torch operation that made
-    them."""
+    them.  ``program`` maps the program's spans to this tool's names."""
     where = collections.Counter()
     for e in prof.events():
         if e.device_type != DeviceType.CPU or e.name not in _SYNCS:
@@ -246,12 +252,39 @@ def _syncs_where(prof, DeviceType) -> dict:
         while op is not None:
             if first is None and not op.name.startswith("cuda"):
                 first = op.name
-            if op.name in _ALL_PHASES:
-                rng = op.name
+            if program.get(op.name, op.name) in _ALL_PHASES:
+                rng = program.get(op.name, op.name)
                 break
             op = op.cpu_parent
         where[f"{rng}: {first or 'the profiling loop'} ({e.name})"] += 1
     return dict(where)
+
+
+def _program_device_spans(prof, DeviceType, program) -> list:
+    """``(device start, device end, name)`` of each of the program's spans
+    named in ``program`` ({span: this tool's name}): the span of the
+    device operations launched by the runtime calls inside it on the
+    host, as a ``record_function`` range's annotation on the device
+    timeline spans the device work launched inside it."""
+    events = prof.events()
+    ranges = [(e.time_range.start, e.time_range.end, program[e.name])
+              for e in events
+              if e.device_type == DeviceType.CPU and e.name in program]
+    if not ranges:
+        return []
+    launched = {e.id: e.time_range.start for e in events
+                if e.device_type == DeviceType.CPU
+                and e.name.startswith("cu")}
+    device = [(launched[e.id], e.time_range.start, e.time_range.end)
+              for e in events
+              if e.device_type == DeviceType.CUDA and e.id in launched]
+    out = []
+    for lo, hi, name in ranges:
+        mine = [(a, b) for t, a, b in device if lo <= t <= hi]
+        if mine:
+            out.append((min(a for a, _ in mine), max(b for _, b in mine),
+                        name))
+    return out
 
 
 def main(argv=None) -> int:
@@ -292,7 +325,11 @@ def main(argv=None) -> int:
     Model.step_inputs = _ranged(Model.step_inputs, "step_inputs")
     Model._host_series = _ranged(Model._host_series, "window_assembly")
     Model._pin_series = _ranged(Model._pin_series, "window_assembly")
-    Model._put = _ranged(Model._put, "window_copy")
+    # run_windows opens its own span around the window's copy
+    program = ({"elm.window.copy": "window_copy"} if args.loop == "windows"
+               else {})
+    if not program:
+        Model._put = _ranged(Model._put, "window_copy")
 
     repo = pathlib.Path(__file__).resolve().parents[2]
     files = repo / "build" / "synthetic"
@@ -390,14 +427,16 @@ def main(argv=None) -> int:
     phases = {k: dict(host_ms_per_step=0.0, device_ms_per_step=0.0)
               for k in phase_names}
     # a range shows twice: on the host, and as an annotation spanning its
-    # kernels on the device timeline, which is not device work itself
-    spans = []
+    # kernels on the device timeline, which is not device work itself; a
+    # program's span shows on the host only
+    spans = _program_device_spans(prof, DeviceType, program)
     for e in prof.events():
-        if e.name in phases:
+        name = program.get(e.name, e.name)
+        if name in phases:
             if e.device_type == DeviceType.CUDA:
-                spans.append((e.time_range.start, e.time_range.end, e.name))
+                spans.append((e.time_range.start, e.time_range.end, name))
             else:
-                phases[e.name]["host_ms_per_step"] += (
+                phases[name]["host_ms_per_step"] += (
                     e.cpu_time_total / 1e3 / n)
         elif e.device_type == DeviceType.CUDA:
             dev_ms[e.name] += (e.time_range.end - e.time_range.start) / 1e3
@@ -448,7 +487,8 @@ def main(argv=None) -> int:
         device_busy_share=busy_us / (wall * 1e6),
         device_ms_per_step=sum(dev_ms.values()) / n,
         launches_per_step=sum(launches.values()) / n,
-        syncs_per_step=syncs / n, syncs_where=_syncs_where(prof, DeviceType),
+        syncs_per_step=syncs / n,
+        syncs_where=_syncs_where(prof, DeviceType, program),
         host_launches_per_step=host_launches / n,
         copies_h2d_per_step=len(h2d) / n,
         copies_h2d_in_window_copy=in_copy,
