@@ -47,6 +47,19 @@ an eager run of the same steps:
    wall and device ms and launches; K5's registers, spills, shared memory
    a block and resident warps in its four instantiations, none of the
    float64 ones spilling);
+   holds ``snicar`` (K3, SNICAR's adding-doubling sweep for both beams)
+   bit for bit against ``snicar_ad_rt_both_plain`` at 262,144 columns of
+   seeded snow (0-5 layers, thin snow, night, zero layers, clamped
+   fluxes), of a spring-like problem (every column layered, the sun up)
+   and of a July-like one (no snow), in its four instantiations (float64;
+   float64 inputs swept in float32 with float64 weights, the step's
+   mixed_radiation; float32 inputs with float64 weights; float32), and
+   against itself (a second launch, a launch captured in a CUDA graph and
+   replayed) (:func:`k3_test_phase`: K3's ms against its bytes bound, the
+   plain sweep's ms, the share of columns it swept by its own counter;
+   its registers, spills, shared memory a block and resident warps), and
+   the orders of PyTorch's sums over 8 species and 4 bands that K3 copies
+   (:func:`reduction_order`);
    and times each wrapper's host side (:func:`entry_overhead`, K2's
    included);
 4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
@@ -58,7 +71,7 @@ an eager run of the same steps:
    and eager in turns (three pairs, each from a fresh model, every final
    state bit for bit), for ms/step after the first two steps (the eager
    first step and the capture), columns/s, the conservation contracts and
-   each kernel's launches: K2 and K5 once a step, K4, and no K1 (K2
+   each kernel's launches: K2, K5 and K3 once a step, K4, and no K1 (K2
    inlines it); then 12 steps around noon
    again with each launch timed by CUDA events on the main path's own
    inputs (:class:`MainPathTimes`), K2's and K5's first calls held
@@ -279,6 +292,9 @@ K5_COLUMN_FLOPS = 1600
 # the winter path runs this many steps under K5's timer after its aging
 # runs, pinned and live, and holds the kept calls against the plain block
 K5_WINTER_STEPS = 2
+# K3's test problems (ops.testing.snicar_problem, and its spring and July
+# variants): the width, the seed and the reps of its timing
+K3_NCOL, K3_SEED, K3_REPS = 262144, 2031, 20
 
 
 def phase(msg: str) -> None:
@@ -999,7 +1015,12 @@ def reduction_order() -> dict:
     [262,144, 5] rows in float64 and float32 (a third of the entries 0),
     ``torch.sum(x, 1)`` must equal ((x0 + x4) + x2) + (x1 + x3) and
     ``torch.cumsum(x, 1)``'s last two columns (x3 + x2) + (x1 + x0) and x4
-    plus that, bit for bit; the sequential orders are reported beside."""
+    plus that, bit for bit; the sequential orders are reported beside.
+    Then the sums K3 copies (``sum8``, ``nir_add``), on tensors laid out as
+    the plain SNICAR sweep's: over 8 adjacent species ((x0 + x4) + (x2 +
+    x6)) + ((x1 + x5) + (x3 + x7)); over 4 rows of [4, n] in order; over
+    the 4 bands of a [4, n, 6] tensor of strides (n, 1, 4 n), (x0 + x2) +
+    (x1 + x3)."""
     import torch
     g = torch.Generator().manual_seed(K5_SEED)
     res = {}
@@ -1023,6 +1044,40 @@ def reduction_order() -> dict:
     if not all(r["sum_as_k5"] and r["cumsum_as_k5"] for r in res.values()):
         raise AssertionError(f"PyTorch's sum or cumsum over 5 positions no "
                              f"longer adds as K5 does: {res}")
+    k3 = {}
+    for dtype in (torch.float64, torch.float32):
+        def draw(*shape):
+            x = torch.rand(*shape, generator=g, dtype=torch.float64) * 10
+            x = x * 10.0 ** (torch.rand(*shape, generator=g) * 8 - 4)
+            return x.to(dtype).cuda()
+        # the plain sweep's species sum: [10, 8, 5, n], the species
+        # adjacent (strides 40 n, 1, 8, 40), over dim 1
+        x = draw(10, K5_NCOL, 5, 8).permute(0, 3, 2, 1)
+        c = [x[:, i] for i in range(8)]
+        s8 = torch.sum(x, dim=1)
+        # the near-IR sums: [4, n] over dim 0, and [4, n, 6] of strides
+        # (n, 1, 4 n) over dim 0
+        a = draw(4, K5_NCOL)
+        f = draw(6, 4, K5_NCOL).permute(1, 2, 0)
+        k3[str(dtype).replace("torch.", "")] = dict(
+            sum8_as_k3=bool(torch.equal(
+                s8, ((c[0] + c[4]) + (c[2] + c[6]))
+                + ((c[1] + c[5]) + (c[3] + c[7])))),
+            sum8_in_order=bool(torch.equal(s8, ((((((
+                (c[0] + c[1]) + c[2]) + c[3]) + c[4]) + c[5]) + c[6])
+                + c[7]))),
+            sum4_rows_as_k3=bool(torch.equal(
+                torch.sum(a, dim=0), ((a[0] + a[1]) + a[2]) + a[3])),
+            sum4_strided_as_k3=bool(torch.equal(
+                torch.sum(f, dim=0), (f[0] + f[2]) + (f[1] + f[3]))),
+            sum4_strided_in_order=bool(torch.equal(
+                torch.sum(f, dim=0), ((f[0] + f[1]) + f[2]) + f[3])))
+    phase("K3 reduction order: " + json.dumps(k3))
+    if not all(r["sum8_as_k3"] and r["sum4_rows_as_k3"]
+               and r["sum4_strided_as_k3"] for r in k3.values()):
+        raise AssertionError(f"PyTorch's sums over the 8 species or the 4 "
+                             f"near-IR bands no longer add as K3 does: {k3}")
+    res["k3"] = k3
     return res
 
 
@@ -1199,6 +1254,171 @@ def k5_test_phase() -> dict:
                 math_rounding=math)
 
 
+def k3_problem(kind: str, dtype):
+    """K3's arguments (``snicar_ad_rt_both``'s, without ``land``) on the
+    card in ``dtype`` (``snl`` int64) with the synthetic optics:
+    ``ops.testing.snicar_problem`` at K3_NCOL columns ("seeded": 0-5
+    layers, thin snow, night, zero layers, clamped fluxes); "spring": the
+    same columns each with 1-5 layers and the sun up, as at the spring
+    site; "july": no snow on any column, as on the July grid."""
+    import torch
+    from elmkernels_torch.data import params, synthetic
+    from elmkernels_torch.ops import testing
+    from elmkernels_torch.physics.snow_snicar import SnicarTables
+    a = testing.snicar_problem(K3_NCOL, K3_SEED)
+    t = {k: torch.as_tensor(v, device="cuda") for k, v in a.items()}
+    t = {k: (v.to(dtype) if v.is_floating_point() else v.to(torch.int64))
+         for k, v in t.items()}
+    if kind == "spring":
+        t["coszen"] = t["coszen"].abs() + 0.05
+        t["snl"] = 1 + t["snl"] % 5
+        t["h2osno"] = t["h2osno"] + 1.0
+    elif kind == "july":
+        t["snl"].zero_()
+        t["h2osno"].zero_()
+    slots = params.snicar_slots(synthetic.snicar_tables(), "synthetic")
+    t["tables"] = SnicarTables(**{
+        k: torch.tensor(v, dtype=dtype, device="cuda")
+        for k, v in slots.items()})
+    return t
+
+
+def k3_bound(args: dict, types, swept: int) -> float:
+    """K3's bytes bound of one launch, ms: every column's coszen, h2osno,
+    snl and soil albedos read and its 28 outputs written; a swept column's
+    15 layer values and 40 aerosol masses read too; over the card's 3.35
+    TB/s (its operations, under 4 GFLOP at 262,144 swept columns, take
+    less: ~0.06 ms at 67 TFLOP/s)."""
+    import torch
+    size = [torch.empty((), dtype=t).element_size() for t in types]
+    n = args["coszen"].shape[0]
+    col = 4 * size[0] + 8 + 28 * size[2]
+    return (n * col + swept * 55 * size[0]) / HBM_BYTES_PER_S * 1e3
+
+
+def k3_compare(got, want) -> list:
+    """The output fields of two (direct, diffuse) pairs that differ (NaNs
+    in the same places agree)."""
+    import torch
+    out = []
+    for beam, (g, w) in enumerate(zip(got, want)):
+        for f in w._fields:
+            a, b = getattr(g, f), getattr(w, f)
+            if (a.dtype != b.dtype or a.shape != b.shape
+                    or not torch.equal(torch.isnan(a), torch.isnan(b))
+                    or not torch.equal(torch.nan_to_num(a),
+                                       torch.nan_to_num(b))):
+                out.append(f"{'drc' if beam == 0 else 'dfs'}.{f}")
+    return out
+
+
+def k3_registers() -> dict:
+    """K3's registers and spilled bytes a thread (``ptxas``), its dynamic
+    shared memory a block and resident warps an SM (``snicar.layout``), in
+    its four instantiations (inputs, sweep, weights)."""
+    import torch
+    from elmkernels_torch.ops import build, snicar
+    report = build.ptxas_report("snow_snicar")
+    regs = {}
+    for fn, body in re.findall(r"Compiling entry function '([^']*snicar_"
+                               r"kernel[^']*)'[^\n]*\n(.*?)(?=Compiling|\Z)",
+                               report, re.S):
+        inst = re.search(r"snicar_kernelI([fd])([fd])([fd])", fn)
+        types = tuple({"f": "float32", "d": "float64"}[x]
+                      for x in inst.groups())
+        r = re.search(r"Used (\d+) registers", body)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       body)
+        lay = snicar.layout(tuple(getattr(torch, t) for t in types))
+        regs["/".join(types)] = dict(
+            registers=int(r.group(1)) if r else None,
+            spill_stores=int(sp.group(1)) if sp else None,
+            spill_loads=int(sp.group(2)) if sp else None,
+            local_bytes=lay["local_bytes"], shared_bytes=lay["shared_bytes"],
+            warps_per_sm=lay["blocks_per_sm"] * lay["threads"] // 32)
+    phase("K3 snicar_kernel registers, spills, shared memory and resident "
+          "warps an SM: " + json.dumps(regs))
+    if len(regs) != 4:
+        raise AssertionError(f"ptxas reported {len(regs)} of K3's 4 "
+                             f"kernels: {report[-2000:]}")
+    return regs
+
+
+def k3_graph_replay(args: dict, kw: dict) -> list:
+    """One K3 call captured in a CUDA graph and replayed: the fields that
+    differ from an eager call's on the same inputs (none expected)."""
+    import torch
+    from elmkernels_torch.ops import snicar
+    eager = snicar.snicar(**args, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = snicar.snicar(**args, **kw)
+    graph.replay()
+    torch.cuda.synchronize()
+    differing = k3_compare(captured, eager)
+    del graph
+    return differing
+
+
+def k3_test_phase() -> dict:
+    """K3 against snicar_ad_rt_both_plain on the three problems of
+    :func:`k3_problem` at K3_NCOL columns, in its instantiations (inputs,
+    sweep, weights): float64 throughout (the exact flags), float64 inputs
+    swept in float32 with float64 weights (the step's mixed_radiation),
+    float32 inputs with float64 weights, and float32 throughout (the
+    float32 model); bit for bit, and against itself (a second launch, a
+    launch captured in a CUDA graph and replayed); K3's device ms a launch
+    (CUDA events, each launch after a guard that hides the wrapper's host
+    side: :func:`guarded_ms`) against its bytes bound, the plain sweep's
+    device ms (CUDA events), the columns K3 swept (its counter) and their
+    share;
+    K3's registers, spills and resident warps (:func:`k3_registers`)."""
+    import torch
+    from elmkernels_torch.ops import snicar
+    from elmkernels_torch.physics.snow_snicar import snicar_ad_rt_both_plain
+    from elmkernels_torch import constants as c
+    f32, f64 = torch.float32, torch.float64
+    land = c.LandType(ltype=1, ctype=1, vtype=12)
+    regs = k3_registers()
+    cases = []
+    for kind in ("seeded", "spring", "july"):
+        for types in ((f64, f64, f64), (f64, f32, f64), (f32, f32, f64),
+                      (f32, f32, f32)):
+            args = k3_problem(kind, types[0])
+            kw = dict(weight_dtype=types[2],
+                      sweep_dtype=types[1] if types[1] != types[0] else None)
+            snicar.reset_swept()
+            got = snicar.snicar(**args, **kw)
+            torch.cuda.synchronize()
+            swept = snicar.swept()
+            want = snicar_ad_rt_both_plain(land, **args, **kw)
+            res = dict(problem=kind, types="/".join(
+                str(t).replace("torch.", "") for t in types),
+                differing_fields=k3_compare(got, want),
+                relaunch_differing_fields=k3_compare(
+                    snicar.snicar(**args, **kw), got),
+                graph_differing_fields=k3_graph_replay(args, kw),
+                swept_columns=swept, swept_share=swept / K3_NCOL)
+            res["ms"] = guarded_ms(lambda: snicar.snicar(**args, **kw),
+                                   K3_REPS)
+            res["bound_ms"] = k3_bound(args, types, swept)
+            res["share_of_bound"] = res["bound_ms"] / res["ms"]
+            res["plain_ms"] = cuda_ms(
+                lambda: snicar_ad_rt_both_plain(land, **args, **kw), 2)
+            phase("K3 snicar vs plain: " + json.dumps(res))
+            if (res["differing_fields"] or res["relaunch_differing_fields"]
+                    or res["graph_differing_fields"]):
+                raise AssertionError(f"snicar differs from its plain "
+                                     f"version or from itself: {res}")
+            cases.append(res)
+            del args, got, want
+    swept = {r["problem"]: r["swept_share"] for r in cases}
+    if not (swept["july"] == 0 and swept["spring"] == 1
+            and 0 < swept["seeded"] < 1):
+        raise AssertionError(f"K3's swept-column counter reads {swept}")
+    return dict(cases=cases, registers=regs)
+
+
 def k5_winter(model, start, label: str, kernels: dict) -> dict:
     """K5_WINTER_STEPS more steps of a winter model (live snow layers)
     from ``start`` under K5's timer, its calls held against the plain
@@ -1357,8 +1577,8 @@ def reset(kernels: dict) -> None:
 def counts(kernels: dict, label: str, steps: int | None = None) -> dict:
     """Each kernel's launches since ``reset``; fails if one of them was
     not launched, or, where K2 runs the canopy loop, if K1 (inlined in it)
-    was, and, given the run's ``steps``, unless K2 and K5 (where counted)
-    launched once a step."""
+    was, and, given the run's ``steps``, unless K2, K5 and K3 (where
+    counted) launched once a step."""
     launches = {name: fn.launches for name, fn in kernels.items()}
     for name, count in launches.items():
         if name in INLINED_IN_K2 and "canopy_stability" in launches:
@@ -1369,7 +1589,7 @@ def counts(kernels: dict, label: str, steps: int | None = None) -> dict:
         elif count == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label}")
-    for name in ("canopy_stability", "snow_hydrology"):
+    for name in ("canopy_stability", "snow_hydrology", "snicar"):
         if (steps is not None and name in launches
                 and launches[name] != steps):
             raise AssertionError(f"{name} launched {launches} times in "
@@ -2880,7 +3100,7 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
     must not launch under run_jvp, and K1 and K1-T must."""
     import torch
     from elmkernels_torch.driver import sensitivity as sens
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
     from elmkernels_torch.physics import photosynthesis as psn
     from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
     m, start, forc, phen = sens_model(files, inputs)
@@ -2888,7 +3108,8 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                "ci_hybrid_solve_jvp": ci_solver.ci_hybrid_solve_jvp,
                "pdma_solve": pdma.pdma_solve,
-               "snow_hydrology": snow.snow_hydrology}
+               "snow_hydrology": snow.snow_hydrology,
+               "snicar": snicar.snicar}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -2904,10 +3125,11 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
         forc_stack=forc, phen_stack=phen))
     launches = {k: fn.launches for k, fn in kernels.items()}
     if (launches["canopy_stability"] or launches["snow_hydrology"]
+            or launches["snicar"]
             or not all(launches[k] for k in (
                 "ci_hybrid_solve", "ci_hybrid_solve_jvp", "pdma_solve"))):
         raise AssertionError(f"on the sensitivity path K1, K1-T and K4 "
-                             f"must launch and K2 and K5 must not: "
+                             f"must launch and K2, K5 and K3 must not: "
                              f"{launches}")
 
     t1 = k1_timer(SENS_CI_KEPT)
@@ -3105,7 +3327,7 @@ def float32_path(files) -> dict:
     test_f32_drift.py."""
     import torch
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
     from elmkernels_torch.utils.dates import Date
     m = Model(ncol=F32_NCOL, pft_path=str(files[0]),
               snicar_path=str(files[1]), dtype=torch.float32)
@@ -3114,7 +3336,8 @@ def float32_path(files) -> dict:
     kernels = {"canopy_stability": canopy.canopy_stability,
                "pdma_solve_f32": pdma.pdma_solve_f32,
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
-               "snow_hydrology": snow.snow_hydrology}
+               "snow_hydrology": snow.snow_hydrology,
+               "snicar": snicar.snicar}
     # the same steps replayed from the captured step, from a twin, with no
     # timer installed: the timed (eager) run must end in its state
     twin = Model(ncol=F32_NCOL, pft_path=str(files[0]),
@@ -3218,7 +3441,7 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     from elmkernels_torch import parallel
     from elmkernels_torch.data.state import ModelState
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
     from elmkernels_torch.utils.dates import Date
     spec = json.loads((SHARD_DIR / "spec.json").read_text())
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
@@ -3241,7 +3464,8 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     kernels = {"canopy_stability": canopy.canopy_stability,
                "pdma_solve": pdma.pdma_solve,
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
-               "snow_hydrology": snow.snow_hydrology}
+               "snow_hydrology": snow.snow_hydrology,
+               "snicar": snicar.snicar}
     # replayed from the rank's own captured step, with no timer installed
     m = model()
     reset(kernels)
@@ -3699,7 +3923,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from elmkernels_torch.ops import build, canopy, ci_solver, pdma, snow
+    from elmkernels_torch.ops import (build, canopy, ci_solver, pdma, snicar,
+                                      snow)
 
     t_script = time.perf_counter()
     laps, t_lap = {}, [t_script]
@@ -3747,6 +3972,7 @@ def main() -> int:
     k1t_test = k1t_test_phase()
     k2_test = k2_test_phase()
     k5_test = k5_test_phase()
+    k3_test = k3_test_phase()
     k4 = check_pdma(262144)
     k4f = check_pdma(262144, torch.float32)
     overhead = entry_overhead()
@@ -3759,7 +3985,8 @@ def main() -> int:
     wrappers = {"canopy_stability": canopy.canopy_stability,
                 "pdma_solve": pdma.pdma_solve,
                 "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
-                "snow_hydrology": snow.snow_hydrology}
+                "snow_hydrology": snow.snow_hydrology,
+                "snicar": snicar.snicar}
     # end-to-end numbers from a run with no timer installed; the kernels'
     # times per launch from 12 steps around noon under the timers
     main_run, launches, main_pairs = main_path(files, wrappers)
@@ -3943,6 +4170,22 @@ def main() -> int:
                  plain_ms=k5t["plain_wall_ms"], test_ms=k5t["ms"],
                  test_bound_ms=k5t["bound_ms"],
                  test_share_of_bound=k5t["share_of_bound"]))),
+        # K3 sweeps SNICAR once a step on every model path; its
+        # test-problem numbers are the step's mixed_radiation call's
+        dict(name="snicar", route="cuda",
+             source="elmkernels_torch/csrc/snow_snicar.cu",
+             replaces="elmkernels_tpu/physics/snow_snicar.py:101",
+             launches=launches["snicar"], max_abs_err=0.0,
+             library_ms=None, registers_and_spills=k3_test["registers"],
+             second_launch_and_graph_replay_bit_for_bit=True,
+             test_cases=[{k: c[k] for k in (
+                 "problem", "types", "ms", "bound_ms", "share_of_bound",
+                 "plain_ms", "swept_share")} for c in k3_test["cases"]],
+             prod_launches=prod_launches["snicar"],
+             land_launches=land_launches["snicar"],
+             refformats_launches=refformats["text"]["launches"]["snicar"],
+             f32_launches=f32["launches"]["snicar"],
+             sens_launches=sens_launches["snicar"]),
         dict(name="pdma_solve", route="cuda",
              source="elmkernels_torch/csrc/pdma_solve.cu",
              replaces="elmkernels_tpu/physics/soil_temperature.py:282",

@@ -57,7 +57,7 @@ import traceback
 import torch
 from torch.overrides import TorchFunctionMode
 
-from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
+from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
 from elmkernels_torch.utils.packing import template_of
 
 __all__ = ["disable_graphs", "uses_graphs", "key_of",
@@ -73,7 +73,8 @@ GRAPH = None
 # in an entry point's place (a timer, a spy) passes the count through
 COUNTED = ((canopy, "canopy_stability"), (pdma, "pdma_solve"),
            (pdma, "pdma_solve_f32"), (ci_solver, "ci_hybrid_solve"),
-           (ci_solver, "ci_hybrid_solve_jvp"), (snow, "snow_hydrology"))
+           (ci_solver, "ci_hybrid_solve_jvp"), (snow, "snow_hydrology"),
+           (snicar, "snicar"))
 
 
 @contextlib.contextmanager

@@ -270,22 +270,14 @@ def surface_phase(land: c.LandType, albveg: sa.PFTAlbParams,
 
     # mixed precision: SNICAR and the two-stream solver in f32, results
     # handed back to the working dtype (errsol ~1e-6 W/m2 instead of
-    # 1e-13; the water ledger stays exact)
+    # 1e-13; the water ledger stays exact).  SNICAR casts its inputs itself
+    # (K3 as it loads them) and returns the weights' type, the working one.
     wdt = coszen.dtype
     mixed = mixed_radiation and wdt == torch.float64
-    if mixed:
-        f32 = torch.float32
-        drc, dfs = sn.snicar_ad_rt_both(
-            land, *cast_floats((coszen, s.h2osno), f32), s.snl,
-            *cast_floats((s.h2osoi_liq, s.h2osoi_ice, s.snw_rds,
-                          soil_alb.albsoi, sa_init.mss_cnc_aer_in_fdb,
-                          snicar), f32), weight_dtype=wdt)
-        drc, dfs = cast_floats((drc, dfs), wdt)
-    else:
-        drc, dfs = sn.snicar_ad_rt_both(
-            land, coszen, s.h2osno, s.snl, s.h2osoi_liq, s.h2osoi_ice,
-            s.snw_rds, soil_alb.albsoi, sa_init.mss_cnc_aer_in_fdb, snicar,
-            weight_dtype=wdt)
+    drc, dfs = sn.snicar_ad_rt_both(
+        land, coszen, s.h2osno, s.snl, s.h2osoi_liq, s.h2osoi_ice,
+        s.snw_rds, soil_alb.albsoi, sa_init.mss_cnc_aer_in_fdb, snicar,
+        weight_dtype=wdt, sweep_dtype=torch.float32 if mixed else None)
     grd = sa.ground_albedo(land, coszen, s.frac_sno, soil_alb.albsod,
                            soil_alb.albsoi, drc.albout, dfs.albout)
     fab = sa.flux_absorption_factor(land, coszen, s.frac_sno,

@@ -163,7 +163,9 @@ def snicar_problem(ncol: int, seed: int) -> dict:
     int32), keyed by ``snicar_ad_rt``'s argument names: column ``i`` has
     ``i % 6`` snow layers; a snowless column holds 0-5 mm of snow (some
     none, some below MIN_SNW); about a tenth of the sun is below the
-    horizon."""
+    horizon.  The sweep meets zero layers (``trntdr <= TRMIN`` under the
+    thick packs) and, on the ~3 % of columns whose ground reflects all but
+    2**-24 of the light, fluxes below PUNY that its clamp zeroes."""
     rng = np.random.default_rng(seed)
     u = rng.uniform
     nsno = c.NLEVSNO
@@ -183,9 +185,11 @@ def snicar_problem(ncol: int, seed: int) -> dict:
     h2osno = np.where(snl > 0, (ice + liq)[:, :nsno].sum(axis=1), bare)
     mss = np.exp(u(np.log(1.0e-12), np.log(1.0e-5),
                    (ncol, nsno, c.SNO_NBR_AER)))
-    return dict(coszen=u(-0.1, 1.0, ncol), h2osno=h2osno, snl=snl,
-                h2osoi_liq=liq, h2osoi_ice=ice, snw_rds=snw_rds,
-                albsoi=u(0.05, 0.4, (ncol, 2)),
+    coszen = u(-0.1, 1.0, ncol)
+    albsoi = u(0.05, 0.4, (ncol, 2))
+    albsoi[u(0, 1, ncol) < 0.03] = 1.0 - 2.0 ** -24
+    return dict(coszen=coszen, h2osno=h2osno, snl=snl, h2osoi_liq=liq,
+                h2osoi_ice=ice, snw_rds=snw_rds, albsoi=albsoi,
                 mss_cnc_aer=np.where(active[:, :, None], mss, 0.0))
 
 

@@ -8,6 +8,10 @@ Layers above a column's top active layer are identity layers
 0 with no per-column indexing.  The two layer recursions (``lax.scan`` in
 the JAX package) are Python loops over the five layers.  Arrays in the
 sweep are laid out [B, nsno, ncol] as in the JAX package.
+
+The step calls :func:`snicar_ad_rt_both`, which runs K3
+(``ops.snicar.snicar``, one CUDA kernel) on the card and
+:func:`snicar_ad_rt_both_plain` on the CPU or under a tangent.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
+from elmkernels_torch.ops import tangents
 from elmkernels_torch.physics.math_utils import (const, levels, safe_div,
                                                  take_layer)
 
@@ -43,6 +48,14 @@ _FLX_WGT_DRC = (1.0, 0.49352158521175, 0.18099494230665, 0.12094898498813,
                 0.20453448749347)
 _FLX_WGT_DFS = (1.0, 0.58581507618433, 0.20156903770812, 0.10917889346386,
                 0.10343699264369)
+
+_MU_MIN = 0.01           # least cosine of the solar zenith in the sweep
+# near-IR direct adjustment for high solar zenith angle (impl:747-760):
+# below cos(75 deg), the factor c1 (log10(r_top) - 6) + c0 with c1, c0 each
+# a0 - a1 mu + a2 mu^2
+_MU_75 = 0.2588
+_SZA_C1 = (0.085730, 0.630883, 1.303723)
+_SZA_C0 = (1.467291, 3.338043, 6.807489)
 
 
 class SnicarTables(NamedTuple):
@@ -116,7 +129,7 @@ def _snicar_core(band_id_b, is_drc_b, snw_ss_b, snw_asm_b, snw_ext_b,
     snw_rds_lcl = torch.where(nosnl[:, None], round(c.SNW_RDS_MIN),
                               torch.round(snw_rds).to(torch.int32))
 
-    mu_not = torch.clamp(coszen, min=0.01)
+    mu_not = torch.clamp(coszen, min=_MU_MIN)
 
     is_lyr_active = lev[None, :] >= snl_top[:, None]  # [ncol, nsno]
 
@@ -334,12 +347,12 @@ def _radiation_factor(flg_is_direct: bool, albout_lcl, flx_abs_lcl, mu_not,
 
     # near-IR direct adjustment for high solar zenith angle (impl:747-760)
     if flg_is_direct:
-        mu_75 = 0.2588
-        sza_c1 = 0.085730 - 0.630883 * mu_not + 1.303723 * mu_not ** 2
-        sza_c0 = 1.467291 - 3.338043 * mu_not + 6.807489 * mu_not ** 2
+        a, b = _SZA_C1, _SZA_C0
+        sza_c1 = a[0] - a[1] * mu_not + a[2] * mu_not ** 2
+        sza_c0 = b[0] - b[1] * mu_not + b[2] * mu_not ** 2
         rds_top = take_layer(snw_rds_lcl, snl_top).to(dtype)
         sza_factor = sza_c1 * (torch.log10(rds_top) - 6.0) + sza_c0
-        adjust = mu_not < mu_75
+        adjust = mu_not < _MU_75
         flx_sza_adjust = alb_nir * (sza_factor - 1.0) * wgt_sum
         alb_nir = torch.where(adjust, alb_nir * sza_factor, alb_nir)
         at_top = levels(nsno + 1, snl_top)[None, :] == snl_top[:, None]
@@ -401,12 +414,55 @@ def snicar_ad_rt(land: c.LandType, flg_slr_in: int, coszen, h2osno, snl,
 def snicar_ad_rt_both(land: c.LandType, coszen, h2osno, snl, h2osoi_liq,
                       h2osoi_ice, snw_rds, albsoi, mss_cnc_aer,
                       tables: SnicarTables,
-                      weight_dtype=torch.float64
+                      weight_dtype=torch.float64, sweep_dtype=None
                       ) -> tuple[SnicarOut, SnicarOut]:
-    """Direct + diffuse sweeps in one solve: the 5 direct and 5 diffuse
-    spectral bands stack into one 10-row band axis (the reference calls
-    SNICAR_AD_RT twice per step).  ``weight_dtype`` is the model's type:
-    the band weights' (:func:`_radiation_factor`)."""
+    """Direct + diffuse sweeps in one solve (the reference calls
+    SNICAR_AD_RT twice per step): K3 (``ops.snicar.snicar``) for CUDA
+    tensors of which none carries a tangent, :func:`snicar_ad_rt_both_plain`
+    otherwise.  ``weight_dtype`` is the model's type: the band weights'
+    (:func:`_radiation_factor`).  ``sweep_dtype``, if given, is the type the
+    sweep runs in: floating inputs and tables of another type are cast to
+    it first (the step's ``mixed_radiation`` gives float32).  A failed
+    build or launch of K3 raises."""
+    args = dict(locals())
+    if uses_kernel(args):
+        from elmkernels_torch.ops.snicar import snicar
+        del args["land"]
+        return snicar(**args)
+    return snicar_ad_rt_both_plain(**args)
+
+
+def uses_kernel(args: dict) -> bool:
+    """Whether a call of :func:`snicar_ad_rt_both` with these arguments (by
+    name) runs K3: its tensors are on the card and none of them is
+    differentiated (``torch.func.jvp``, forward AD or autograd)."""
+    if not _on_card(args["coszen"]):
+        return False
+    tensors = [v for v in args.values() if isinstance(v, torch.Tensor)]
+    tensors += list(args["tables"])
+    return not any(tangents.carries_tangent(t) for t in tensors)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def snicar_ad_rt_both_plain(land: c.LandType, coszen, h2osno, snl,
+                            h2osoi_liq, h2osoi_ice, snw_rds, albsoi,
+                            mss_cnc_aer, tables: SnicarTables,
+                            weight_dtype=torch.float64, sweep_dtype=None
+                            ) -> tuple[SnicarOut, SnicarOut]:
+    """:func:`snicar_ad_rt_both` as full-width tensor operations: the 5
+    direct and 5 diffuse spectral bands stack into one 10-row band axis
+    through :func:`_snicar_core`, whose result each beam's
+    :func:`_radiation_factor` weights.  Each beam's result is
+    :func:`snicar_ad_rt`'s bit for bit."""
+    if sweep_dtype is not None:
+        coszen, h2osno, h2osoi_liq, h2osoi_ice, snw_rds, albsoi, \
+            mss_cnc_aer = (t.to(sweep_dtype) for t in (
+                coszen, h2osno, h2osoi_liq, h2osoi_ice, snw_rds, albsoi,
+                mss_cnc_aer))
+        tables = SnicarTables(*(t.to(sweep_dtype) for t in tables))
     nbnd = c.NUMRAD_SNW
     dev = coszen.device
     band_id_b = torch.arange(nbnd, device=dev).repeat(2)

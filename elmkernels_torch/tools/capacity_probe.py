@@ -43,10 +43,11 @@ import torch
 
 
 def _launches() -> dict:
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
+    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
     return {k.__name__: k.launches for k in (
         canopy.canopy_stability, ci_solver.ci_hybrid_solve,
-        pdma.pdma_solve, pdma.pdma_solve_f32, snow.snow_hydrology)}
+        pdma.pdma_solve, pdma.pdma_solve_f32, snow.snow_hydrology,
+        snicar.snicar)}
 
 
 def probe(ncol: int, nsteps: int, device=None) -> dict:

@@ -71,6 +71,9 @@ one JSON line, and writes it to ``--out`` when given:
   did not start inside the window's copy (``series``: the steps' own);
 - ``port_kernels``: device milliseconds and launches per step of the
   port's own CUDA kernels;
+- ``k3_swept``: K3's launches in the profiled window, the columns they
+  swept (the kernel's own device counter, ``ops.snicar.swept``: columns
+  with sunlit snow) and their share of launches x columns;
 - ``windows`` (``--loop windows``): per window, the device milliseconds of
   its payload's copies and the share of them that ran while a kernel ran
   (the overlap with the previous window's steps), and the caching
@@ -103,7 +106,8 @@ _INPUTS = {"run": ("step_inputs",),
 _PORT_MODULES = {"canopy_kernel": "ops.canopy (K2)",
                  "ci_hybrid_kernel": "ops.ci_solver (K1)",
                  "pdma_kernel": "ops.pdma (K4)",
-                 "snow_kernel": "ops.snow (K5)"}
+                 "snow_kernel": "ops.snow (K5)",
+                 "snicar_kernel": "ops.snicar (K3)"}
 _PORT_KERNELS = tuple(_PORT_MODULES)
 
 
@@ -317,6 +321,7 @@ def main(argv=None) -> int:
     from elmkernels_torch.driver import step as step_mod
     from elmkernels_torch.driver.graphs import disable_graphs
     from elmkernels_torch.driver.model import Model
+    from elmkernels_torch.ops import snicar as k3
     from elmkernels_torch.utils.dates import Date
 
     phase_names = _INPUTS[args.loop] + _STEP_PHASES
@@ -380,6 +385,8 @@ def main(argv=None) -> int:
         alloc.append(dict(num_device_alloc=stats["num_device_alloc"],
                           reserved_bytes=stats["reserved_bytes.all.current"]))
 
+    k3.reset_swept()
+    k3_launches = k3.snicar.launches
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -398,6 +405,11 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     n = args.steps
+    k3_launches = k3.snicar.launches - k3_launches
+    k3_columns = k3.swept()
+    k3_swept = dict(launches=k3_launches, columns=k3_columns,
+                    share=k3_columns / (k3_launches * args.ncol)
+                    if k3_launches else None)
     graph = (dict(captures=model._graphs.captures,
                   replays=model._graphs.replays) if model._graphs else None)
     if graph and len(graph["captures"]) != captures:
@@ -500,6 +512,7 @@ def main(argv=None) -> int:
         port_kernels={k: dict(device_ms_per_step=dev_ms[k] / n,
                               launches_per_step=launches[k] / n)
                       for k in dev_ms if any(p in k for p in _PORT_KERNELS)},
+        k3_swept=k3_swept,
         top_kernels=[dict(name=k[:120], device_ms_per_step=dev_ms[k] / n,
                           launches_per_step=launches[k] / n) for k in top])
     line = json.dumps(res)

@@ -434,6 +434,36 @@ def test_the_snow_block_captures_routed_to_k5(grid, stand_in, monkeypatch):
     _assert_state_equal(eager.state, m.state)
 
 
+def test_snicar_captures_routed_to_k3(grid, stand_in, monkeypatch):
+    """The step's SNICAR sweep routed as on a card (``snicar_ad_rt_both``
+    to ``ops.snicar.snicar``; here a stand-in that counts a launch and runs
+    the plain sweep, not exempted from the strict capture): the capture
+    passes, each replay adds K3's launch, once a step, the stand-in is
+    handed the step's working-type inputs with the production flags'
+    float32 sweep, and the state equals the eager loop's on the plain sweep
+    bit for bit."""
+    from elmkernels_torch.ops import snicar
+    from elmkernels_torch.physics import snow_snicar
+
+    def k3(**args):
+        k3.launches += 1
+        k3.types.add((args["coszen"].dtype, args["sweep_dtype"],
+                      args["weight_dtype"]))
+        return snow_snicar.snicar_ad_rt_both_plain(None, **args)
+    k3.launches, k3.types = 0, set()
+    eager = torch_model(grid)
+    with graphs.disable_graphs():
+        eager.run_scan(_date(), 4)
+    monkeypatch.setattr(snow_snicar, "_on_card", lambda t: True)
+    monkeypatch.setattr(snicar, "snicar", k3)
+    m = torch_model(grid)
+    m.run_scan(_date(), 4)
+    assert len(m._graphs.captures) == 1 and m._graphs.replays == 3
+    assert k3.launches == 4
+    assert k3.types == {(torch.float64, torch.float32, torch.float64)}
+    _assert_state_equal(eager.state, m.state)
+
+
 @pytest.mark.parametrize("flags", ["production", "exact"])
 def test_the_step_captures_with_no_host_wait(grid, stand_in, flags):
     """The strict stand-in's capture of the step under each set of flags:

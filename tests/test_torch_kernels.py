@@ -448,6 +448,87 @@ def test_snow_dispatch_on_card(card):
             args, h2osno=args["h2osno"].clone().requires_grad_()))
 
 
+# ---- K3, SNICAR's adding-doubling sweep --------------------------------------
+
+_K3_TYPES = [(torch.float64, torch.float64, torch.float64),
+             (torch.float64, torch.float32, torch.float64),
+             (torch.float32, torch.float32, torch.float64),
+             (torch.float32, torch.float32, torch.float32)]
+
+
+def _snicar_args(n, seed, dtype, card, views=False) -> dict:
+    """``snicar_problem``'s inputs on the card (``snl`` int64) with the
+    synthetic optics; with ``views``, the layered inputs as views of
+    arrays twice as wide."""
+    from elmkernels_torch.data import params, synthetic
+    from elmkernels_torch.physics.snow_snicar import SnicarTables
+    a = testing.snicar_problem(n, seed)
+    t = {k: torch.as_tensor(v, device=card) for k, v in a.items()}
+    t = {k: (v.to(dtype) if v.is_floating_point() else v.to(torch.int64))
+         for k, v in t.items()}
+    if views:
+        for k in ("h2osoi_liq", "h2osoi_ice", "snw_rds"):
+            t[k] = torch.cat([t[k], t[k]], 1)[:, :t[k].shape[1]]
+    slots = params.snicar_slots(synthetic.snicar_tables(), "synthetic")
+    t["tables"] = SnicarTables(**{
+        k: torch.tensor(v, dtype=dtype, device=card)
+        for k, v in slots.items()})
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("views", [False, True], ids=["rows", "views"])
+@pytest.mark.parametrize("n", [N + 1, 129, 65, 64, 63, 1])
+@pytest.mark.parametrize("types", _K3_TYPES, ids=lambda t: "/".join(
+    str(x).replace("torch.float", "f") for x in t))
+def test_snicar_kernel_matches_plain(card, types, n, views):
+    """K3 against the plain sweep at atol 0 in each instantiation (inputs,
+    sweep, weights), NaNs in the same places; a second launch on the same
+    inputs equal to the first.  Widths around K3's 64-column blocks; the
+    layered inputs as rows or as views of wider arrays."""
+    from elmkernels_torch.ops import snicar
+    from elmkernels_torch.physics import snow_snicar as sn
+    from elmkernels_torch import constants as c
+    args = _snicar_args(n, 31, types[0], card, views)
+    kw = dict(weight_dtype=types[2],
+              sweep_dtype=types[1] if types[1] != types[0] else None)
+    got, again = snicar.snicar(**args, **kw), snicar.snicar(**args, **kw)
+    want = sn.snicar_ad_rt_both_plain(c.LandType(ltype=1, ctype=1, vtype=12), **args, **kw)
+    for g, a, w in zip(got, again, want):
+        for f in w._fields:
+            assert getattr(g, f).dtype == getattr(w, f).dtype, f
+            assert _same(getattr(g, f), getattr(w, f)), f
+            assert _same(getattr(g, f), getattr(a, f)), f
+
+
+@pytest.mark.cuda
+def test_snicar_dispatch_on_card(card):
+    """On the card ``snicar_ad_rt_both`` launches K3 once, and its counter
+    adds the swept columns; under ``torch.func.jvp`` it runs the plain
+    sweep; the wrapper refuses a differentiated tensor and a type it has
+    no instantiation for."""
+    from elmkernels_torch.ops import snicar
+    from elmkernels_torch.physics import snow_snicar as sn
+    from elmkernels_torch import constants as c
+    land = c.LandType(ltype=1, ctype=1, vtype=12)
+    args = _snicar_args(1024, 17, torch.float64, card)
+    k3 = snicar.snicar.launches
+    snicar.snicar(**args)                # the counter exists
+    snicar.reset_swept()
+    sn.snicar_ad_rt_both(land, **args)
+    assert snicar.snicar.launches == k3 + 2
+    cz, h = args["coszen"], args["h2osno"]
+    assert snicar.swept() == int(((cz > 0) & (h > sn.MIN_SNW)).sum())
+    torch.func.jvp(
+        lambda x: sn.snicar_ad_rt_both(land, **dict(args, coszen=x))[0]
+        .albout, (cz,), (torch.ones_like(cz),))
+    assert snicar.snicar.launches == k3 + 2
+    with pytest.raises(RuntimeError, match="snicar_ad_rt_both"):
+        snicar.snicar(**dict(args, coszen=cz.clone().requires_grad_()))
+    with pytest.raises(TypeError, match="instantiation"):
+        snicar.snicar(**args, weight_dtype=torch.float32)
+
+
 # ---- the captured step (driver/graphs.py) --------------------------------
 
 GRAPH_NCOL, GRAPH_STEPS = 4096, 6
