@@ -15,6 +15,9 @@ The windows cells and the coupled cell compare:
 - the windows cells: the conservation errors the loop reports for every
   column and step of the window (``errh2o_led_max``, ``errlon_max``,
   ``errsol_max``), held to the limits the configuration states;
+- a cell over ranks: ``ranks_disagree``, the window's domain diagnostics
+  (a step's field) that some rank holds otherwise than rank 0 (limit 0:
+  the collectives hand every rank the same numbers);
 - the coupled cell: ``flux_gap``, the same gap over the exchange fluxes
   handed back in the last steps, and ``nonfinite_steps``, the steps
   whose fluxes hold a value that is not finite (limit 0).
@@ -90,7 +93,7 @@ class Reference:
         self.drive = drive
         self.dtype = dtype or getattr(torch, cfg["dtype"])
         self.device = device or drive.device
-        ref_cfg = dict(cfg, ncol=drive.ncol)
+        ref_cfg = dict(cfg, ncol=drive.grid_ncol)
         self.cols = Columns(ref_cfg, grid_fields(ref_cfg, drive.files),
                             drive.files, drive.cols, self.dtype, self.device)
 
@@ -187,6 +190,36 @@ def readings(drive, control=None) -> dict:
     out = dict(values=prog.values, where=prog.where, ledger=ledger)
     if low is not None:
         out["control"] = ctrl.values
+    return out
+
+
+def over_ranks(read: dict, group, diags=None) -> dict | None:
+    """:func:`readings` over the ranks of ``group``, on rank 0 (None on
+    the others): each gap the widest any rank read, its field naming that
+    rank, and each ledger error the largest.  With ``diags`` (each rank's
+    [steps, fields] domain diagnostics of the window) also
+    ``ranks_disagree``: how many of them some rank holds otherwise than
+    rank 0, where the collectives hand every rank the same numbers."""
+    got = group.gather((read, diags))
+    if group.rank:
+        return None
+    out = dict(read, values={}, where={})
+    for r, (part, _) in enumerate(got):
+        for k, v in part["values"].items():
+            if k not in out["values"] or v > out["values"][k]:
+                out["values"][k] = v
+                out["where"][k] = f"{part['where'][k]} (rank {r})"
+    for key in ("control", "ledger"):
+        if key in read:
+            out[key] = {k: max(part[key][k] for part, _ in got)
+                        for k in read[key]}
+    if diags is not None:
+        first = got[0][1]
+        same = np.ones(first.shape, bool)
+        for _, d in got[1:]:
+            same &= (d == first) | (np.isnan(d) & np.isnan(first))
+        out["values"]["ranks_disagree"] = int((~same).sum())
+        out["where"]["ranks_disagree"] = "the window's domain diagnostics"
     return out
 
 

@@ -11,7 +11,14 @@
 
 Each keeps, for the columns the reference follows, the state at the
 points the comparison starts and ends (``snaps``), taken on the device by
-one gather a field.  Only this module imports the program."""
+one gather a field.
+
+A ``windows`` drive given a ``group`` (:class:`portbench.ranks.Group`) is
+one rank's block of the grid: ``Model.from_surfdata(..., col0=mesh.col0,
+sharding=mesh)`` over ``parallel.column_mesh``, the seed's edits and
+compared columns drawn for the whole grid and cut to the block, and the
+measured window run in lockstep with the other ranks.  Only this module
+imports the program."""
 
 from __future__ import annotations
 
@@ -67,9 +74,14 @@ def model_kw(cfg: dict, files: dict, device) -> dict:
     return kw
 
 
-def build_model(cfg: dict, files: dict, ncol: int, device):
+def build_model(cfg: dict, files: dict, ncol: int, device, mesh=None):
+    """The configuration's ``Model`` of ``ncol`` columns; with ``mesh``
+    (a ``ColumnMesh``) its rank's block of them."""
     from elmkernels_torch.driver.model import Model
     kw = model_kw(cfg, files, device)
+    if mesh is not None:
+        ncol = mesh.ncol
+        kw.update(col0=mesh.col0, sharding=mesh)
     if cfg["grid"] == "global":
         return Model.from_surfdata(files["surfdata"], ncol, **kw)
     return Model(ncol=ncol, **cfg["site"], **kw)
@@ -77,26 +89,52 @@ def build_model(cfg: dict, files: dict, ncol: int, device):
 
 class Drive:
     """One cell's program: set-up, the measured window, and what the
-    reference needs to judge it."""
+    reference needs to judge it.  ``ncol`` is the grid's columns, and
+    this process's where there is no ``group``; with one, ``mesh`` is this
+    rank's block and ``ncol`` its columns."""
+
+    group = mesh = None
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device,
-                 ncol: int | None = None, compare_columns: int | None = None):
+                 ncol: int | None = None, compare_columns: int | None = None,
+                 group=None):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.device = torch.device(device)
         self.ncol = cfg["ncol"] if ncol is None else ncol
         self.files = inputs.files_of(cfg, self.ncol)
+        if group is not None:
+            from elmkernels_torch.parallel import column_mesh
+            self.group = group
+            self.mesh = column_mesh(self.ncol, device=self.device)
+            self.ncol = self.mesh.ncol
         self.dtime = float(cfg["dtime"])
         self.count = (traffic["compare"]["columns"]
                       if compare_columns is None else compare_columns)
         self.start = _date(traffic["start"])
 
+    @property
+    def grid_ncol(self) -> int:
+        """The columns of the whole grid."""
+        return self.ncol if self.mesh is None else self.mesh.ncol_global
+
+    @property
+    def block(self):
+        """This rank's columns of the grid (None: all of them)."""
+        return None if self.mesh is None else slice(self.mesh.lo,
+                                                     self.mesh.hi)
+
     def reseed(self, seed: int) -> None:
-        """The inputs of ``seed``, and the count of steps back to 0."""
+        """The inputs of ``seed``, and the count of steps back to 0.  The
+        edits and the compared columns (``cols``, on the grid) are drawn
+        for the whole grid, whatever the ranks; ``idx`` is where this
+        process holds ``cols``."""
         self.seed = seed
-        self.edits = inputs.state_edits(self.traffic["state"], self.ncol,
-                                        seed)
-        self.cols = inputs.compared_columns(self.ncol, self.count, seed)
-        self.idx = torch.as_tensor(self.cols, device=self.device)
+        self.edits = inputs.state_edits(self.traffic["state"],
+                                        self.grid_ncol, seed)
+        cols = inputs.compared_columns(self.grid_ncol, self.count, seed)
+        lo = 0 if self.mesh is None else self.mesh.lo
+        self.cols = cols[(cols >= lo) & (cols < lo + self.ncol)]
+        self.idx = torch.as_tensor(self.cols - lo, device=self.device)
         self.steps_done = 0          # steps since the cold start
         self.snaps: dict[int, dict] = {}   # step count -> gathered state
 
@@ -115,7 +153,7 @@ class Drive:
         self.reseed(seed)
         st = (self.state if self.cold is None else type(self.state)(
             **{k: v.clone() for k, v in self.cold.items()}))
-        self.state = inputs.apply_edits(st, self.edits)
+        self.state = inputs.apply_edits(st, self.edits, self.block)
         self.warm_up()
 
     def date_at(self, step: int):
@@ -142,7 +180,7 @@ class WindowsDrive(Drive):
         self.call_steps = int(self.traffic["call_steps"])
         self.window = int(self.traffic["window"])
         self.model = build_model(self.cfg, self.files, self.ncol,
-                                 self.device)
+                                 self.device, self.mesh)
         self.start_check = (0, self.window)
 
     @property
@@ -180,9 +218,15 @@ class WindowsDrive(Drive):
 
     def measure(self, seconds: float) -> dict:
         """Calls until ``seconds`` have passed; the window ends at the first
-        call boundary after that, once the card has finished."""
+        call boundary after that, once the card has finished.  Over ranks
+        the window starts at a barrier, rank 0 decides at each call
+        boundary whether it has passed, so that every rank makes the same
+        calls, and it ends at a barrier once every card has finished; the
+        rate is the whole grid's on rank 0's clock."""
         snow0 = self.snow()
         sync(self.device)
+        if self.group is not None:
+            self.group.barrier()
         n0 = self.steps_done
         cpu0, t0 = time.process_time(), time.perf_counter()
         calls = []
@@ -190,14 +234,22 @@ class WindowsDrive(Drive):
             a = time.perf_counter()
             self.call()
             calls.append(time.perf_counter() - a)
-            if time.perf_counter() - t0 >= seconds:
+            done = time.perf_counter() - t0 >= seconds
+            if self.group is not None:
+                done = self.group.decide(done)
+            if done:
                 break
         sync(self.device)
+        if self.group is not None:
+            self.group.barrier()
         wall = time.perf_counter() - t0
         steps = self.steps_done - n0
+        rate = self.grid_ncol * steps / wall
+        # a grid over cards spreads more than a card alone: its cell reads
+        # the rate as an end-to-end metric of its own, with its own bound
         return dict(steps=steps, wall_s=wall, calls_s=calls,
                     cpu_s=time.process_time() - cpu0,
-                    column_steps_per_s=self.ncol * steps / wall,
+                    column_steps_per_s=rate, grid_column_steps_per_s=rate,
                     snow=[snow0, self.snow()])
 
     def traced(self) -> dict:
@@ -217,6 +269,13 @@ class WindowsDrive(Drive):
                 .double().cpu().numpy()
                 for k in ("errh2o_led_max", "errlon_max", "errsol_max")}
 
+    def diag_rows(self) -> np.ndarray:
+        """Every domain diagnostic of the window's calls, [steps, fields]
+        float64."""
+        return torch.stack([torch.cat([getattr(x, k) for x in self.diags])
+                            .double() for k in self.diags[0]._fields],
+                           dim=1).cpu().numpy()
+
     def release(self) -> None:
         del self.model, self.cold
 
@@ -226,6 +285,8 @@ class CoupledDrive(Drive):
     ``MinimalInterface.advance_with_forcing``."""
 
     def build(self) -> None:
+        if self.mesh is not None:
+            raise ValueError("the coupled drive runs on one card")
         from elmkernels_torch.driver.interface import (HostForcing,
                                                        HostPhenology,
                                                        MinimalInterface)
@@ -295,10 +356,12 @@ class CoupledDrive(Drive):
             if time.perf_counter() - t0 >= seconds:
                 break
         wall = time.perf_counter() - t0
+        steps = self.steps_done - n0
         ms = [1e3 * t for t in times]
         slow = sorted(range(len(ms)), key=ms.__getitem__)[-10:]
-        return dict(steps=self.steps_done - n0, wall_s=wall,
+        return dict(steps=steps, wall_s=wall,
                     cpu_s=time.process_time() - cpu0, step_s=times,
+                    coupled_steps_per_s=steps / wall,
                     coupled_step_ms_p95=p95(ms),
                     coupled_step_ms_mean=sum(ms) / len(ms),
                     coupled_step_ms_p50=statistics.median(ms),

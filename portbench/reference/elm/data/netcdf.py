@@ -28,13 +28,21 @@ def mapped(path, fn):
         f.close()
 
 
+# the data the classic format's 32-bit offsets can place (less room for
+# the header); a larger file is written in the 64-bit offset format
+CLASSIC_BYTES = 2**31 - 2**20
+
+
 def write_nc(path, dims: dict, variables: dict,
              attrs: dict | None = None) -> None:
-    """Create a NetCDF-classic file.  ``dims``: name -> length (None for
-    the record dim); ``variables``: name -> (dim_names tuple, ndarray);
-    ``attrs``: variable name -> {attribute: value}."""
+    """Create a NetCDF-classic file (64-bit offsets where its data pass
+    :data:`CLASSIC_BYTES`).  ``dims``: name -> length (None for the record
+    dim); ``variables``: name -> (dim_names tuple, ndarray); ``attrs``:
+    variable name -> {attribute: value}."""
     from scipy.io import netcdf_file
-    with netcdf_file(str(path), "w") as f:
+    size = sum(np.asarray(arr).nbytes for _, arr in variables.values())
+    with netcdf_file(str(path), "w",
+                     version=1 if size < CLASSIC_BYTES else 2) as f:
         for dname, dlen in dims.items():
             f.createDimension(dname, dlen)
         for vname, (vdims, arr) in variables.items():

@@ -16,6 +16,12 @@ last line of standard output is one JSON object: ``correct``,
 ``breakdown``, and last ``checks``, each number compared beside its limit,
 which also end standard error.
 
+A cell of ``chips`` > 1 runs as that many ranks, one process a card
+(``portbench/ranks.py``): the process started is rank 0; it writes the
+inputs, starts the others as this command with ``--rank r --port p``, and
+prints the result once every rank has ended well.  A rank that fails ends
+them all, with no result.
+
 Needs a CUDA card: without one, or with fewer than the cell asks for, it
 exits 3 and prints no result."""
 
@@ -120,19 +126,25 @@ def _finite(v):
 
 
 def run_cell(cell, seed: int, seconds: float, traced: bool, device,
-             **sizes) -> dict:
+             group=None, **sizes) -> dict | None:
     """Set up, measure, trace (``traced``) and judge one run of ``cell``
-    on ``device``; returns the result line's object.  ``sizes``
-    (``ncol``, ``compare_columns``) shrink the cell for a rehearsal on the
-    CPU."""
+    on ``device``; returns the result line's object.  With ``group`` (a
+    ``ranks.Group``) this is one rank of the run: every rank runs the
+    window, the traced call and the reference over its own columns, and
+    rank 0 alone records the trace and returns the result (the others
+    None).  ``sizes`` (``ncol``, ``compare_columns``) shrink the cell for
+    a rehearsal on the CPU."""
     import torch
 
     from portbench import check, drive as drive_mod, trace
     cuda = device.type == "cuda"
+    lead = group is None or group.rank == 0
     drive = drive_mod.DRIVES[cell.traffic["entry"]](
-        cell.config, cell.traffic, seed, device, **sizes)
+        cell.config, cell.traffic, seed, device, group=group, **sizes)
     drive.setup()
     drive_mod.sync(device)
+    if group is not None:
+        group.barrier()
     setup_s = time.perf_counter() - T_START
     m = drive.measure(seconds)
     print("window: " + json.dumps({k: v for k, v in m.items()
@@ -140,7 +152,10 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
           file=sys.stderr, flush=True)
 
     metrics, breakdown, extra = {}, None, {}
-    if traced:
+    if traced and not lead:
+        drive.traced()               # its collectives need every rank
+        drive_mod.sync(device)
+    elif traced:
         def traced_call():
             out = drive.traced()
             drive_mod.sync(device)
@@ -161,12 +176,13 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         for metric in cell.end_to_end:
             metrics[metric["name"]] = dict(value=values[metric["name"]],
                                            unit=metric["unit"])
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    if group is not None:
+        peak = max(group.gather(peak))
     device_info = dict(
         platform="gpu" if cuda else "cpu",
         kind=torch.cuda.get_device_name(device) if cuda else "cpu",
-        count=cell.chips,
-        memory_peak_bytes=torch.cuda.max_memory_allocated(device)
-        if cuda else 0, **extra)
+        count=cell.chips, memory_peak_bytes=peak, **extra)
 
     # the window has closed: the program's state goes, and the reference
     # follows the columns the drive kept
@@ -176,13 +192,21 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     read = check.readings(drive)
+    print(f"reference: {time.perf_counter() - t_ref:.1f} s over "
+          f"{len(drive.cols)} columns; widest gaps in {read['where']}",
+          file=sys.stderr)
+    if group is not None:
+        read = check.over_ranks(read, group, drive.diag_rows())
+        if not lead:
+            return None
     values, limits = dict(read["values"]), dict(cell.limits)
     if hasattr(drive, "diags"):
         contract = cell.config["contract"]
         per_step = drive.conservation()
         bad = 0
         for k, v in per_step.items():
-            limits[k] = contract_limit(contract[k], drive.ncol * len(v))
+            limits[k] = contract_limit(contract[k],
+                                       drive.grid_ncol * len(v))
             values[k] = float(v.max())
             bad = bad | ~(v <= limits[k])
         failed = int(bad.sum())
@@ -194,9 +218,9 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
         values["nonfinite_steps"] = drive.nonfinite
         failed = drive.nonfinite
     ok, checks = check.judge(values, limits)
-    print(f"reference: {time.perf_counter() - t_ref:.1f} s over "
-          f"{len(drive.cols)} columns; widest gaps in {read['where']}",
-          file=sys.stderr)
+    if group is not None:
+        print(f"widest gaps over the ranks in {read['where']}",
+              file=sys.stderr)
     result = dict(correct=bool(ok), attempted=m["steps"], failed=failed,
                   metrics=metrics, device=device_info)
     if breakdown is not None:
@@ -206,13 +230,82 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     return result
 
 
-def main(argv=None) -> int:
+def emit(result: dict) -> None:
+    """Each number compared beside its limit, as the last lines of
+    standard error, then the result line."""
+    for k, v in result["checks"].items():
+        print(f"check {k}: {v['value']!r} (limit {v['limit']!r})",
+              file=sys.stderr)
+    sys.stderr.flush()
+    print(json.dumps(result), flush=True)
+
+
+def serve(cell, args, rank: int, port: int, device, **sizes):
+    """Rank ``rank`` of a run over ``cell.chips`` ranks: ``(exit code,
+    result)``, the result on rank 0 only.  A rank that loaded a forbidden
+    module once its run has ended has no result (code 4)."""
+    from portbench import ranks
+    group = ranks.join(rank, cell.chips, port, device)
+    try:
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
+                          device, group=group, **sizes)
+    except MissingReading as e:
+        print(f"portbench: {e}", file=sys.stderr)
+        return 5, None
+    ranks.leave()
+    forbidden = loaded_forbidden()
+    if forbidden:
+        print(f"portbench: rank {rank} loaded {forbidden}", file=sys.stderr)
+        return 4, None
+    return 0, result
+
+
+def lead(cell, args, argv: list, script, device_of, **sizes) -> int:
+    """Rank 0 of a run over ``cell.chips`` ranks: write the inputs, start
+    ranks 1.. as ``script`` with ``argv`` and ``--rank r --port p``, run
+    rank 0 on ``device_of(0)``, and print the result once every rank has
+    ended with 0 (``ranks.lead``)."""
+    from portbench import inputs, ranks
+    # every rank reads its block of these: written once, before any starts
+    inputs.files_of(cell.config, sizes.get("ncol"))
+    port = ranks.free_port()
+    cmds = [[sys.executable, str(script), *argv, "--rank", str(r),
+             "--port", str(port)] for r in range(1, cell.chips)]
+    return ranks.lead(cmds, lambda: serve(cell, args, 0, port, device_of(0),
+                                          **sizes), emit)
+
+
+def follow(cell, args, device, **sizes) -> int:
+    """Rank ``args.rank`` > 0, started by rank 0: it ends with its leader,
+    and without waiting on the group where it fails."""
+    from portbench import ranks
+    ranks.follow()
+    try:
+        code, _ = serve(cell, args, args.rank, args.port, device, **sizes)
+    except BaseException:
+        import traceback
+        traceback.print_exc()
+        code = 1
+    if code:
+        ranks.exit_now(code)
+    return 0
+
+
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--workload", required=True)
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    args = ap.parse_args(argv)
+    # set by rank 0 for the ranks it starts
+    ap.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--port", type=int, help=argparse.SUPPRESS)
+    return ap
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parser().parse_args(argv)
     if not (ROOT / "elmkernels_torch").is_dir():
         print(f"portbench: no elmkernels_torch beside {ROOT / 'portbench'}: "
               f"the benchmark runs from a checkout of the repository",
@@ -230,10 +323,15 @@ def main(argv=None) -> int:
         print(f"portbench: {args.workload} needs {cell.chips} cards, "
               f"{torch.cuda.device_count()} present", file=sys.stderr)
         return 3
-    device = torch.device("cuda", 0)
+    device = torch.device("cuda", args.rank or 0)
     torch.cuda.set_device(device)
+    if args.rank is not None:
+        return follow(cell, args, device)
     print(f"card: {card_line()}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}", flush=True)
+    if cell.chips > 1:
+        return lead(cell, args, argv, __file__,
+                    lambda r: torch.device("cuda", r))
     try:
         result = run_cell(cell, args.seed, args.seconds, bool(args.trace),
                           device)
@@ -244,11 +342,7 @@ def main(argv=None) -> int:
     if forbidden:
         print(f"portbench: the run loaded {forbidden}", file=sys.stderr)
         return 4
-    for k, v in result["checks"].items():
-        print(f"check {k}: {v['value']!r} (limit {v['limit']!r})",
-              file=sys.stderr)
-    sys.stderr.flush()
-    print(json.dumps(result), flush=True)
+    emit(result)
     return 0
 
 

@@ -2,7 +2,9 @@
 the harness's run (``run.run_cell``), past its look for a card, on the
 CPU at a few columns, with a fault planted in the port's step; and the
 control (the reference in float32 in the program's place) fails the
-limits the configuration's float64 holds.  The sound program passes."""
+limits the configuration's float64 holds.  The sound program passes.  A
+cell over several cards runs here in one process (its ranks:
+``test_portbench_ranks.py``)."""
 
 import pytest
 import torch
@@ -10,7 +12,7 @@ import torch
 from portbench.tests import _util
 
 CELLS = ["global-july-windows", "utqiagvik-spring-windows",
-         "utqiagvik-coupled"]
+         "utqiagvik-coupled", "global-1m-4chip-windows"]
 NCOL = 24
 
 

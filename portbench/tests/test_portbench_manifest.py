@@ -31,6 +31,12 @@ def test_every_name_loads():
         for metric in cell.per_layer:
             assert callable(cell.reader(metric["name"]))
         assert "state_gap" in cell.limits
+        # a cell over several cards runs the windows drive as its ranks
+        assert cell.chips in (1, 4)
+        if cell.chips > 1:
+            assert cell.traffic["entry"] == "windows"
+            assert cell.config["ranks"] == cell.chips
+            assert cell.limits["ranks_disagree"] == 0
     for c in m["configs"]:
         cfg = json.loads((_util.ROOT / c["file"]).read_text())
         assert cfg["reduced"] == c["reduced"] == []

@@ -25,18 +25,23 @@ def _record():
               ["cudaMemcpyAsync", 44.0, 45.0], ["cudaMemsetAsync", 46.0, 47.0],
               ["aten::add", 41.0, 59.0], ["cudaLaunchKernel", 120.0, 121.0],
               ["cudaStreamSynchronize", 70.0, 100.0]],
-        measured=dict(steps=4, cpu_s=0.014, coupled_step_ms_mean=120.5))
+        measured=dict(steps=4, cpu_s=0.014, coupled_step_ms_mean=120.5,
+                      coupled_step_ms_p95=151.25))
 
 
 BOUNDS = dict(k2=5e-3, k5=2e-3)
+
+
+CELL_OF = {"loop": "global-july-windows", "coupled": "utqiagvik-coupled",
+           "grid": "global-1m-4chip-windows",
+           "shard": "global-1m-4chip-windows"}
 
 
 def _read(name, rec):
     """The reader as the harness calls it, a kernel's bound of one launch
     in ``bound_ms`` where the metric names one."""
     from portbench import manifest
-    cell = manifest.Cell(manifest.load(), "global-july-windows"
-                         if name.endswith(".loop") else "utqiagvik-coupled")
+    cell = manifest.Cell(manifest.load(), CELL_OF[name.rsplit(".", 1)[1]])
     mod = cell.module("metrics", name)
     kernel = getattr(mod, "ROOFLINE", None)
     return mod.read(rec if kernel is None
@@ -64,6 +69,7 @@ def test_launches_copies_and_device_ms():
         (20.0 + 20.0 + 10.0 + 10.0) / 1e3 / 2)
     assert _read("host_cpu_ms_per_step.loop", rec) == pytest.approx(3.5)
     assert _read("coupled_step_ms_mean.coupled", rec) == 120.5
+    assert _read("coupled_step_ms_p95.coupled", rec) == 151.25
 
 
 def test_roofline_shares_and_silence():
@@ -78,6 +84,25 @@ def test_roofline_shares_and_silence():
     empty = dict(rec, device=[])
     assert _read("device_idle_share.loop", empty) is None
     assert _read("step_device_ms.loop", empty) is None
+
+
+def test_a_grid_over_cards_reads_as_one_card_and_its_collectives():
+    # each ".grid" reader reads what its ".loop" twin reads; the
+    # collectives' reader reads the NCCL kernels alone, and nothing where
+    # the trace has none (a run on one card)
+    rec = _record()
+    for name in ("host_cpu_ms_per_step", "step_device_ms",
+                 "device_idle_share"):
+        assert _read(name + ".grid", rec) == _read(name + ".loop", rec)
+    assert _read("collective_ms_per_step.shard", rec) is None
+    rec["device"].append(["ncclDevKernel_AllReduce_Sum_f64_RING_LL(x)",
+                          80.0, 84.0])
+    assert _read("collective_ms_per_step.shard", rec) == pytest.approx(
+        4.0 / 1e3 / 2)
+    # the profiler's annotation over the same span is not device work
+    assert not trace.device_work("nccl:all_reduce")
+    assert not trace.device_work("portbench.run_windows")
+    assert trace.device_work("ncclDevKernel_AllReduce_Sum_f64_RING_LL(x)")
 
 
 def test_breakdown():

@@ -1,8 +1,8 @@
-"""The five per-layer metrics that read the program's own spans
+"""The per-layer metrics that read the program's own spans
 (``elm.<layer>.<what>``, ``elmkernels_torch/utils/clock.py``): each reader
 on a canned record, and the harness's traced run on the CPU with a program
 that opens its spans and with one that opens none, as a program before
-them does."""
+them does: a metric the manifest lists for the cell then ends the run."""
 
 import pytest
 import torch
@@ -18,9 +18,12 @@ READS = {
     "coupled_exchange_ms_per_step.coupled": ("elm.coupled.exchange",),
     "window_wait_ms_per_step.loop": ("elm.window.wait",),
     "step_issue_ms_per_step.loop": ("elm.window.step",),
+    "window_wait_ms_per_step.grid": ("elm.window.wait",),
+    "step_issue_ms_per_step.grid": ("elm.window.step",),
 }
 CELLS = {"coupled": ["utqiagvik-coupled"],
-         "loop": ["global-july-windows", "utqiagvik-spring-windows"]}
+         "loop": ["global-july-windows", "utqiagvik-spring-windows"],
+         "grid": ["global-1m-4chip-windows"]}
 
 
 def _record():
@@ -56,14 +59,14 @@ def test_a_reader_sums_its_spans_in_the_window_over_the_steps(name):
 
 
 def test_each_applies_to_every_cell_of_its_end_to_end_metric():
-    """The metrics list no cells: each is reported in every cell that
-    reports the end-to-end metric it moves, and a run of a program without
-    the spans leaves it out instead of ending."""
+    """Each lists every cell that reports the end-to-end metric it moves,
+    and is reported in those cells."""
     m = manifest.load()
     entries = {x["name"]: x for x in m["per_layer"] if x["name"] in READS}
     assert sorted(entries) == sorted(READS)
     for name, entry in entries.items():
-        assert "workloads" not in entry and entry["unit"] == "ms"
+        assert entry["unit"] == "ms"
+        assert entry["workloads"] == CELLS[name.rsplit(".", 1)[1]]
         got = [w["name"] for w in m["workloads"]
                if name in [x["name"] for x in
                            manifest.Cell(m, w["name"]).per_layer]]
@@ -76,9 +79,10 @@ def test_each_applies_to_every_cell_of_its_end_to_end_metric():
 def test_the_traced_run_reads_them_or_leaves_them_out(kind, spans_open,
                                                       monkeypatch):
     """The harness's traced run on the CPU at 24 columns, its per-layer
-    metrics cut to these five (the accepted ones read the device, which
+    metrics cut to these (the accepted ones read the device, which
     the CPU has not): the program's spans read; a program that opens none
-    leaves them out, and the run still ends with its result."""
+    reads nothing where the manifest lists the metric, and the run ends
+    without a result, naming it."""
     if not spans_open:
         from elmkernels_torch.utils import clock
         monkeypatch.setattr(clock, "_profiler_enabled", lambda: False)
@@ -87,12 +91,15 @@ def test_the_traced_run_reads_them_or_leaves_them_out(kind, spans_open,
     cell.per_layer = [x for x in cell.per_layer if x["name"] in READS]
     mine = sorted(k for k in READS if k.endswith("." + kind))
     assert sorted(x["name"] for x in cell.per_layer) == mine
+    if not spans_open:
+        with pytest.raises(run.MissingReading,
+                           match=f"read nothing in {cell.name}"):
+            run.run_cell(cell, 2**40 + 17, 0.0, True, torch.device("cpu"),
+                         ncol=24, compare_columns=24)
+        return
     res = run.run_cell(cell, 2**40 + 17, 0.0, True, torch.device("cpu"),
                        ncol=24, compare_columns=24)
     assert res["correct"], res["checks"]
-    if spans_open:
-        assert sorted(res["metrics"]) == mine
-        assert all(v["unit"] == "ms" and v["value"] > 0
-                   for v in res["metrics"].values()), res["metrics"]
-    else:
-        assert res["metrics"] == {}
+    assert sorted(res["metrics"]) == mine
+    assert all(v["unit"] == "ms" and v["value"] > 0
+               for v in res["metrics"].values()), res["metrics"]

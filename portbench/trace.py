@@ -37,9 +37,7 @@ def record(fn) -> dict:
     for e in prof.events():
         a, b = e.time_range.start, e.time_range.end
         if e.device_type == DeviceType.CUDA:
-            # a range shows on the device timeline too, as an annotation
-            # over its kernels: not device work
-            if not e.name.startswith("portbench."):
+            if device_work(e.name):
                 device.append([e.name, a, b])
         else:
             if e.name == RANGE:
@@ -47,6 +45,15 @@ def record(fn) -> dict:
             host.append([e.name, a, b])
     return dict(device=device, host=host, window=window,
                 steps=out["steps"], out=out)
+
+
+def device_work(name: str) -> bool:
+    """Whether a device event of the profiler is work on the device.  A
+    range shows on the device timeline too, as an annotation over its
+    kernels, and is not: the harness's own (``portbench.``), and the one
+    PyTorch opens around each collective (``nccl:all_reduce``, over the
+    NCCL kernel of the same span)."""
+    return not name.startswith(("portbench.", "nccl:"))
 
 
 def merged(intervals) -> list:
