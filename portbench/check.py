@@ -94,8 +94,13 @@ class Reference:
         self.dtype = dtype or getattr(torch, cfg["dtype"])
         self.device = device or drive.device
         ref_cfg = dict(cfg, ncol=drive.grid_ncol)
-        self.cols = Columns(ref_cfg, grid_fields(ref_cfg, drive.files),
-                            drive.files, drive.cols, self.dtype, self.device)
+        grid = grid_fields(ref_cfg, drive.files)
+        # each input kind's reader of its files, over the compared columns
+        providers = {k.ROLE: k.reference(ref_cfg, drive.files, drive.cols,
+                                         grid)
+                     for k in drive.kinds.values()}
+        self.cols = Columns(ref_cfg, grid, drive.files, drive.cols,
+                            self.dtype, self.device, providers)
 
     def cold(self) -> ModelState:
         """The cold start of these columns with the drive's edits."""

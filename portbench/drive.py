@@ -1,33 +1,25 @@
-"""The two ways a cell drives the program, by the traffic mix's
-``entry``:
+"""What every way of driving the program shares.  A traffic mix's
+``entry`` names its drive, a file of its own, ``drives/<entry>.py``
+(``portbench/manifest.py``): ``windows``, the production loop, and
+``coupled``, one closed-loop caller of the coupling interface.
 
-- ``windows``: the production loop, ``Model.run_windows(series=True)``,
-  called again and again, ``call_steps`` steps to a call in windows of
-  ``window`` steps, until the measured window has passed;
-- ``coupled``: one closed-loop caller of
-  ``MinimalInterface.advance_with_forcing``, which builds each step's
-  forcing on the host, hands it in and waits for the exchange fluxes
-  before it sends the next step.
+A drive builds the configuration's ``Model`` from its parameter files,
+its grid and the keywords its input kinds give (``sources/``), starts it
+from the seed's edits, warms it up, measures, and keeps, for the columns
+the reference follows, the state at the points the comparison starts and
+ends (``snaps``), taken on the device by one gather a field.
 
-Each keeps, for the columns the reference follows, the state at the
-points the comparison starts and ends (``snaps``), taken on the device by
-one gather a field.
-
-A ``windows`` drive given a ``group`` (:class:`portbench.ranks.Group`) is
-one rank's block of the grid: ``Model.from_surfdata(..., col0=mesh.col0,
+A drive given a ``group`` (:class:`portbench.ranks.Group`) is one rank's
+block of the grid: ``Model.from_surfdata(..., col0=mesh.col0,
 sharding=mesh)`` over ``parallel.column_mesh``, the seed's edits and
-compared columns drawn for the whole grid and cut to the block, and the
-measured window run in lockstep with the other ranks.  Only this module
-imports the program."""
+compared columns drawn for the whole grid and cut to the block.  Only
+this module and the drives import the program."""
 
 from __future__ import annotations
 
 import statistics
-import time
 
-import numpy as np
 import torch
-from torch.profiler import record_function
 
 from portbench import inputs
 from portbench.reference.columns import STEP_FLAGS
@@ -60,25 +52,26 @@ def gather(state, idx: torch.Tensor) -> dict:
     return {k: v.index_select(0, idx) for k, v in zip(state._fields, state)}
 
 
-def model_kw(cfg: dict, files: dict, device) -> dict:
+def model_kw(cfg: dict, files: dict, device, kinds: dict) -> dict:
     """``Model``'s keywords for a configuration (everything but the
-    grid's columns)."""
+    grid's columns): its parameters, type and flags, and what each of its
+    input kinds feeds (``kinds``, {kind: module})."""
     kw = dict(pft_path=files["pft"], snicar_path=files["snicar"],
               dtime=float(cfg["dtime"]), device=device,
               dtype=getattr(torch, cfg["dtype"]),
               **{k: bool(cfg["flags"][k]) for k in STEP_FLAGS})
-    for key, name in (("phenology", "phenology_path"),
-                      ("aerosol", "aerosol_path")):
-        if key in files:
-            kw[name] = files[key]
+    for kind in kinds.values():
+        kw.update(kind.model_kw(cfg, files))
     return kw
 
 
-def build_model(cfg: dict, files: dict, ncol: int, device, mesh=None):
-    """The configuration's ``Model`` of ``ncol`` columns; with ``mesh``
-    (a ``ColumnMesh``) its rank's block of them."""
+def build_model(cfg: dict, files: dict, ncol: int, device, kinds: dict,
+                mesh=None):
+    """The configuration's ``Model`` of ``ncol`` columns, fed by its input
+    kinds (``kinds``, {kind: module}); with ``mesh`` (a ``ColumnMesh``) its
+    rank's block of them."""
     from elmkernels_torch.driver.model import Model
-    kw = model_kw(cfg, files, device)
+    kw = model_kw(cfg, files, device, kinds)
     if mesh is not None:
         ncol = mesh.ncol
         kw.update(col0=mesh.col0, sharding=mesh)
@@ -91,17 +84,19 @@ class Drive:
     """One cell's program: set-up, the measured window, and what the
     reference needs to judge it.  ``ncol`` is the grid's columns, and
     this process's where there is no ``group``; with one, ``mesh`` is this
-    rank's block and ``ncol`` its columns."""
+    rank's block and ``ncol`` its columns.  ``kinds`` ({kind: module})
+    are the configuration's input kinds."""
 
     group = mesh = None
 
     def __init__(self, cfg: dict, traffic: dict, seed: int, device,
-                 ncol: int | None = None, compare_columns: int | None = None,
-                 group=None):
+                 kinds: dict, ncol: int | None = None,
+                 compare_columns: int | None = None, group=None):
         self.cfg, self.traffic, self.seed = cfg, traffic, seed
         self.device = torch.device(device)
         self.ncol = cfg["ncol"] if ncol is None else ncol
-        self.files = inputs.files_of(cfg, self.ncol)
+        self.kinds = kinds
+        self.files = inputs.files_of(cfg, kinds, self.ncol)
         if group is not None:
             from elmkernels_torch.parallel import column_mesh
             self.group = group
@@ -172,212 +167,6 @@ class Drive:
                     layers=int(st.snl.sum()))
 
 
-class WindowsDrive(Drive):
-    """``Model.run_windows(series=True)``: ``call_steps`` steps a call, in
-    windows of ``window`` steps."""
-
-    def build(self) -> None:
-        self.call_steps = int(self.traffic["call_steps"])
-        self.window = int(self.traffic["window"])
-        self.model = build_model(self.cfg, self.files, self.ncol,
-                                 self.device, self.mesh)
-        self.start_check = (0, self.window)
-
-    @property
-    def state(self):
-        return self.model.state
-
-    @state.setter
-    def state(self, value) -> None:
-        self.model.state = value
-
-    def warm_up(self) -> None:
-        self.diags = []
-        self.call()                      # warms every shape the window uses
-        self.diags.clear()
-
-    def _window_done(self, date, state, d) -> None:
-        self.steps_done += self.window
-        # the start of the comparison, and the state the last window
-        # ended with; the first window after the cold start is kept too
-        keep = {self.window, self.steps_done - self.window}
-        with record_function("portbench.keep"):
-            self._snap(state)
-        self.snaps = {k: v for k, v in self.snaps.items()
-                      if k in keep or k == self.steps_done}
-
-    def call(self):
-        """One call of the loop; returns its [call_steps] diagnostics."""
-        with record_function("portbench.run_windows"):
-            d = self.model.run_windows(
-                self.date_at(self.steps_done), self.call_steps,
-                window=self.window, series=True,
-                callback=self._window_done)
-        self.diags.append(d)
-        return d
-
-    def measure(self, seconds: float) -> dict:
-        """Calls until ``seconds`` have passed; the window ends at the first
-        call boundary after that, once the card has finished.  Over ranks
-        the window starts at a barrier, rank 0 decides at each call
-        boundary whether it has passed, so that every rank makes the same
-        calls, and it ends at a barrier once every card has finished; the
-        rate is the whole grid's on rank 0's clock."""
-        snow0 = self.snow()
-        sync(self.device)
-        if self.group is not None:
-            self.group.barrier()
-        n0 = self.steps_done
-        cpu0, t0 = time.process_time(), time.perf_counter()
-        calls = []
-        while True:
-            a = time.perf_counter()
-            self.call()
-            calls.append(time.perf_counter() - a)
-            done = time.perf_counter() - t0 >= seconds
-            if self.group is not None:
-                done = self.group.decide(done)
-            if done:
-                break
-        sync(self.device)
-        if self.group is not None:
-            self.group.barrier()
-        wall = time.perf_counter() - t0
-        steps = self.steps_done - n0
-        rate = self.grid_ncol * steps / wall
-        # a grid over cards spreads more than a card alone: its cell reads
-        # the rate as an end-to-end metric of its own, with its own bound
-        return dict(steps=steps, wall_s=wall, calls_s=calls,
-                    cpu_s=time.process_time() - cpu0,
-                    column_steps_per_s=rate, grid_column_steps_per_s=rate,
-                    snow=[snow0, self.snow()])
-
-    def traced(self) -> dict:
-        """One more call, for the profiler: its steps, the snow at its
-        start, and its diagnostics ({field: [steps] numpy array}), which
-        the rooflines count from."""
-        snow = self.snow()
-        d = self.call()
-        return dict(steps=self.call_steps, snow=snow,
-                    diags={k: v.double().cpu().numpy()
-                           for k, v in zip(d._fields, d)})
-
-    def conservation(self) -> dict:
-        """The window's conservation errors, the largest over every column
-        at each step: {name: [steps] numpy array}."""
-        return {k: torch.cat([getattr(x, k) for x in self.diags])
-                .double().cpu().numpy()
-                for k in ("errh2o_led_max", "errlon_max", "errsol_max")}
-
-    def diag_rows(self) -> np.ndarray:
-        """Every domain diagnostic of the window's calls, [steps, fields]
-        float64."""
-        return torch.stack([torch.cat([getattr(x, k) for x in self.diags])
-                            .double() for k in self.diags[0]._fields],
-                           dim=1).cpu().numpy()
-
-    def release(self) -> None:
-        del self.model, self.cold
-
-
-class CoupledDrive(Drive):
-    """One caller in a closed loop over
-    ``MinimalInterface.advance_with_forcing``."""
-
-    def build(self) -> None:
-        if self.mesh is not None:
-            raise ValueError("the coupled drive runs on one card")
-        from elmkernels_torch.driver.interface import (HostForcing,
-                                                       HostPhenology,
-                                                       MinimalInterface)
-        self.HostForcing, self.HostPhenology = HostForcing, HostPhenology
-        kw = model_kw(self.cfg, self.files, self.device)
-        kw.update(self.cfg["site"])
-        self.iface = MinimalInterface(self.ncol, model_kw=kw).setup()
-        self.keep = int(self.traffic["compare"]["steps"])
-        self.start_check = (0, int(self.traffic["warmup_steps"]))
-
-    @property
-    def state(self):
-        return self.iface.model.state
-
-    @state.setter
-    def state(self, value) -> None:
-        self.iface.model.state = value
-
-    def warm_up(self) -> None:
-        self.host = inputs.HostForcing(self.ncol, self.seed)
-        self.forcing_s: list[float] = []    # each step's forcing build
-        self.fluxes: dict[int, dict] = {}
-        self.nonfinite = 0
-        for _ in range(self.start_check[1]):
-            self.step()
-        self.fluxes.clear()
-        self.nonfinite = 0
-
-    def step(self) -> float:
-        """One coupled step, timed from the host's first work on its forcing
-        to the exchange fluxes back on the host; the state before it and
-        its fluxes are kept for the comparison's last steps."""
-        t0 = time.perf_counter()
-        date = self.date_at(self.steps_done)
-        with record_function("portbench.host_forcing"):
-            atm, phen = self.host.step(date, self.dtime)
-        self.forcing_s.append(time.perf_counter() - t0)
-        with record_function("portbench.advance_with_forcing"):
-            ex = self.iface.advance_with_forcing(
-                date, self.dtime, self.HostForcing(**atm),
-                self.HostPhenology(**phen))
-        took = time.perf_counter() - t0
-        k = self.steps_done
-        self.steps_done += 1
-        with record_function("portbench.keep"):
-            self.fluxes[k] = {f: np.asarray(v)[self.cols]
-                              for f, v in zip(ex._fields, ex)}
-            # a NaN or an infinity anywhere makes the sum not finite
-            self.nonfinite += int(not all(np.isfinite(np.add.reduce(
-                v, axis=None)) for v in ex))
-            self._snap(self.state)
-        first = self.steps_done - self.keep
-        self.snaps = {s: v for s, v in self.snaps.items()
-                      if s >= first or s == self.start_check[1]}
-        self.fluxes = {s: v for s, v in self.fluxes.items() if s >= first}
-        return took
-
-    def measure(self, seconds: float) -> dict:
-        sync(self.device)
-        n0 = self.steps_done
-        self.nonfinite = 0
-        self.forcing_s = []
-        times = []
-        cpu0, t0 = time.process_time(), time.perf_counter()
-        while True:
-            times.append(self.step())
-            if time.perf_counter() - t0 >= seconds:
-                break
-        wall = time.perf_counter() - t0
-        steps = self.steps_done - n0
-        ms = [1e3 * t for t in times]
-        slow = sorted(range(len(ms)), key=ms.__getitem__)[-10:]
-        return dict(steps=steps, wall_s=wall,
-                    cpu_s=time.process_time() - cpu0, step_s=times,
-                    coupled_steps_per_s=steps / wall,
-                    coupled_step_ms_p95=p95(ms),
-                    coupled_step_ms_mean=sum(ms) / len(ms),
-                    coupled_step_ms_p50=statistics.median(ms),
-                    forcing_ms_mean=1e3 * sum(self.forcing_s) / len(ms),
-                    slowest=[[i, ms[i]] for i in reversed(slow)])
-
-    def traced(self) -> dict:
-        n = int(self.traffic["traced_steps"])
-        for _ in range(n):
-            self.step()
-        return dict(steps=n)
-
-    def release(self) -> None:
-        del self.iface, self.cold
-
-
 def p95(values) -> float:
     """The 95th percentile of every value, by Python's ``statistics``
     (exclusive method); a single value is its own."""
@@ -385,5 +174,3 @@ def p95(values) -> float:
         return max(values)
     return statistics.quantiles(values, n=20)[18]
 
-
-DRIVES = {"windows": WindowsDrive, "coupled": CoupledDrive}

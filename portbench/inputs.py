@@ -1,9 +1,11 @@
 """What a run makes from its configuration, its traffic mix and its seed:
-the input files (once per checkout, at fixed paths), the columns the
-reference follows, the edits to the cold-start state, and the host
-forcing of a coupled caller.  The program and the reference are handed the
-same of each.  Numpy and plain PyTorch only; the snowpack is laid out by
-the reference's own copy of the reference model's initialisation."""
+the input files (once per checkout, at fixed paths: the parameter files
+and a global grid's surfdata here, every other input by its kind's file
+in ``sources/``), the columns the reference follows, the edits to the
+cold-start state, and the host forcing of a coupled caller.  The program
+and the reference are handed the same of each.  Numpy and plain PyTorch
+only; the snowpack is laid out by the reference's own copy of the
+reference model's initialisation."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 INPUT_DIR = ROOT / "build" / "portbench"
 
 
-def _ensure(path: pathlib.Path, write) -> str:
+def ensure(path: pathlib.Path, write) -> str:
     """``path``, written by ``write(file)`` first if it is missing: the
     file appears whole (written aside, then renamed)."""
     if not path.exists():
@@ -30,28 +32,29 @@ def _ensure(path: pathlib.Path, write) -> str:
     return str(path)
 
 
-def files_of(cfg: dict, ncol: int | None = None) -> dict:
+def grid_dir(cfg: dict, ncol: int) -> pathlib.Path:
+    """The directory of the input files of ``ncol`` columns of a
+    configuration's grid."""
+    return INPUT_DIR / f"{cfg['grid']}_{ncol}"
+
+
+def files_of(cfg: dict, kinds: dict, ncol: int | None = None) -> dict:
     """The parameter and input files of a configuration (``ncol`` columns
-    of its grid; default the configuration's own), written if missing."""
+    of its grid; default the configuration's own), written if missing:
+    the parameter files, a global grid's surfdata, then the files of each
+    of its input kinds (``kinds``, {kind: module}, ``sources/<kind>.py``)."""
     from portbench import synthetic
     ncol = cfg["ncol"] if ncol is None else ncol
     par = INPUT_DIR / "params"
-    out = dict(pft=_ensure(par / "clm_params.nc", synthetic.write_clm_params),
-               snicar=_ensure(par / "snicar_optics.nc",
-                              synthetic.write_snicar_optics))
+    out = dict(pft=ensure(par / "clm_params.nc", synthetic.write_clm_params),
+               snicar=ensure(par / "snicar_optics.nc",
+                             synthetic.write_snicar_optics))
     if cfg["grid"] == "global":
-        d = INPUT_DIR / f"global_{ncol}"
-        out["surfdata"] = _ensure(
-            d / "surfdata.nc",
+        out["surfdata"] = ensure(
+            grid_dir(cfg, ncol) / "surfdata.nc",
             lambda p: synthetic.write_global_surfdata(p, ncol))
-        if cfg["inputs"].get("phenology"):
-            out["phenology"] = _ensure(
-                d / "phenology.nc",
-                lambda p: synthetic.write_phenology(p, ncol))
-        if cfg["inputs"].get("aerosol"):
-            out["aerosol"] = _ensure(
-                d / "aerosoldep.nc",
-                lambda p: synthetic.write_aerosol_deposition(p, ncol))
+    for kind in kinds.values():
+        out.update(kind.write(cfg, ncol, dict(out)))
     return out
 
 

@@ -34,10 +34,9 @@ def read_seeds(cell, args, device, group=None) -> None:
     """Each seed's readings, one JSON line a seed (on rank 0)."""
     import torch
 
-    from portbench import check, drive as drive_mod
+    from portbench import check
     seeds = [int(s) for s in args.seeds.split(",")]
-    drive = drive_mod.DRIVES[cell.traffic["entry"]](
-        cell.config, cell.traffic, seeds[0], device, group=group)
+    drive = cell.drive(seeds[0], device, group=group)
     t0 = time.perf_counter()
     drive.setup(keep_cold=True)
     print(f"set-up {time.perf_counter() - t0:.1f} s", file=sys.stderr)
@@ -108,7 +107,7 @@ def main(argv=None) -> int:
         ranks.follow()
         serve(args.rank, args.port)
         return 0
-    inputs.files_of(cell.config)
+    inputs.files_of(cell.config, cell.kinds)
     port = ranks.free_port()
     cmds = [[sys.executable, __file__, *argv, "--rank", str(r), "--port",
              str(port)] for r in range(1, cell.chips)]

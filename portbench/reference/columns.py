@@ -2,10 +2,12 @@
 over a chosen set of a configuration's columns.
 
 It builds what ``elmkernels_torch.driver.model.Model`` derives from the
-parameter files, the surfdata and its phenology and deposition files (the
-parameters, the trait tables, the cold start, the synthetic forcing), for
-the columns ``cols`` only, and advances a state one step at a time from
-each step's host inputs, as ``Model.run`` and
+parameter files and the surfdata (the parameters, the trait tables, the
+cold start), for the columns ``cols`` only, takes each step's forcing,
+phenology and deposition from the providers the configuration's input
+kinds give it (``portbench/sources/``; the synthetic forcing and
+phenology where none is given), and advances a state one step at a time
+from each step's host inputs, as ``Model.run`` and
 ``MinimalInterface.advance_with_forcing`` build them.  Columns are
 independent, so the step over ``cols`` gives what the whole grid's step
 gives in those columns.  Imports nothing of ``elmkernels_torch``.
@@ -52,10 +54,15 @@ def _pick(v, cols):
 class Columns:
     """The configuration ``cfg`` (a configuration file's object) over the
     columns ``cols`` of its grid, in ``dtype`` on ``device``.  ``grid`` is
-    :func:`grid_fields`; ``files`` names the parameter and input files."""
+    :func:`grid_fields`; ``files`` names the parameter and input files;
+    ``providers`` ({role: provider}) gives the ``forcing`` (``window(date,
+    dtime)`` over these columns, ``qbot_is_rh``), the ``phenology``
+    (``window(date)``) and the ``aerosol`` deposition (``rates(date)``)
+    that the configuration's input kinds read."""
 
     def __init__(self, cfg: dict, grid: dict, files: dict, cols,
-                 dtype=torch.float64, device="cpu"):
+                 dtype=torch.float64, device="cpu", providers=None):
+        providers = providers or {}
         self.cols = np.asarray(cols, np.int64)
         self.ncol = n = len(self.cols)
         self.dtype, self.device = dtype, torch.device(device)
@@ -91,19 +98,11 @@ class Columns:
             device=self.device, **kw)
         lat_r = self.params.lat_r.cpu().numpy()
         lon_r = self.params.lon_r.cpu().numpy()
-        self.forcing = forcing_mod.SyntheticForcing(n, lat_r, lon_r)
-        self.phenology = self.aerosol = None
-        if files.get("phenology"):
-            from portbench.reference.elm.data.phenology_data import \
-                PhenologyDataManager
-            self.phenology = PhenologyDataManager(
-                files["phenology"], len(vt_all),
-                np.broadcast_to(vt_all, (len(vt_all),)).astype(np.int32))
-        if files.get("aerosol"):
-            from portbench.reference.elm.data.aerosol_data import \
-                AerosolDataManager
-            self.aerosol = AerosolDataManager(files["aerosol"], cfg["ncol"])
-        self.synthetic_phenology = forcing_mod.SyntheticPhenology(n)
+        self.forcing = (providers.get("forcing")
+                        or forcing_mod.SyntheticForcing(n, lat_r, lon_r))
+        self.phenology = (providers.get("phenology")
+                          or forcing_mod.SyntheticPhenology(n))
+        self.aerosol = providers.get("aerosol")
 
     def cold_start(self):
         """The configuration's cold-start state of these columns."""
@@ -119,15 +118,8 @@ class Columns:
         if self.aerosol is None:
             return forc
         rates = self.aerosol.rates(date)
-        return forc._replace(aero=np.stack([rates[k][self.cols]
+        return forc._replace(aero=np.stack([rates[k]
                                             for k in AERO_DEP_KEYS]))
-
-    def _phenology(self, date) -> StepPhenology:
-        if self.phenology is None:
-            return self.synthetic_phenology.window(date)
-        ph = self.phenology.window(date)
-        return ph._replace(**{k: getattr(ph, k)[:, self.cols]
-                              for k in ("mlai", "msai", "mhtop", "mhbot")})
 
     def _advance(self, state, forc, phen, qbot_is_rh: bool):
         return step_mod.advance(
@@ -140,7 +132,7 @@ class Columns:
         """One step from ``date`` on the configuration's own forcing and
         phenology: ``(new state, diagnostics)``."""
         forc = self._aero(self.forcing.window(date, self.dtime), date)
-        return self._advance(state, forc, self._phenology(date),
+        return self._advance(state, forc, self.phenology.window(date),
                              getattr(self.forcing, "qbot_is_rh", False))
 
     def step_host(self, state, date, atm: dict, phen: dict):

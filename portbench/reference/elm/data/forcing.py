@@ -10,8 +10,8 @@ forcing interval (reference ``atm_data.h:23-78``).
 
 - :class:`SyntheticForcing` — analytic diurnal/seasonal cycles.
 
-(The benchmark's copy keeps the synthetic providers only; the port's
-file-fed reader is not part of it.)
+(The benchmark's copy keeps the synthetic providers here; its copy of the
+port's month-file reader, over scipy, is ``forcing_files.py``.)
 """
 
 from __future__ import annotations

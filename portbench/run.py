@@ -5,8 +5,9 @@
 
 The cell (an entry of ``workloads`` in ``BENCHMARK.json``) names a
 configuration and a traffic mix; the mix names how the program is driven
-(``portbench/drive.py``).  The run sets the program up (building its
-kernels into ``build/kernels`` and writing the inputs into
+(``portbench/drives/<entry>.py``), and the configuration its inputs
+(``portbench/sources/<kind>.py``).  The run sets the program up (building
+its kernels into ``build/kernels`` and writing the inputs into
 ``build/portbench`` on the first run in a checkout), measures for
 ``--seconds``, and with ``--trace 1`` traces one more call under the
 profiler for the per-layer metrics.  Then the plain reference follows the
@@ -23,7 +24,9 @@ prints the result once every rank has ended well.  A rank that fails ends
 them all, with no result.
 
 Needs a CUDA card: without one, or with fewer than the cell asks for, it
-exits 3 and prints no result."""
+exits 3 and prints no result.  A cell whose configuration names an input
+kind, or whose mix names a drive, that has no file exits 2 at once, with
+no result."""
 
 from __future__ import annotations
 
@@ -139,8 +142,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     from portbench import check, drive as drive_mod, trace
     cuda = device.type == "cuda"
     lead = group is None or group.rank == 0
-    drive = drive_mod.DRIVES[cell.traffic["entry"]](
-        cell.config, cell.traffic, seed, device, group=group, **sizes)
+    drive = cell.drive(seed, device, group=group, **sizes)
     drive.setup()
     drive_mod.sync(device)
     if group is not None:
@@ -174,8 +176,12 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device,
     else:
         values = dict(m, setup_s=setup_s)
         for metric in cell.end_to_end:
-            metrics[metric["name"]] = dict(value=values[metric["name"]],
-                                           unit=metric["unit"])
+            name = metric["name"]
+            # a metric with a file of its own in end_to_end/ reads the
+            # window's readings under another name
+            v = (cell.module("end_to_end", name).read(values)
+                 if cell.has("end_to_end", name) else values[name])
+            metrics[name] = dict(value=v, unit=metric["unit"])
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     if group is not None:
         peak = max(group.gather(peak))
@@ -267,7 +273,7 @@ def lead(cell, args, argv: list, script, device_of, **sizes) -> int:
     ended with 0 (``ranks.lead``)."""
     from portbench import inputs, ranks
     # every rank reads its block of these: written once, before any starts
-    inputs.files_of(cell.config, sizes.get("ncol"))
+    inputs.files_of(cell.config, cell.kinds, sizes.get("ncol"))
     port = ranks.free_port()
     cmds = [[sys.executable, str(script), *argv, "--rank", str(r),
              "--port", str(port)] for r in range(1, cell.chips)]
@@ -312,13 +318,19 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     _caches()
+    from portbench import manifest
+    try:
+        cell = manifest.Cell(manifest.load(), args.workload)
+    except manifest.Unknown as e:
+        # a configuration's input or a mix's drive that the harness has no
+        # file for: nothing runs without it
+        print(f"portbench: {args.workload}: {e}", file=sys.stderr)
+        return 2
     import torch
     if not torch.cuda.is_available():
         print("portbench: no CUDA card; the benchmark does not run on the "
               "CPU", file=sys.stderr)
         return 3
-    from portbench import manifest
-    cell = manifest.Cell(manifest.load(), args.workload)
     if torch.cuda.device_count() < cell.chips:
         print(f"portbench: {args.workload} needs {cell.chips} cards, "
               f"{torch.cuda.device_count()} present", file=sys.stderr)

@@ -26,12 +26,34 @@ def run_module():
     return mod
 
 
+# where a cell's short calls start on the CPU, where not at its own start:
+# the file-fed cell's window crosses into August, whose file it loads
+STARTS = {"global-files-windows": "1985-07-31 22:00"}
+
+
+def manifest():
+    """``BENCHMARK.json`` with the entries of ``files_cell.json`` added: the
+    file-fed cell, whose files are in place and which the manifest leaves
+    out until the program keeps its columns finite over its window."""
+    import json
+
+    from portbench import manifest as manifest_mod
+    m = manifest_mod.load()
+    extra = json.loads((pathlib.Path(__file__).parent / "files_cell.json")
+                       .read_text())
+    for key in ("configs", "workloads", "end_to_end", "per_layer"):
+        m[key] = m[key] + extra[key]
+    return m
+
+
 def small_cell(name: str, call_steps: int = 4, window: int = 2,
                compare_steps: int = 2):
-    """The manifest's cell ``name`` with short calls, for the CPU."""
-    from portbench import manifest
-    cell = manifest.Cell(manifest.load(), name)
+    """The cell ``name`` of :func:`manifest` with short calls, for the
+    CPU."""
+    from portbench import manifest as manifest_mod
+    cell = manifest_mod.Cell(manifest(), name)
     t = cell.traffic
+    t["start"] = STARTS.get(name, t["start"])
     if "window" in t:
         t.update(call_steps=call_steps, window=window)
     else:

@@ -30,7 +30,7 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
 torch.set_num_threads(1)
 
-from portbench import drive as drive_mod  # noqa: E402
+from portbench.drives.windows import WindowsDrive  # noqa: E402
 from portbench.tests import _util  # noqa: E402
 
 
@@ -39,7 +39,7 @@ def plant(fault: str) -> None:
     import elmkernels_torch.driver.step as step_mod
     import elmkernels_torch.parallel.reductions as red
     from portbench.tests.test_portbench_faults import FAULTS
-    advance, measure = step_mod.advance, drive_mod.WindowsDrive.measure
+    advance, measure = step_mod.advance, WindowsDrive.measure
     combine = red.combine
 
     def broken(*args, **kw):
@@ -58,12 +58,12 @@ def plant(fault: str) -> None:
         elif fault == "jax":
             sys.modules["jax"] = types.ModuleType("jax")
         return measure(self, seconds)
-    drive_mod.WindowsDrive.measure = faulty
+    WindowsDrive.measure = faulty
 
 
 def keep(out: pathlib.Path, rank: int) -> None:
     """Write what the drive kept before its state goes."""
-    release = drive_mod.WindowsDrive.release
+    release = WindowsDrive.release
 
     def kept(self):
         torch.save(dict(cols=torch.as_tensor(self.cols),
@@ -72,7 +72,7 @@ def keep(out: pathlib.Path, rank: int) -> None:
                                       self.conservation().items()}),
                    out / f"rank{rank}.pt")
         release(self)
-    drive_mod.WindowsDrive.release = kept
+    WindowsDrive.release = kept
 
 
 def main() -> int:

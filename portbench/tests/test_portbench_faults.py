@@ -1,8 +1,9 @@
 """``correct`` comes out false when the timed path is broken underneath:
 the harness's run (``run.run_cell``), past its look for a card, on the
-CPU at a few columns, with a fault planted in the port's step; and the
-control (the reference in float32 in the program's place) fails the
-limits the configuration's float64 holds.  The sound program passes.  A
+CPU at a few columns, with a fault planted in the port's step, or in its
+reader of month files where the cell reads them; and the control (the
+reference in float32 in the program's place) fails the limits the
+configuration's float64 holds.  The sound program passes.  A
 cell over several cards runs here in one process (its ranks:
 ``test_portbench_ranks.py``)."""
 
@@ -12,7 +13,8 @@ import torch
 from portbench.tests import _util
 
 CELLS = ["global-july-windows", "utqiagvik-spring-windows",
-         "utqiagvik-coupled", "global-1m-4chip-windows"]
+         "utqiagvik-coupled", "global-1m-4chip-windows",
+         "global-files-windows"]
 NCOL = 24
 
 
@@ -74,15 +76,46 @@ def test_a_fault_makes_it_incorrect(name, fault, planted):
     assert not res["correct"], res["checks"]
 
 
+def _august_is_july(forcing):
+    # August handed July's rows: the reader opens July's file for August
+    path = forcing.NetCDFForcing._path
+
+    def broken(self, year, month):
+        return path(self, year, 7 if (year, month) == (1985, 8) else month)
+    return "_path", broken
+
+
+def _shifted(forcing):
+    # one variable's rows shifted by one sample as they are decoded
+    import numpy as np
+    read = forcing.NetCDFForcing._read_cells
+
+    def broken(self, path, vname, f):
+        rows = read(self, path, vname, f)
+        return np.roll(rows, 1, axis=0) if vname == "TBOT" else rows
+    return "_read_cells", broken
+
+
+READER_FAULTS = {"august_is_july": _august_is_july, "shifted": _shifted}
+
+
+@pytest.mark.parametrize("fault", sorted(READER_FAULTS))
+def test_a_reader_fault_makes_it_incorrect(fault, monkeypatch):
+    import elmkernels_torch.data.forcing as forcing
+    monkeypatch.setattr(forcing.NetCDFForcing,
+                        *READER_FAULTS[fault](forcing))
+    res = _run("global-files-windows")
+    assert not res["correct"], res["checks"]
+
+
 @pytest.mark.parametrize("name", CELLS)
 def test_control_fails_the_limits(name):
     # the cell's own calls and windows, at 128 columns: the float32
     # reference in the program's place breaks a limit
-    from portbench import check, drive as drive_mod, manifest
-    cell = manifest.Cell(manifest.load(), name)
-    d = drive_mod.DRIVES[cell.traffic["entry"]](
-        cell.config, cell.traffic, 2**40 + 13, torch.device("cpu"),
-        ncol=128, compare_columns=128)
+    from portbench import check, manifest
+    cell = manifest.Cell(_util.manifest(), name)
+    d = cell.drive(2**40 + 13, torch.device("cpu"), ncol=128,
+                   compare_columns=128)
     d.setup()
     for _ in range(12 if hasattr(d, "host") else 1):
         d.measure(0.0)

@@ -23,7 +23,9 @@ def _loaded(code: str) -> set:
 def test_reference_loads_no_program_and_no_jax():
     top = _loaded(
         "from portbench.reference import columns\n"
+        "from portbench.reference.elm.data import forcing_files\n"
         "from portbench import check, inputs, synthetic\n"
+        "from portbench.sources import aerosol, forcing, phenology\n"
         "from portbench.rooflines import k2, k5")
     assert not top & FORBIDDEN
     assert "elmkernels_torch" not in top
@@ -38,6 +40,7 @@ def test_harness_loads_no_jax():
         "run = importlib.util.module_from_spec(spec)\n"
         "spec.loader.exec_module(run)\n"
         "from portbench import drive, manifest, trace, readings\n"
+        "from portbench.drives import coupled, windows\n"
         "import elmkernels_torch.driver.model, "
         "elmkernels_torch.driver.interface"
         % str(_util.ROOT / "portbench" / "run.py"))

@@ -34,14 +34,15 @@ BOUNDS = dict(k2=5e-3, k5=2e-3)
 
 CELL_OF = {"loop": "global-july-windows", "coupled": "utqiagvik-coupled",
            "grid": "global-1m-4chip-windows",
-           "shard": "global-1m-4chip-windows"}
+           "shard": "global-1m-4chip-windows",
+           "files": "global-files-windows"}
 
 
 def _read(name, rec):
     """The reader as the harness calls it, a kernel's bound of one launch
     in ``bound_ms`` where the metric names one."""
     from portbench import manifest
-    cell = manifest.Cell(manifest.load(), CELL_OF[name.rsplit(".", 1)[1]])
+    cell = manifest.Cell(_util.manifest(), CELL_OF[name.rsplit(".", 1)[1]])
     mod = cell.module("metrics", name)
     kernel = getattr(mod, "ROOFLINE", None)
     return mod.read(rec if kernel is None
@@ -94,6 +95,11 @@ def test_a_grid_over_cards_reads_as_one_card_and_its_collectives():
     for name in ("host_cpu_ms_per_step", "step_device_ms",
                  "device_idle_share"):
         assert _read(name + ".grid", rec) == _read(name + ".loop", rec)
+    # the grid's end-to-end rate under its own name: the window's rate
+    from portbench import manifest
+    cell = manifest.Cell(_util.manifest(), CELL_OF["grid"])
+    assert cell.module("end_to_end", "grid_column_steps_per_s").read(
+        dict(column_steps_per_s=3.6e7)) == 3.6e7
     assert _read("collective_ms_per_step.shard", rec) is None
     rec["device"].append(["ncclDevKernel_AllReduce_Sum_f64_RING_LL(x)",
                           80.0, 84.0])
@@ -103,6 +109,24 @@ def test_a_grid_over_cards_reads_as_one_card_and_its_collectives():
     assert not trace.device_work("nccl:all_reduce")
     assert not trace.device_work("portbench.run_windows")
     assert trace.device_work("ncclDevKernel_AllReduce_Sum_f64_RING_LL(x)")
+
+
+def test_the_file_fed_loop_reads_as_the_loop_and_its_month_load():
+    # the ".files" twins read what their ".loop" readers read; the month's
+    # load is the longest call of the untraced window over the median call
+    rec = _record()
+    for name in ("host_cpu_ms_per_step", "window_wait_ms_per_step",
+                 "step_device_ms", "device_idle_share"):
+        assert _read(name + ".files", rec) == _read(name + ".loop", rec)
+    rec["measured"]["calls_s"] = [1.5, 13.0, 1.25, 1.5, 1.75]
+    assert _read("month_load_s.files", rec) == pytest.approx(13.0 - 1.5)
+    rec["measured"]["calls_s"] = []
+    assert _read("month_load_s.files", rec) is None
+    # the end-to-end rate under its own name: the window's rate
+    from portbench import manifest
+    cell = manifest.Cell(_util.manifest(), "global-files-windows")
+    assert cell.module("end_to_end", "files_column_steps_per_s").read(
+        dict(column_steps_per_s=2.5e6)) == 2.5e6
 
 
 def test_breakdown():
@@ -131,10 +155,13 @@ def test_p95_over_every_step():
 
 
 def test_rate_over_the_whole_window():
-    class Fake(drive.WindowsDrive):
+    from portbench.drives.windows import WindowsDrive
+
+    class Fake(WindowsDrive):
         def __init__(self):
             self.ncol, self.steps_done, self.device = 1000, 0, None
-            self.call_steps = 48
+            self.call_steps, self.dtime, self.horizon = 48, 1800.0, None
+            self.start = drive._date("1985-07-01 00:00")
 
         def call(self):
             import time
@@ -153,7 +180,18 @@ def test_rate_over_the_whole_window():
     assert m["steps"] % 48 == 0 and m["steps"] >= 3 * 48
     assert m["column_steps_per_s"] == pytest.approx(
         1000 * m["steps"] / m["wall_s"])
-    assert m["wall_s"] >= 0.05
+    assert m["wall_s"] >= 0.05 and m["ended"] == "seconds"
+    # inputs that end: the window stops before a call that, with the traced
+    # call after it, would pass their end, whatever the seconds left
+    f = Fake()
+    f.device, f.start = torch.device("cpu"), drive._date("1985-11-28 00:00")
+    f.horizon = drive._date("1985-11-30 21:00")
+    m = f.measure(60.0)
+    assert m["steps"] == 48 and m["wall_s"] < 60.0
+    assert m["ended"] == "the inputs end at 1985-11-30 21:00"
+    assert m["dates"] == ["1985-11-28 00:00", "1985-11-29 00:00"]
+    with pytest.raises(ValueError, match="before the window's first call"):
+        f.measure(60.0)
 
 
 def test_a_listed_metric_that_reads_nothing_is_an_error():

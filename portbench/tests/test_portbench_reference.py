@@ -12,16 +12,14 @@ from portbench.tests import _util
 from portbench import check  # noqa: E402
 
 CELLS = ["global-july-windows", "utqiagvik-spring-windows",
-         "utqiagvik-coupled"]
+         "utqiagvik-coupled", "global-files-windows"]
 
 
 @pytest.mark.parametrize("name", CELLS)
 def test_reference_agrees_with_the_port(name):
-    from portbench import drive as drive_mod
     cell = _util.small_cell(name)
-    d = drive_mod.DRIVES[cell.traffic["entry"]](
-        cell.config, cell.traffic, 2**40 + 3, torch.device("cpu"), ncol=24,
-        compare_columns=24)
+    d = cell.drive(2**40 + 3, torch.device("cpu"), ncol=24,
+                   compare_columns=24)
     d.setup()
     d.measure(0.0)
     d.measure(0.0)

@@ -19,13 +19,14 @@ def _calls(config: str, traffic: str, ncol: int = 24, steps: int = 2):
     ``steps`` steps of the port on the CPU."""
     import elmkernels_torch.physics.canopy_fluxes as cfx
     import elmkernels_torch.physics.snow_hydrology as sh
-    from portbench import drive, inputs
+    from portbench import drive, inputs, manifest
     cfg = json.loads((_util.ROOT / "portbench" / "configs"
                       / f"{config}.json").read_text())
     tr = json.loads((_util.ROOT / "portbench" / "traffic"
                      / f"{traffic}.json").read_text())
-    files = inputs.files_of(cfg, ncol)
-    model = drive.build_model(cfg, files, ncol, torch.device("cpu"))
+    kinds = manifest.kinds_of(cfg)
+    files = inputs.files_of(cfg, kinds, ncol)
+    model = drive.build_model(cfg, files, ncol, torch.device("cpu"), kinds)
     model.state = inputs.apply_edits(
         model.state, inputs.state_edits(tr["state"], ncol, 7))
     seen = {"k2": [], "k5": []}
@@ -111,10 +112,10 @@ def test_k5_counts_match_chip_smoke(config, traffic):
 
 def test_launch_ms_from_the_traced_call():
     import numpy as np
-    from portbench import inputs
+    from portbench import inputs, manifest
     cfg = json.loads((_util.ROOT / "portbench" / "configs"
                       / "global-r05-262k.json").read_text())
-    files = inputs.files_of(cfg, 24)
+    files = inputs.files_of(cfg, manifest.kinds_of(cfg), 24)
     # two traced steps: 3 and 5 canopy passes a column, 1 ci evaluation
     diags = dict(niters_canopy_mean=np.array([3.0, 5.0]),
                  niters_ci_mean=np.array([1.0, 1.0]))
