@@ -60,25 +60,37 @@ an eager run of the same steps:
    its registers, spills, shared memory a block and resident warps), and
    the orders of PyTorch's sums over 8 species and 4 bands that K3 copies
    (:func:`reduction_order`);
+   holds ``soil_temperature`` (K7, the soil temperature module: heat
+   fluxes, the 21-row system assembled into K4's sweep, the phase changes)
+   bit for bit against ``soil_temperature_block_plain`` at 262,144 columns
+   of a July-like problem (no snow layer), a spring-like one (1-5 layers
+   over frozen soil) and a mixed one with per-column land types, in
+   float64 and float32, and against itself (a second launch, a launch
+   captured in a CUDA graph and replayed) (:func:`k7_test_phase`: K7's ms
+   against its bytes bound, the plain chain's device ms and launches;
+   its registers, spills, shared memory a block and resident warps, the
+   float64 one not spilling; the layouts of the plain chain's sums, whose
+   20-layer order :func:`reduction_order` holds);
    and times each wrapper's host side (:func:`entry_overhead`, K2's
    included);
-4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32)
-   against their plain versions bit for bit at ten column counts from 1
-   to 262,145 and on views off 16-byte alignment, and times each, its
-   plain version and ``torch.linalg.solve`` at [262144, 21, 5];
+4. holds ``pdma_solve`` (float64) and ``pdma_solve_f32`` (float32), which
+   only the sensitivity path launches now (K7 inlines the solve on the
+   others), against their plain versions bit for bit at ten column counts
+   from 1 to 262,145 and on views off 16-byte alignment, and times each,
+   its plain version and ``torch.linalg.solve`` at [262144, 21, 5];
 5. drives the main path: ``Model(ncol=262144)`` with the production flags
    through half a summer day (24 steps) with no timer installed, replayed
    and eager in turns (three pairs, each from a fresh model, every final
    state bit for bit), for ms/step after the first two steps (the eager
    first step and the capture), columns/s, the conservation contracts and
-   each kernel's launches: K2, K5 and K3 once a step, K4, and no K1 (K2
+   each kernel's launches: K2, K7, K5 and K3 once a step, and no K1 (K2
    inlines it); then 12 steps around noon
    again with each launch timed by CUDA events on the main path's own
-   inputs (:class:`MainPathTimes`), K2's and K5's first calls held
+   inputs (:class:`MainPathTimes`), K2's, K7's and K5's first calls held
    against their plain versions bit for bit; then the same model in
    float32
-   (``dtype=torch.float32``) 12 steps at noon, each K2 and
-   ``pdma_solve_f32`` launch timed and their first calls held against the
+   (``dtype=torch.float32``) 12 steps at noon, each K2, K7 and K5 launch
+   timed (no K4 in either type) and their first calls held against the
    plain versions bit for bit (errsol and errlon under 1e-3, as
    ``tests/test_f32_drift.py``), and its twin replayed over the same
    steps to the same state bit for bit;
@@ -94,8 +106,8 @@ an eager run of the same steps:
    (``ops.testing.write_snow_optics_text``) and from the same tables as
    NetCDF, 12 steps of each from 1985-07-01 12:00 by ``run_windows(
    series=True)``: tables, state and diagnostics equal bit for bit, the
-   main path's contracts, K2's (once a step) and K4's launches; then 4
-   steps of the text-optics model under :class:`MainPathTimes`, K2 and K4
+   main path's contracts, K2's and K7's launches (once a step); then 4
+   steps of the text-optics model under :class:`MainPathTimes`, K2 and K7
    held against their plain versions on the calls kept; then
    ``snicar_ad_rt`` with each flag against its half of
    ``snicar_ad_rt_both``, bit for bit, at
@@ -117,7 +129,7 @@ an eager run of the same steps:
    the unsharded final state bit for bit on every field and its global
    diagnostics the unsharded reductions (maxima exactly, means to rtol
    1e-12), each rank replaying its own captured step and equal bit for
-   bit to its eager run, with K2 and K4 launched (and, in the eager run,
+   bit to its eager run, with K2 and K7 launched (and, in the eager run,
    timed) on every rank and their
    first calls held against their plain versions; each of the three
    device loops again with the packed carry (``Model(packed_carry=True)``),
@@ -133,9 +145,9 @@ an eager run of the same steps:
    (the same state bit for bit; ms/step and the second window's beside
    the replayed run's), then one 12-step window around noon under
    :class:`MainPathTimes`, whose first K2 calls (float32, "mixed",
-   per-column traits) and first pentadiagonal solves are then held
-   against their plain versions on the same inputs (K4's also on the main
-   path's timed steps);
+   per-column traits) and first soil temperature modules (K7) are then
+   held against their plain versions on the same inputs (K7's also on the
+   main path's timed steps);
 10. landunits: the production loop's grid and flags with per-column land
    types (``synthetic.landunit_map``: ~84 % soil, 10 % crop, 5 % wetland,
    the 1 % highest-latitude columns ice sheet, half of them with
@@ -145,7 +157,7 @@ an eager run of the same steps:
    columns and mean ``t_grnd`` per class, snow layers and aged radii,
    launches), the same 48 steps eagerly from a fresh model (the same state
    bit for bit, both ms/step), then one timed 12-step window whose kept
-   K2 and K4 calls are held against their plain versions;
+   K2, K7 and K5 calls are held against their plain versions;
 11. operations, on the production loop's grid: a ``RunConfig`` builds
    the model, ``run_windows(series=True, window=24)`` runs 48 steps with a
    ``StepGuard`` checking each window, ``MetricsLogger`` lines and a
@@ -158,8 +170,9 @@ an eager run of the same steps:
    ``python -m elmkernels_torch.run_model`` runs a small JSON config;
 12. sensitivity: the global grid under the exact flags, ``run_jvp`` for 2
    steps from 1985-07-01 06:00 seeded by ``tbot`` (untimed: its ms/step
-   against the primal's, the launches of K1, K1-T and K4, and none of K2:
-   a differentiated step runs the plain canopy loop) and by
+   against the primal's, the launches of K1, K1-T and K4, and none of K2,
+   K5, K3 or K7: a differentiated step runs the plain canopy loop and the
+   plain soil temperature chain) and by
    ``watsat`` (under the timers); tangents finite; the primal unchanged by
    seeding; the ``tbot`` tangents of four fluxes against central
    differences (h = 1e-3 K, rtol 2e-3, atol 1e-4) on the columns where
@@ -196,7 +209,7 @@ an eager run of the same steps:
    (the second timed window loads August on the host thread), against the
    pre-staged
    ``run_scan_series`` windows, bit for bit (pre-staged and overlapped
-   ms/step, their ratio, host assembly cold and warm; K2's and K4's
+   ms/step, their ratio, host assembly cold and warm; K2's and K7's
    launches counted from 0 over it);
 17. prints each phase's seconds, the kernels line (``ms``, ``bound_ms`` and ``share_of_bound``
    per launch on the main path, ``prod_*`` the same on the production
@@ -211,12 +224,15 @@ an eager run of the same steps:
    entries from the sensitivity path, ``sens_noon_*`` from its noon step;
    ``refformats_*`` on the reference formats phase's text-optics model;
    ``shard_*`` per rank of the sharded runs; ``ingest_launches`` and
-   ``capacity_launches`` on the ingest path and the capacity run;
-   ``pdma_solve_f32``'s entry from the float32 path), the card line, and
-   ``{"ok": true, ...}`` last.
+   ``capacity_launches`` on the ingest path and the capacity run; K7's,
+   ``soil_temperature``, from the main path (``f32_*`` on the float32
+   path, ``test_cases`` each problem and type); K4's, ``pdma_solve``,
+   from the sensitivity path and its test problems in both types), the
+   card line, and ``{"ok": true, ...}`` last.
 
 ``python3 chip_smoke.py --k1t-profile`` runs K1-T's profile alone
-(:func:`k1t_profile_main`).
+(:func:`k1t_profile_main`); ``python3 chip_smoke.py --k7`` K7's phase and
+the reduction orders alone (:func:`k7_main`).
 
 Any failed check raises and the script exits non-zero.  Synthetic
 input files and the kernel builds go under ``build/`` in the checkout.
@@ -292,6 +308,16 @@ K5_COLUMN_FLOPS = 1600
 # the winter path runs this many steps under K5's timer after its aging
 # runs, pinned and live, and holds the kept calls against the plain block
 K5_WINTER_STEPS = 2
+# K7's test problems (ops.testing.soil_temperature_problem): the width, the
+# seed and the reps of its timing; the model paths' phases keep this many
+# of its calls (one a step) and hold them against the plain chain
+K7_NCOL, K7_SEED, K7_REPS = 262144, 2037, 20
+K7_KEPT = 2
+# K7's operations a column, counting each arithmetic operation, compare,
+# select and square root or power as one: the heat fluxes and fact (~150),
+# the 21 rows' assembly (~320) and sweep (~340), the phase changes of the
+# surface water (~60) and of the 20 layers (~600)
+K7_COLUMN_FLOPS = 1500
 # K3's test problems (ops.testing.snicar_problem, and its spring and July
 # variants): the width, the seed and the reps of its timing
 K3_NCOL, K3_SEED, K3_REPS = 262144, 2031, 20
@@ -551,27 +577,6 @@ def check_ci_on_path(kept, label: str) -> dict:
             and eq == 1.0):
         raise AssertionError(f"ci_hybrid_solve disagrees with its plain "
                              f"version on the {label}: {res}")
-    return res
-
-
-def check_pdma_on_path(kept, label: str) -> dict:
-    """pdma_solve's results on a path's own inputs (the calls a
-    MainPathTimes kept) against pdma_solve_plain on the same inputs, bit
-    for bit."""
-    import torch
-    from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
-    worst, n, equal = 0.0, 0, True
-    for (lhs, rhs), x in kept:
-        xp = pdma_solve_plain(lhs, rhs)
-        equal &= bool(torch.equal(x, xp))
-        worst = max(worst, (x - xp).abs().max().item())
-        n += lhs.shape[0]
-    res = dict(label=label, calls=len(kept), columns=n, max_abs_x=worst,
-               equal=equal)
-    phase("K4 pdma_solve vs plain on the path's inputs: " + json.dumps(res))
-    if not (kept and equal):
-        raise AssertionError(f"pdma_solve differs from its plain version "
-                             f"on the {label}: {res}")
     return res
 
 
@@ -1020,7 +1025,11 @@ def reduction_order() -> dict:
     the plain SNICAR sweep's: over 8 adjacent species ((x0 + x4) + (x2 +
     x6)) + ((x1 + x5) + (x3 + x7)); over 4 rows of [4, n] in order; over
     the 4 bands of a [4, n, 6] tensor of strides (n, 1, 4 n), (x0 + x2) +
-    (x1 + x3)."""
+    (x1 + x3).  Then the sum K7 copies (``sum20``) over contiguous [n, 20]
+    rows, as the plain soil temperature chain adds its layers (its third
+    sum, over 5 snow layers, is K5's above; K7 does not compute it, as the
+    step reads it nowhere): (((x0 + x16) + x8) + (x4 + x12)) + ... as 16
+    lanes and halving shuffles add."""
     import torch
     g = torch.Generator().manual_seed(K5_SEED)
     res = {}
@@ -1078,6 +1087,31 @@ def reduction_order() -> dict:
         raise AssertionError(f"PyTorch's sums over the 8 species or the 4 "
                              f"near-IR bands no longer add as K3 does: {k3}")
     res["k3"] = k3
+    # K7's sums over the 20 layers of contiguous [n, 20] rows (``sum20``):
+    # 16 lanes, x0 + x16 .. x3 + x19, x4 .. x15, halving shuffles
+    k7 = {}
+    for dtype in (torch.float64, torch.float32):
+        x = (torch.rand(K5_NCOL, 20, generator=g, dtype=torch.float64)
+             * 10 - 3)
+        x = torch.where(torch.rand(K5_NCOL, 20, generator=g) < 0.3, 0.0, x)
+        x = x.to(dtype).cuda()
+        c = [x[:, i] for i in range(20)]
+        a = [(c[i] + c[i + 16]) + c[i + 8] for i in range(4)]
+        a += [c[i] + c[i + 8] for i in range(4, 8)]
+        s20 = torch.sum(x, dim=1)
+        in_order = c[0]
+        for i in range(1, 20):
+            in_order = in_order + c[i]
+        k7[str(dtype).replace("torch.", "")] = dict(
+            sum20_as_k7=bool(torch.equal(
+                s20, ((a[0] + a[4]) + (a[2] + a[6]))
+                + ((a[1] + a[5]) + (a[3] + a[7])))),
+            sum20_in_order=bool(torch.equal(s20, in_order)))
+    phase("K7 reduction order: " + json.dumps(k7))
+    if not all(r["sum20_as_k7"] for r in k7.values()):
+        raise AssertionError(f"PyTorch's sum over 20 layers no longer adds "
+                             f"as K7 does: {k7}")
+    res["k7"] = k7
     return res
 
 
@@ -1419,19 +1453,261 @@ def k3_test_phase() -> dict:
     return dict(cases=cases, registers=regs)
 
 
+# ---- K7, the soil temperature module -----------------------------------------
+
+# check_k7_on_path's result on each path, by label
+K7_PATHS = {}
+
+
+def k7_timer(keep: int = 0):
+    """MainPathTimes of K7, keeping its first ``keep`` calls.  Its wrapper
+    checks ~45 tensors on the host before the launch, so its timer holds
+    the card as long as K2's."""
+    from elmkernels_torch.ops import soil_temperature
+    return MainPathTimes(soil_temperature, "soil_temperature", k7_bound,
+                         keep=keep, guard_cycles=K2_GUARD_CYCLES)
+
+
+def k7_bound(call: dict, out):
+    """(bytes ms, operations ms) of one K7 launch.  Bytes: each [ncol]
+    input read once (a 0-d one not at all), every layered input whole (one
+    row given for every column once), ``snl``, ``frac_veg_nosno`` and the
+    land mask (where per column); each output written once: the [ncol]
+    ones, fact, t, ice, liq and imelt (int64) [ncol, 20] and
+    qflx_snofrz_lyr [ncol, 5].  Operations: K7_COLUMN_FLOPS a column."""
+    from elmkernels_torch.ops import soil_temperature as k7
+    k = k7.kernel_inputs(call)
+    n, item = k.n, k.layers[0].element_size()
+    nbytes = n * sum(item for t in k.fields if t.dim())
+    nbytes += sum(t.numel() * item for t in k.layers)
+    nbytes += n * (8 + 8 * bool(k.fveg.dim()) + bool(k.scmask.dim()))
+    nbytes += n * (item * (len(k7.OUT_FIELDS) + sum(k7.LAYER_OUT.values()))
+                   + 8 * len(out.imelt[0]))
+    dtype = str(k.dtype).replace("torch.", "")
+    return (nbytes / HBM_BYTES_PER_S * 1e3,
+            n * K7_COLUMN_FLOPS / PEAK_FLOPS[dtype] * 1e3)
+
+
+def k7_compare(got, want) -> tuple:
+    """(fields of K7's result that differ from the plain chain's, largest
+    absolute difference of a floating field)."""
+    differing, worst = [], 0.0
+    for f in want._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if a.dtype != b.dtype or not same_bits(a, b):
+            differing.append(f)
+        if a.is_floating_point():
+            fin = a.isfinite() & b.isfinite()
+            if bool(fin.any()):
+                worst = max(worst, (a - b)[fin].abs().max().item())
+    return differing, worst
+
+
+def check_k7_on_path(kept, label: str) -> dict:
+    """K7's results on a path's own inputs (the calls a MainPathTimes
+    kept) against soil_temperature_block_plain on the same inputs, bit for
+    bit: every output, NaNs in the same places; a second launch on each
+    call's inputs equal to the kept result bit for bit.  Records the snow
+    layers and phase changes the calls saw."""
+    import torch
+    from elmkernels_torch.ops import soil_temperature as k7
+    from elmkernels_torch.physics.soil_temperature import \
+        soil_temperature_block_plain
+    differing, relaunch, worst, n, dtypes = set(), set(), 0.0, 0, set()
+    layered = melting = freezing = 0
+    for call, got in kept:
+        want = soil_temperature_block_plain(**call)
+        torch.cuda.synchronize()
+        diff, w = k7_compare(got, want)
+        differing.update(diff)
+        worst = max(worst, w)
+        relaunch.update(k7_compare(k7.soil_temperature(**call), got)[0])
+        dtypes.add(str(call["t_soisno"].dtype).replace("torch.", ""))
+        n += call["snl"].shape[0]
+        layered += int((call["snl"] > 0).sum())
+        melting += int((got.imelt == 1).any(dim=1).sum())
+        freezing += int((got.imelt == 2).any(dim=1).sum())
+    res = dict(label=label, calls=len(kept), columns=n,
+               dtypes=sorted(dtypes), layered_columns=layered,
+               columns_melting=melting, columns_freezing=freezing,
+               differing_fields=sorted(differing), max_abs=worst,
+               relaunch_differing_fields=sorted(relaunch))
+    phase("K7 soil_temperature vs plain on the path's inputs: "
+          + json.dumps(res))
+    K7_PATHS[label] = res
+    if not kept or differing or relaunch:
+        raise AssertionError(f"soil_temperature differs from its plain "
+                             f"version or from its own second launch on "
+                             f"the {label}: {res}")
+    return res
+
+
+def k7_registers() -> dict:
+    """K7's registers and spilled bytes a thread (``ptxas``), its dynamic
+    shared memory a block and resident warps an SM
+    (``soil_temperature.layout``), in float64 and float32; fails if the
+    float64 one spills or the launch's shared memory is not the wrapper's
+    ``shared_bytes``."""
+    import torch
+    from elmkernels_torch.ops import build
+    from elmkernels_torch.ops import soil_temperature as k7
+    report = build.ptxas_report("soil_temperature")
+    regs = {}
+    for fn, body in re.findall(r"Compiling entry function '([^']*soil_"
+                               r"temperature_kernel[^']*)'[^\n]*\n(.*?)"
+                               r"(?=Compiling|\Z)",
+                               report, re.S):
+        dtype = "float32" if re.search(r"kernelIfE", fn) else "float64"
+        r = re.search(r"Used (\d+) registers", body)
+        sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                       body)
+        st = re.search(r"(\d+) bytes stack frame", body)
+        lay = k7.layout(getattr(torch, dtype))
+        regs[dtype] = dict(
+            registers=int(r.group(1)) if r else None,
+            stack_frame=int(st.group(1)) if st else None,
+            spill_stores=int(sp.group(1)) if sp else None,
+            spill_loads=int(sp.group(2)) if sp else None,
+            local_bytes=lay["local_bytes"], shared_bytes=lay["shared_bytes"],
+            warps_per_sm=lay["blocks_per_sm"] * lay["threads"] // 32)
+        if lay["shared_bytes"] != k7.shared_bytes(getattr(torch, dtype)):
+            raise AssertionError(f"K7 {dtype}: {lay['shared_bytes']} B of "
+                                 f"shared memory a block, the wrapper says "
+                                 f"{k7.shared_bytes(getattr(torch, dtype))}")
+    phase("K7 soil_temperature_kernel registers, spills, shared memory and "
+          "resident warps an SM: " + json.dumps(regs))
+    if sorted(regs) != ["float32", "float64"]:
+        raise AssertionError(f"ptxas reported {sorted(regs)} of K7's 2 "
+                             f"kernels: {report[-2000:]}")
+    f64 = regs["float64"]
+    if f64["spill_stores"] or f64["spill_loads"]:
+        raise AssertionError(f"K7 spills in float64: {f64}")
+    return regs
+
+
+def k7_graph_replay(args) -> list:
+    """One K7 call captured in a CUDA graph and replayed: the fields that
+    differ from an eager call's on the same inputs (none expected)."""
+    import torch
+    from elmkernels_torch.ops import soil_temperature as k7
+    eager = k7.soil_temperature(**args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k7.soil_temperature(**args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k7.soil_temperature(**args)
+    graph.replay()
+    torch.cuda.synchronize()
+    differing, _ = k7_compare(captured, eager)
+    del graph
+    return differing
+
+
+def k7_sums(args) -> list:
+    """The layouts of the tensors torch.sum adds inside the plain chain on
+    ``args`` (torch.sum hooked): [shape, strides, dim]."""
+    import torch
+    from elmkernels_torch.physics.soil_temperature import \
+        soil_temperature_block_plain
+    seen, orig = [], torch.sum
+
+    def hook(x, *a, **kw):
+        seen.append([list(x.shape), list(x.stride()), kw.get("dim", a)])
+        return orig(x, *a, **kw)
+    torch.sum = hook
+    try:
+        soil_temperature_block_plain(**args)
+    finally:
+        torch.sum = orig
+    return seen
+
+
+def k7_test_phase() -> dict:
+    """K7 against soil_temperature_block_plain at K7_NCOL columns of
+    ``ops.testing.soil_temperature_problem``'s July-like problem (no snow
+    layer, soil above freezing on most columns), spring-like one (1-5 snow
+    layers over frozen soil everywhere) and its mixed one with per-column
+    land types (the landunits path's masks), in float64 and float32, bit
+    for bit, and against itself (a second launch, a launch captured in a
+    CUDA graph and replayed); K7's device ms a launch (CUDA events, each
+    launch after a guard that hides the wrapper's host side:
+    :func:`guarded_ms`) against its bytes bound, the plain chain's device
+    ms and launches (torch.profiler); K7's registers, spills and resident
+    warps (:func:`k7_registers`); the layouts of the plain chain's sums
+    over the layers, which K7's ``sum20`` copies (:func:`reduction_order`
+    holds their order)."""
+    import torch
+    from elmkernels_torch.ops import soil_temperature as k7
+    from elmkernels_torch.ops import testing
+    from elmkernels_torch.physics.soil_temperature import \
+        soil_temperature_block_plain
+    regs = k7_registers()
+    cases, sums = [], None
+    for kind, land in (("july", "soil"), ("spring", "soil"),
+                       ("mixed", "column")):
+        for dtype in (torch.float64, torch.float32):
+            args = testing.soil_temperature_problem(K7_NCOL, K7_SEED, dtype,
+                                                    land, kind, "cuda")
+            got = k7.soil_temperature(**args)
+            want = soil_temperature_block_plain(**args)
+            torch.cuda.synchronize()
+            differing, worst = k7_compare(got, want)
+            again, _ = k7_compare(k7.soil_temperature(**args), got)
+            res = dict(problem=kind, land=land,
+                       dtype=str(dtype).replace("torch.", ""),
+                       differing_fields=differing,
+                       relaunch_differing_fields=again,
+                       graph_differing_fields=k7_graph_replay(args),
+                       max_abs=worst,
+                       layered_columns=int((args["snl"] > 0).sum()),
+                       imelt_counts=torch.bincount(
+                           got.imelt.flatten(), minlength=3).tolist())
+            res["ms"] = guarded_ms(lambda: k7.soil_temperature(**args),
+                                   K7_REPS, K2_GUARD_CYCLES)
+            t_bytes, t_ops = k7_bound(args, got)
+            res["bound_ms"] = max(t_bytes, t_ops)
+            res["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+            res["share_of_bound"] = res["bound_ms"] / res["ms"]
+            res["plain_device_ms"], res["plain_launches"] = device_ms(
+                lambda: soil_temperature_block_plain(**args))
+            if sums is None:
+                sums = k7_sums(args)
+            phase("K7 soil_temperature vs plain: " + json.dumps(res))
+            if differing or again or res["graph_differing_fields"]:
+                raise AssertionError(f"soil_temperature differs from its "
+                                     f"plain version or from itself: {res}")
+            cases.append(res)
+            del args, got, want
+    phase("K7 the plain chain's sums (shape, strides, dim): "
+          + json.dumps(sums))
+    n20, n5 = [K7_NCOL, 20], [K7_NCOL, 5]
+    if sums != [[n20, [20, 1], 1], [n20, [20, 1], 1], [n5, [5, 1], 1]]:
+        raise AssertionError(f"the plain chain's sums are no longer over "
+                             f"contiguous [n, 20] and [n, 5] rows, whose "
+                             f"order reduction_order holds: {sums}")
+    return dict(cases=cases, registers=regs, sums=sums)
+
+
 def k5_winter(model, start, label: str, kernels: dict) -> dict:
     """K5_WINTER_STEPS more steps of a winter model (live snow layers)
-    from ``start`` under K5's timer, its calls held against the plain
-    block (:func:`check_k5_on_path`)."""
-    t5 = k5_timer(keep=K5_WINTER_STEPS)
-    with t5:
+    from ``start`` under K5's and K7's timers, their calls held against
+    the plain block and chain (:func:`check_k5_on_path`,
+    :func:`check_k7_on_path`)."""
+    t5, t7 = k5_timer(keep=K5_WINTER_STEPS), k7_timer(keep=K5_WINTER_STEPS)
+    with t5, t7:
         reset(kernels)
         model.run(start, K5_WINTER_STEPS)
         counts(kernels, label, steps=K5_WINTER_STEPS)
     res = check_k5_on_path(t5.kept, label)
     if not res["layered_columns_in"]:
         raise AssertionError(f"{label}: no snow layers reached K5")
-    return dict(res, on_path=t5.summary())
+    k7 = check_k7_on_path(t7.kept, label)
+    if not k7["layered_columns"]:
+        raise AssertionError(f"{label}: no snow layers reached K7")
+    return dict(res, on_path=t5.summary(), k7=k7, k7_on_path=t7.summary())
 
 
 class K2ModeSpy:
@@ -1577,7 +1853,7 @@ def reset(kernels: dict) -> None:
 def counts(kernels: dict, label: str, steps: int | None = None) -> dict:
     """Each kernel's launches since ``reset``; fails if one of them was
     not launched, or, where K2 runs the canopy loop, if K1 (inlined in it)
-    was, and, given the run's ``steps``, unless K2, K5 and K3 (where
+    was, and, given the run's ``steps``, unless K2, K7, K5 and K3 (where
     counted) launched once a step."""
     launches = {name: fn.launches for name, fn in kernels.items()}
     for name, count in launches.items():
@@ -1589,7 +1865,8 @@ def counts(kernels: dict, label: str, steps: int | None = None) -> dict:
         elif count == 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"{label}")
-    for name in ("canopy_stability", "snow_hydrology", "snicar"):
+    for name in ("canopy_stability", "soil_temperature", "snow_hydrology",
+                 "snicar"):
         if (steps is not None and name in launches
                 and launches[name] != steps):
             raise AssertionError(f"{name} launched {launches} times in "
@@ -1732,10 +2009,11 @@ def main_path(files, kernels: dict):
     return first[0], first[1], res
 
 
-def timed_summaries(t2, t4, t5, launches: dict, label: str) -> dict:
-    """Per-launch times of a timed run; every launch of K2, K4 and K5 must
+def timed_summaries(t2, t7, t5, launches: dict, label: str) -> dict:
+    """Per-launch times of a timed run; every launch of K2, K7 and K5 must
     have been timed."""
-    on_path = {"canopy_stability": t2.summary(), "pdma_solve": t4.summary(),
+    on_path = {"canopy_stability": t2.summary(),
+               "soil_temperature": t7.summary(),
                "snow_hydrology": t5.summary()}
     phase(f"kernels on the {label}: " + json.dumps(on_path))
     for name, count in launches.items():
@@ -1762,19 +2040,14 @@ def k1_timer(keep: int = 0):
                          lambda a, out: ci_bound(*a), ci_layout, keep=keep)
 
 
-def timers(keep: int = 0, keep_pdma: int = 0, f32_pdma: bool = False):
-    """MainPathTimes of K2, K4 (``pdma_solve_f32`` with ``f32_pdma``) and
-    K5, for ``with``; they keep the inputs and results of their first
-    ``keep`` (K2 and K5) and ``keep_pdma`` calls."""
-    from elmkernels_torch.ops import canopy, pdma
-    name, dtype = (("pdma_solve_f32", "float32") if f32_pdma
-                   else ("pdma_solve", "float64"))
+def timers(keep: int = 0, keep_k7: int = 0):
+    """MainPathTimes of K2, K7 and K5, for ``with``; they keep the inputs
+    and results of their first ``keep`` (K2 and K5) and ``keep_k7``
+    calls."""
+    from elmkernels_torch.ops import canopy
     return (MainPathTimes(canopy, "canopy_stability", k2_bound, k2_layout,
                           keep=keep, guard_cycles=K2_GUARD_CYCLES),
-            MainPathTimes(pdma, name,
-                          lambda a, out: pdma_bound(a[0].shape[0], dtype),
-                          keep=keep_pdma),
-            k5_timer(keep))
+            k7_timer(keep_k7), k5_timer(keep))
 
 
 # the sharded phase: the loops phase's run_windows, its oracle saved here;
@@ -1817,9 +2090,6 @@ PROD_NCOL = 262144
 # 48 steps in 24-step windows (cut from 96 in 48 to keep the script near
 # 600 s)
 PROD_STEPS, PROD_WINDOW = 48, 24
-# K4 is held against its plain version on the production loop's own
-# inputs of this many calls (a step's each); K2 of K2_KEPT
-PDMA_KEPT = 2
 # the winter path runs this many steps further, pinned and aging
 WINTER_STEPS, WINTER_MORE = 700, 48
 # the reference formats phase: the main path's model on the SnowOptics
@@ -2094,15 +2364,15 @@ def production_loop(files, inputs: dict, kernels: dict):
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 7, 3)
     noon.increment_seconds(18 * int(m.dtime))
-    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4, t5:
+    t2, t7, t5 = timers(keep=K2_KEPT, keep_k7=K7_KEPT)
+    with t2, t7, t5:
         reset(kernels)
         m.run_windows(noon, 12, window=12, series=True)
         timed = counts(kernels, "production loop, timed", steps=12)
-    on_prod = timed_summaries(t2, t4, t5, timed, "production loop")
+    on_prod = timed_summaries(t2, t7, t5, timed, "production loop")
     check_k2_on_path(t2.kept, "production loop")
     check_k5_on_path(t5.kept, "production loop")
-    check_pdma_on_path(t4.kept, "production loop")
+    check_k7_on_path(t7.kept, "production loop")
     return res, launches, on_prod
 
 
@@ -2183,7 +2453,7 @@ def reference_formats(files, snowy_state, kernels: dict) -> dict:
     ``run_windows(series=True)``, held equal bit for bit (tables, state,
     diagnostics) under the main path's contracts, with the kernels'
     launches counted from 0 over the text-optics run; then
-    REFFORMATS_TIMED steps of it under the timers, K2 and K4 held against
+    REFFORMATS_TIMED steps of it under the timers, K2 and K7 held against
     their plain versions on the calls kept; then ``snicar_ad_rt`` with
     each flag against its half of ``snicar_ad_rt_both``, bit for bit, at
     the same width on seeded snow of 0-5 layers and on ``snowy_state``
@@ -2246,17 +2516,17 @@ def reference_formats(files, snowy_state, kernels: dict) -> dict:
 
     later = start.copy()
     later.increment_seconds(REFFORMATS_STEPS * int(mt.dtime))
-    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4, t5:
+    t2, t7, t5 = timers(keep=K2_KEPT, keep_k7=K7_KEPT)
+    with t2, t7, t5:
         reset(kernels)
         mt.run_windows(later, REFFORMATS_TIMED, window=REFFORMATS_TIMED,
                        series=True)
         timed = counts(kernels, "reference formats, timed",
                        steps=REFFORMATS_TIMED)
-    on_path = timed_summaries(t2, t4, t5, timed, "reference formats")
+    on_path = timed_summaries(t2, t7, t5, timed, "reference formats")
     res["k2"] = check_k2_on_path(t2.kept, "reference formats")
-    res["k4"] = check_pdma_on_path(t4.kept, "reference formats")
-    del t2, t4, t5
+    res["k7"] = check_k7_on_path(t7.kept, "reference formats")
+    del t2, t7, t5
 
     # the single-flag sweeps against the stacked one, on the text optics
     seeded = testing.snicar_problem(REFFORMATS_NCOL, 11)
@@ -2397,8 +2667,8 @@ class ColumnLedger:
 def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     """Phase 10: the production loop's grid with per-column land types and
     live snow aging, LAND_STEPS from 1985-01-01 with no timer installed,
-    then one 12-step window under the timers, whose kept K2 and K4 calls
-    are held against their plain versions."""
+    then one 12-step window under the timers, whose kept K2, K7 and K5
+    calls are held against their plain versions."""
     import torch
     from elmkernels_torch import constants as c
     from elmkernels_torch.data import synthetic
@@ -2492,15 +2762,15 @@ def landunits(files, inputs: dict, kernels: dict, prod_ms: float):
     # one 12-step window around noon of the third day, each launch timed
     noon = Date.from_ymd(1985, 1, 3)
     noon.increment_seconds(18 * int(m.dtime))
-    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4, t5:
+    t2, t7, t5 = timers(keep=K2_KEPT, keep_k7=K7_KEPT)
+    with t2, t7, t5:
         reset(kernels)
         m.run_windows(noon, 12, window=12, series=True)
         timed = counts(kernels, "landunits, timed", steps=12)
-    on_land = timed_summaries(t2, t4, t5, timed, "landunits")
+    on_land = timed_summaries(t2, t7, t5, timed, "landunits")
     check_k2_on_path(t2.kept, "landunits")
     check_k5_on_path(t5.kept, "landunits")
-    check_pdma_on_path(t4.kept, "landunits")
+    check_k7_on_path(t7.kept, "landunits")
     return res, launches, on_land
 
 
@@ -3097,10 +3367,12 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
     canopy loop is K2) against the differentiated runs' (the plain loop);
     K1, K1-T and K4's tangent rule against their plain versions on the
     path's own inputs.  A differentiated step runs the plain loop, so K2
-    must not launch under run_jvp, and K1 and K1-T must."""
+    must not launch under run_jvp, and K1 and K1-T must; it runs the plain
+    soil temperature chain, so K7 must not launch, and K4 must."""
     import torch
     from elmkernels_torch.driver import sensitivity as sens
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
+    from elmkernels_torch.ops import (canopy, ci_solver, pdma, snicar, snow,
+                                      soil_temperature)
     from elmkernels_torch.physics import photosynthesis as psn
     from elmkernels_torch.physics.soil_temperature import pdma_solve_plain
     m, start, forc, phen = sens_model(files, inputs)
@@ -3109,7 +3381,8 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
                "ci_hybrid_solve_jvp": ci_solver.ci_hybrid_solve_jvp,
                "pdma_solve": pdma.pdma_solve,
                "snow_hydrology": snow.snow_hydrology,
-               "snicar": snicar.snicar}
+               "snicar": snicar.snicar,
+               "soil_temperature": soil_temperature.soil_temperature}
 
     def timed(fn):
         torch.cuda.synchronize()
@@ -3125,11 +3398,11 @@ def sensitivity(files, inputs: dict, k1t_ctx: dict) -> dict:
         forc_stack=forc, phen_stack=phen))
     launches = {k: fn.launches for k, fn in kernels.items()}
     if (launches["canopy_stability"] or launches["snow_hydrology"]
-            or launches["snicar"]
+            or launches["snicar"] or launches["soil_temperature"]
             or not all(launches[k] for k in (
                 "ci_hybrid_solve", "ci_hybrid_solve_jvp", "pdma_solve"))):
         raise AssertionError(f"on the sensitivity path K1, K1-T and K4 "
-                             f"must launch and K2, K5 and K3 must not: "
+                             f"must launch and K2, K5, K3 and K7 must not: "
                              f"{launches}")
 
     t1 = k1_timer(SENS_CI_KEPT)
@@ -3310,9 +3583,10 @@ def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
     if not (launches and profiles and res["bit_for_bit"] and primal_finite
             and max(res["enabled_share"]) > 0
             and not all_launches.get("canopy_stability")
-            and not all_launches.get("snow_hydrology")):
+            and not all_launches.get("snow_hydrology")
+            and not all_launches.get("soil_temperature")):
         raise AssertionError(f"K1-T at noon: not launched, no enabled leaf, "
-                             f"K2 or K5 launched, or disagrees with its "
+                             f"K2, K5 or K7 launched, or disagrees with its "
                              f"plain version: {res}")
     return dict(res=res, on_path=on_path, launches=launches,
                 profiles=profiles, k1_on_path=k1_on_path,
@@ -3321,20 +3595,22 @@ def sens_noon(m, kernels: dict, k1t_ctx: dict) -> dict:
 
 def float32_path(files) -> dict:
     """The main path's model in float32 (the JAX package's all-float32
-    mode), 12 steps around noon with each K2, K4 and K5 launch timed (the
-    float32 instantiations, ``pdma_solve_f32``) and their first calls held
+    mode), 12 steps around noon with each K2, K7 and K5 launch timed (the
+    float32 instantiations; K4, neither ``pdma_solve`` nor
+    ``pdma_solve_f32``, must not launch) and their first calls held
     against the plain versions in float32 bit for bit; the contracts of
     test_f32_drift.py."""
     import torch
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
+    from elmkernels_torch.ops import (canopy, ci_solver, pdma, snicar, snow,
+                                      soil_temperature)
     from elmkernels_torch.utils.dates import Date
     m = Model(ncol=F32_NCOL, pft_path=str(files[0]),
               snicar_path=str(files[1]), dtype=torch.float32)
     start = Date.from_ymd(1985, 7, 1)
     start.increment_seconds(18 * int(m.dtime))
     kernels = {"canopy_stability": canopy.canopy_stability,
-               "pdma_solve_f32": pdma.pdma_solve_f32,
+               "soil_temperature": soil_temperature.soil_temperature,
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                "snow_hydrology": snow.snow_hydrology,
                "snicar": snicar.snicar}
@@ -3351,32 +3627,35 @@ def float32_path(files) -> dict:
                     launches=counts(kernels, "float32 path, replayed",
                                     steps=F32_STEPS),
                     graph=graph_info(twin))
-    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT, f32_pdma=True)
+    t2, t7, t5 = timers(keep=K2_KEPT, keep_k7=K7_KEPT)
     worst = {"errsol": 0.0, "errlon": 0.0}
 
     def cb(date, state, d):
         for k in worst:
             worst[k] = max(worst[k], getattr(d, k).abs().max().item())
 
-    with t2, t4, t5:
+    with t2, t7, t5:
         reset(kernels)
-        pdma.pdma_solve.launches = 0
+        pdma.pdma_solve.launches = pdma.pdma_solve_f32.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m.run(start, F32_STEPS, cb)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = counts(kernels, "float32 path", steps=F32_STEPS)
-    on_path = t4.summary()
+        # (before the checks below, whose plain chains launch K4)
+        k4_launches = [pdma.pdma_solve.launches,
+                       pdma.pdma_solve_f32.launches]
+    on_path = t7.summary()
     on_path_k2 = t2.summary()
     on_path_k5 = t5.summary()
     k2 = check_k2_on_path(t2.kept, "float32 path")
     k5 = check_k5_on_path(t5.kept, "float32 path")
-    k4 = check_pdma_on_path(t4.kept, "float32 path")
+    k7 = check_k7_on_path(t7.kept, "float32 path")
     res = dict(label="float32 path", ncol=F32_NCOL, steps=F32_STEPS,
                dtype=str(m.state.t_grnd.dtype), wall_s=wall,
                ms_per_step_under_timers=wall / F32_STEPS * 1e3,
-               launches=launches, float64_k4_launches=pdma.pdma_solve.launches,
+               launches=launches, k4_launches=k4_launches,
                finite=finite(m.state), on_path=on_path,
                on_path_k2=on_path_k2, on_path_k5=on_path_k5, replayed=dict(
                    replayed, ms_per_step=replayed["wall_s"] / F32_STEPS * 1e3,
@@ -3388,12 +3667,12 @@ def float32_path(files) -> dict:
                              "its eager run: "
                              f"{res['replayed']['state_fields_differing']}")
     if not (res["finite"] and res["dtype"] == "torch.float32"
-            and launches["pdma_solve_f32"] == F32_STEPS
-            and pdma.pdma_solve.launches == 0
+            and launches["soil_temperature"] == F32_STEPS
+            and res["k4_launches"] == [0, 0]
             and max(worst.values()) < F32_ERR_BOUND):
         raise AssertionError(f"the float32 path failed: {res}")
     return dict(res=res, on_path=on_path, on_path_k2=on_path_k2,
-                on_path_k5=on_path_k5, k2=k2, k4=k4, k5=k5,
+                on_path_k5=on_path_k5, k2=k2, k7=k7, k5=k5,
                 launches=launches)
 
 
@@ -3432,8 +3711,8 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     """One rank of the sharded phase (``chip_smoke.py --shard-rank``): its
     block of the loops phase's grid on this rank's card, from the
     unsharded initial state cut by ``shard_state``, the loops phase's
-    ``run_windows(series=True)`` with each K2 and K4 launch timed and the
-    first ones kept; writes its block, the global diagnostics, launches,
+    ``run_windows(series=True)`` with each K2, K7 and K5 launch timed and
+    the first ones kept; writes its block, the global diagnostics, launches,
     times and its kernels' checks to SHARD_DIR."""
     import torch
     import torch.distributed as dist
@@ -3441,7 +3720,8 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     from elmkernels_torch import parallel
     from elmkernels_torch.data.state import ModelState
     from elmkernels_torch.driver.model import Model
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
+    from elmkernels_torch.ops import (canopy, ci_solver, snicar, snow,
+                                      soil_temperature)
     from elmkernels_torch.utils.dates import Date
     spec = json.loads((SHARD_DIR / "spec.json").read_text())
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
@@ -3462,7 +3742,7 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
                              window=LOOPS_WINDOW, series=True)
 
     kernels = {"canopy_stability": canopy.canopy_stability,
-               "pdma_solve": pdma.pdma_solve,
+               "soil_temperature": soil_temperature.soil_temperature,
                "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                "snow_hydrology": snow.snow_hydrology,
                "snicar": snicar.snicar}
@@ -3477,21 +3757,21 @@ def shard_rank(rank: int, nranks: int, port: int, backend: str,
     launches = counts(kernels, label, steps=LOOPS_STEPS)
     # the same run, eager under the timers (which disable the graphs)
     eager = model()
-    t2, t4, t5 = timers(keep=1, keep_pdma=1)
-    with t2, t4, t5:
+    t2, t7, t5 = timers(keep=1, keep_k7=1)
+    with t2, t7, t5:
         reset(kernels)
         d_eager = run(eager)
         timed = counts(kernels, f"{label}, eager", steps=LOOPS_STEPS)
-    on_path = timed_summaries(t2, t4, t5, timed, label)
+    on_path = timed_summaries(t2, t7, t5, timed, label)
     k2 = check_k2_on_path(t2.kept, label)
-    k4 = check_pdma_on_path(t4.kept, label)
+    k7 = check_k7_on_path(t7.kept, label)
     torch.save(dict(
         lo=mesh.lo, hi=mesh.hi, device=str(mesh.device), wall_s=wall,
         state={k: v.cpu() for k, v in m.state._asdict().items()},
         diags={k: v.cpu() for k, v in d._asdict().items()},
         eager_differing=same_state(m.state, eager.state)
         + same_state(d, d_eager), graph=graph_info(m),
-        launches=launches, on_path=on_path, k2=k2, k4=k4),
+        launches=launches, on_path=on_path, k2=k2, k7=k7),
         SHARD_DIR / f"{backend}_rank{rank}.pt")
     dist.barrier()
     dist.destroy_process_group()
@@ -3504,7 +3784,7 @@ def sharded_loops(files, loops: dict) -> dict:
     (NCCL refuses two ranks on one card), each a subprocess.  Every rank's
     block must equal the unsharded run's final state bit for bit on every
     field, its global diagnostics the unsharded reductions (maxima
-    exactly, means to rtol 1e-12), and K2 and K4 must have launched on it
+    exactly, means to rtol 1e-12), and K2 and K7 must have launched on it
     and agree with their plain versions on its first calls."""
     import torch
     (SHARD_DIR / "spec.json").write_text(json.dumps(dict(
@@ -3547,7 +3827,7 @@ def sharded_loops(files, loops: dict) -> dict:
                 graph=got["graph"], eager_differing=got["eager_differing"],
                 on_path=got["on_path"],
                 k2_differing_fields=got["k2"]["differing_fields"],
-                k4_equal=got["k4"]["equal"],
+                k7_differing_fields=got["k7"]["differing_fields"],
                 state_fields_differing=state_diff,
                 diagnostics_differing=diag_diff))
         res = dict(backend=backend, ranks=nranks, packed_carry=packed,
@@ -3559,7 +3839,8 @@ def sharded_loops(files, loops: dict) -> dict:
                 r["state_fields_differing"] or r["diagnostics_differing"]
                 or r["eager_differing"]
                 or not (r["launches"]["canopy_stability"]
-                        and r["launches"]["pdma_solve"]) for r in ranks):
+                        and r["launches"]["soil_temperature"])
+                for r in ranks):
             raise AssertionError(f"sharded {backend} run differs from the "
                                  f"unsharded one: {res}")
         out[backend] = res
@@ -3569,8 +3850,8 @@ def sharded_loops(files, loops: dict) -> dict:
 def entry_twins(card: str) -> dict:
     """The bench twin, ``python -m elmkernels_torch.bench`` (BENCH_RUNS), as
     a user runs it, one run at a time, alone on the card.  Each bench line
-    is printed beside the card line; the float32 bench's K4 launches are
-    ``pdma_solve_f32``'s."""
+    is printed beside the card line; the float32 bench's K7 launches are
+    float32's, and neither K4 launches."""
     import os
     res = {"bench": []}
     for knobs in BENCH_RUNS:
@@ -3594,8 +3875,9 @@ def entry_twins(card: str) -> dict:
               + json.dumps(notes))
         res["bench"].append(rec)
     f32 = res["bench"][-1]["launches"]
-    if not (f32["pdma_solve_f32"] and not f32["pdma_solve"]):
-        raise AssertionError(f"the float32 bench did not run K4 in float32: "
+    if not (f32["soil_temperature"] and not f32["pdma_solve_f32"]
+            and not f32["pdma_solve"]):
+        raise AssertionError(f"the float32 bench did not run K7 alone: "
                              f"{f32}")
     return res
 
@@ -3708,7 +3990,7 @@ def ingest(kernels: dict) -> dict:
     native reader phase's month files): ``run_windows(series=True)`` from
     the files, prefetching the next month, against the pre-staged
     ``run_scan_series`` windows, bit for bit; this slice's full-width
-    path, its K2 and K4 launches counted from 0 over it."""
+    path, its K2 and K7 launches counted from 0 over it."""
     from elmkernels_torch.tools import ingest_bench
     reset(kernels)
     rec = ingest_bench.bench_files(INGEST_NCOL, INGEST_WINDOW, INGEST_NWIN,
@@ -3763,7 +4045,7 @@ def capacity() -> dict:
     if not (last["errsol_max"] <= last["errsol_bound"]
             and last["errh2o_led_max"] < GLOBAL_LEDGER_BOUND
             and all(last["launches"].get(k) for k in ("canopy_stability",
-                                                      "pdma_solve"))
+                                                      "soil_temperature"))
             and last["launches"].get("ci_hybrid_solve") == 0):
         raise AssertionError(f"capacity run broke a contract: {last}")
     return dict(runs=runs, fits_ncol=last["ncol"])
@@ -3924,7 +4206,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from elmkernels_torch.ops import (build, canopy, ci_solver, pdma, snicar,
-                                      snow)
+                                      snow, soil_temperature)
 
     t_script = time.perf_counter()
     laps, t_lap = {}, [t_script]
@@ -3973,6 +4255,7 @@ def main() -> int:
     k2_test = k2_test_phase()
     k5_test = k5_test_phase()
     k3_test = k3_test_phase()
+    k7_test = k7_test_phase()
     k4 = check_pdma(262144)
     k4f = check_pdma(262144, torch.float32)
     overhead = entry_overhead()
@@ -3981,9 +4264,10 @@ def main() -> int:
     files = synthetic_files()
 
     # the main paths' kernels: K2 runs the canopy loop once a step (its ci
-    # solves inlined: K1 must not launch there) and K4 the soil column
+    # solves inlined: K1 must not launch there), K7 the soil temperature
+    # module (K4's solve inlined)
     wrappers = {"canopy_stability": canopy.canopy_stability,
-                "pdma_solve": pdma.pdma_solve,
+                "soil_temperature": soil_temperature.soil_temperature,
                 "ci_hybrid_solve": ci_solver.ci_hybrid_solve,
                 "snow_hydrology": snow.snow_hydrology,
                 "snicar": snicar.snicar}
@@ -3991,15 +4275,15 @@ def main() -> int:
     # times per launch from 12 steps around noon under the timers
     main_run, launches, main_pairs = main_path(files, wrappers)
     lap("main path")
-    t2, t4, t5 = timers(keep=K2_KEPT, keep_pdma=PDMA_KEPT)
-    with t2, t4, t5:
+    t2, t7, t5 = timers(keep=K2_KEPT, keep_k7=K7_KEPT)
+    with t2, t7, t5:
         _, timed, _ = drive(262144, 7, 12, files, "main path, timed",
                             wrappers, start_step=18)
-    on_path = timed_summaries(t2, t4, t5, timed, "main path")
+    on_path = timed_summaries(t2, t7, t5, timed, "main path")
     k2_path = check_k2_on_path(t2.kept, "main path")
-    k4_path = check_pdma_on_path(t4.kept, "main path")
+    check_k7_on_path(t7.kept, "main path")
     check_k5_on_path(t5.kept, "main path")
-    del t2, t4, t5
+    del t2, t7, t5
     lap("main path, timed")
     f32 = float32_path(files)
     lap("float32 path")
@@ -4071,6 +4355,8 @@ def main() -> int:
     k2t = next(c for c in k2_test["cases"] if c["mode"] == "mixed"
                and c["dtype"] == "float32" and c["warm_start"])
     f32_k2 = f32["on_path_k2"]
+    k7t = next(c for c in k7_test["cases"] if c["dtype"] == "float64"
+               and c["problem"] == "july")
     k5t = next(c for c in k5_test["cases"] if c["dtype"] == "float64"
                and c["aging"] == "pinned" and not c["aero_0d"])
     k1s, k1n = on_sens["ci_hybrid_solve"], sens["noon"]["k1_on_path"]
@@ -4186,40 +4472,55 @@ def main() -> int:
              refformats_launches=refformats["text"]["launches"]["snicar"],
              f32_launches=f32["launches"]["snicar"],
              sens_launches=sens_launches["snicar"]),
-        dict(name="pdma_solve", route="cuda",
-             source="elmkernels_torch/csrc/pdma_solve.cu",
-             replaces="elmkernels_tpu/physics/soil_temperature.py:282",
-             max_abs_err=max(k4["max_abs_x"], k4_path["max_abs_x"]),
-             library_ms=k4["library_ms"],
-             sens_launches=sens_launches["pdma_solve"],
-             sens_ms=on_sens["pdma_solve"]["ms"],
-             sens_bound_ms=on_sens["pdma_solve"]["bound_ms"],
-             sens_share_of_bound=on_sens["pdma_solve"]["share_of_bound"],
-             sens_tangent_max_rel=sens["res"]["k4_tangent"][
-                 "max_rel_tangent"],
-             **numbers("pdma_solve", k4)),
+        # K7 runs the soil temperature module once a step on every model
+        # path (float64; float32 on the float32 path); its test-problem
+        # numbers are the July-like problem's in float64
+        dict(name="soil_temperature", route="cuda",
+             source="elmkernels_torch/csrc/soil_temperature.cu",
+             replaces="elmkernels_tpu/driver/step.py:588",
+             max_abs_err=max([c["max_abs"] for c in k7_test["cases"]]
+                             + [r["max_abs"] for r in K7_PATHS.values()]),
+             library_ms=None, plain_device_ms=k7t["plain_device_ms"],
+             plain_launches=k7t["plain_launches"],
+             registers_and_spills=k7_test["registers"],
+             test_cases=[{k: c[k] for k in (
+                 "problem", "land", "dtype", "ms", "bound_ms",
+                 "share_of_bound", "plain_device_ms", "imelt_counts")}
+                 for c in k7_test["cases"]],
+             f32_launches=f32["launches"]["soil_temperature"],
+             f32_ms=f32["on_path"]["ms"],
+             f32_share_of_bound=f32["on_path"]["share_of_bound"],
+             sens_launches=sens_launches["soil_temperature"],
+             **numbers("soil_temperature", dict(
+                 plain_ms=k7t["plain_device_ms"], test_ms=k7t["ms"],
+                 test_bound_ms=k7t["bound_ms"],
+                 test_share_of_bound=k7t["share_of_bound"]))),
     ]
     # the full-width path from month files (ingest) and the capacity
-    # probe's run launch K2 and K4 (and no K1)
+    # probe's run launch K2, K5, K3 and K7 (and no K1)
     for k in kernels:
         k.update(ingest_launches=ing["launches"][k["name"]],
                  capacity_ncol=cap["fits_ncol"],
                  capacity_launches=cap["runs"][-1]["launches"][k["name"]])
-    # K4 in float32 runs on the float32 path (and the float32 bench): its
-    # launches and per-launch times are that path's
-    t = f32["on_path"]
+    # K4 runs only on the sensitivity path (K7 inlines its solve on the
+    # others): its launches and per-launch times are that path's; its test
+    # problems in float64 and float32
     kernels.append(dict(
-        name="pdma_solve_f32", route="cuda",
+        name="pdma_solve", route="cuda",
         source="elmkernels_torch/csrc/pdma_solve.cu",
         replaces="elmkernels_tpu/physics/soil_temperature.py:282",
-        launches=f32["launches"]["pdma_solve_f32"],
-        max_abs_err=max(k4f["max_abs_x"], f32["k4"]["max_abs_x"]),
-        ms=t["ms"], bound_ms=t["bound_ms"], bound_by=t["bound_by"],
-        share_of_bound=t["share_of_bound"], plain_ms=k4f["plain_ms"],
-        library_ms=k4f["library_ms"], test_ms=k4f["test_ms"],
-        test_bound_ms=k4f["test_bound_ms"],
-        test_share_of_bound=k4f["test_share_of_bound"],
-        bench_launches=twins["bench"][-1]["launches"]["pdma_solve_f32"]))
+        launches=sens_launches["pdma_solve"], max_abs_err=k4["max_abs_x"],
+        ms=on_sens["pdma_solve"]["ms"],
+        bound_ms=on_sens["pdma_solve"]["bound_ms"],
+        bound_by=on_sens["pdma_solve"]["bound_by"],
+        share_of_bound=on_sens["pdma_solve"]["share_of_bound"],
+        plain_ms=k4["plain_ms"], library_ms=k4["library_ms"],
+        test_ms=k4["test_ms"], test_bound_ms=k4["test_bound_ms"],
+        test_share_of_bound=k4["test_share_of_bound"],
+        sens_launches=sens_launches["pdma_solve"],
+        sens_tangent_max_rel=sens["res"]["k4_tangent"]["max_rel_tangent"],
+        f32_test_ms=k4f["test_ms"], f32_max_abs_err=k4f["max_abs_x"],
+        f32_launches=f32["res"]["k4_launches"]))
     # K1-T runs only on the sensitivity path: its launches and times are
     # that path's
     k1t, t = sens["res"]["k1t"], on_sens["ci_hybrid_solve_jvp"]
@@ -4259,9 +4560,25 @@ def main() -> int:
     return 0
 
 
+def k7_main() -> int:
+    """``chip_smoke.py --k7``: K7's phase alone (:func:`k7_test_phase`) and
+    the reduction orders the kernels copy (:func:`reduction_order`)."""
+    import torch
+    sys.path.insert(0, str(REPO))
+    from elmkernels_torch.ops import build
+    phase(f"device: {torch.cuda.get_device_name(0)}; card: {card_line()}")
+    phase("build: " + json.dumps(build.build(["soil_temperature"])))
+    reduction_order()
+    res = k7_test_phase()
+    print(json.dumps({"k7": res}))
+    return 0
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--k1t-profile"]:
         sys.exit(k1t_profile_main())
+    if sys.argv[1:2] == ["--k7"]:
+        sys.exit(k7_main())
     if sys.argv[1:2] == ["--shard-rank"]:
         rank, nranks, port = (int(a) for a in sys.argv[2:5])
         sys.exit(shard_rank(rank, nranks, port, sys.argv[5],

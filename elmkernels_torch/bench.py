@@ -92,6 +92,7 @@ def main() -> int:
     from elmkernels_torch.data import synthetic
     from elmkernels_torch.driver.model import Model
     from elmkernels_torch.ops import canopy, ci_solver, pdma, snow
+    from elmkernels_torch.ops.soil_temperature import soil_temperature as k7
     from elmkernels_torch.ops.snicar import snicar as k3
     from elmkernels_torch.utils.dates import Date
     from elmkernels_torch.utils.guard import errsol_bound
@@ -134,7 +135,7 @@ def main() -> int:
     stamps, errsol = [], []
     kernels = (canopy.canopy_stability, ci_solver.ci_hybrid_solve,
                pdma.pdma_solve, pdma.pdma_solve_f32, snow.snow_hydrology,
-               k3)
+               k3, k7)
     for k in kernels:
         k.launches = 0
     if dev.type == "cuda":

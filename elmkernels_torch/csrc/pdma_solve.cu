@@ -63,6 +63,8 @@
 
 #include <cstdint>
 
+#include "pdma_row.cuh"
+
 namespace {
 
 constexpr int kRows = 21;
@@ -137,52 +139,41 @@ __device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
 }
 
 // One column in shared memory: d [21][5] bands, r [21] right-hand side.
-// On return r holds x; d's bands 0 and 1 hold B and A.
+// On return r holds x; d's bands 0 and 1 hold B and A.  The recurrence is
+// pdma_row.cuh's, which K7 sweeps too.
 template <typename T>
 __device__ __forceinline__ void solve_column(T* d, T* r) {
-  T U = T(1) / d[2];
-  T a2 = d[1] * U;  // A[i-2], B[i-2], Z[i-2] as i advances
-  T b2 = d[0] * U;
-  T z2 = r[0] * U;
-  d[1] = a2;
-  d[0] = b2;
-  r[0] = z2;
+  PdmaAbz<T> p2 = pdma_row0(d[0], d[1], d[2], r[0]);  // row i - 2
+  d[1] = p2.a;
+  d[0] = p2.b;
+  r[0] = p2.z;
 
-  T Y = d[kBands + 3];
-  U = T(1) / (d[kBands + 2] - a2 * Y);
-  T a1 = (d[kBands + 1] - b2 * Y) * U;  // A[i-1], B[i-1], Z[i-1]
-  T b1 = d[kBands + 0] * U;
-  T z1 = (r[1] - z2 * Y) * U;
-  d[kBands + 1] = a1;
-  d[kBands + 0] = b1;
-  r[1] = z1;
+  PdmaAbz<T> p1 = pdma_row1(d[kBands + 0], d[kBands + 1], d[kBands + 2],
+                            d[kBands + 3], r[1], p2);  // row i - 1
+  d[kBands + 1] = p1.a;
+  d[kBands + 0] = p1.b;
+  r[1] = p1.z;
 
 #pragma unroll
   for (int i = 2; i < kRows; ++i) {
     T* di = d + i * kBands;
-    Y = di[3] - a2 * di[4];
-    U = T(1) / (di[2] - b2 * di[4] - a1 * Y);
-    const T a = (di[1] - b1 * Y) * U;
-    const T b = di[0] * U;
-    const T z = (r[i] - z2 * di[4] - z1 * Y) * U;
-    di[1] = a;
-    di[0] = b;
-    r[i] = z;
-    a2 = a1;
-    a1 = a;
-    b2 = b1;
-    b1 = b;
-    z2 = z1;
-    z1 = z;
+    const PdmaAbz<T> p = pdma_row(di[0], di[1], di[2], di[3], di[4], r[i],
+                                  p2, p1);
+    di[1] = p.a;
+    di[0] = p.b;
+    r[i] = p.z;
+    p2 = p1;
+    p1 = p;
   }
 
   // x[20] = Z[20] (already in r[20]); x[19] = Z[19] - A[19] x[20]
-  T xp2 = z1;
-  T xp1 = z2 - a2 * xp2;
+  T xp2 = p1.z;
+  T xp1 = pdma_back1(p2, xp2);
   r[kRows - 2] = xp1;
 #pragma unroll
   for (int i = kRows - 3; i >= 0; --i) {
-    const T xi = r[i] - d[i * kBands + 1] * xp1 - d[i * kBands] * xp2;
+    const T xi = pdma_back(PdmaAbz<T>{d[i * kBands + 1], d[i * kBands], r[i]},
+                           xp1, xp2);
     r[i] = xi;
     xp2 = xp1;
     xp1 = xi;

@@ -57,7 +57,8 @@ import traceback
 import torch
 from torch.overrides import TorchFunctionMode
 
-from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
+from elmkernels_torch.ops import (canopy, ci_solver, pdma, snicar, snow,
+                                  soil_temperature)
 from elmkernels_torch.utils.packing import template_of
 
 __all__ = ["disable_graphs", "uses_graphs", "key_of",
@@ -74,7 +75,7 @@ GRAPH = None
 COUNTED = ((canopy, "canopy_stability"), (pdma, "pdma_solve"),
            (pdma, "pdma_solve_f32"), (ci_solver, "ci_hybrid_solve"),
            (ci_solver, "ci_hybrid_solve_jvp"), (snow, "snow_hydrology"),
-           (snicar, "snicar"))
+           (snicar, "snicar"), (soil_temperature, "soil_temperature"))
 
 
 @contextlib.contextmanager

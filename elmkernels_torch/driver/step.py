@@ -524,58 +524,26 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
     cf_stab, cf_cf = fl.cf_stab, fl.cf_cf
     veg_active = torch.ones_like(s.snl, dtype=torch.bool)
 
-    # ---- soil_temperature (7-stage chain) ----
+    # ---- soil_temperature: K7 on the card ----
     props = sth.thermal_properties(land, snl, frac_sno, frac_h2osfc,
                                    h2osno, h2osfc, h2osoi_liq, h2osoi_ice,
                                    t_soisno, dz, z, zi, p.watsat, p.tkmg,
                                    p.tkdry, p.csol)
-    snotop = c.NLEVSNO - snl
-    sabg_lyr_top = take_layer(sfo.sabg_lyr, snotop)
-    t_top_sno = take_layer(t_soisno, snotop)
-    sabg_chk = stp.check_absorbed_solar(frac_sno_eff, tot.sabg_snow,
-                                        tot.sabg_soil)
-    hs_soil = stp.calc_surface_heat_flux(
-        frac_veg_nosno, cf_cf.dlrad, gp.emg, forc_lwrad, gp.htvp,
-        tot.sabg_soil, t_soisno[:, c.NLEVSNO], cf_cf.eflx_sh_soil,
-        cf_cf.qflx_ev_soil)
-    hs_h2osfc = stp.calc_surface_heat_flux(
-        frac_veg_nosno, cf_cf.dlrad, gp.emg, forc_lwrad, gp.htvp,
-        tot.sabg_soil, s.t_h2osfc, cf_cf.eflx_sh_h2osfc,
-        cf_cf.qflx_ev_h2osfc)
-    hs_top_snow = stp.calc_surface_heat_flux(
-        frac_veg_nosno, cf_cf.dlrad, gp.emg, forc_lwrad, gp.htvp,
-        sabg_lyr_top, t_top_sno, cf_cf.eflx_sh_snow, cf_cf.qflx_ev_snow)
-    dhsdT = stp.calc_dhsdT(cf_cf.cgrnd, gp.emg, t_grnd)
-
-    fn = stp.calc_diffusive_heat_flux(snl, props.tk, t_soisno, z)
-    fact = stp.calc_heat_flux_matrix_factor(snl, dtime, props.cv, dz, z, zi)
-    lhs, rhs = stp._assemble_system(
-        snl, dtime, dhsdT, frac_sno_eff, frac_h2osfc, props.dz_h2osfc,
-        props.c_h2osfc, props.tk_h2osfc, z, fact, props.tk, hs_top_snow,
-        hs_soil, hs_h2osfc, t_soisno, s.t_h2osfc, fn, sfo.sabg_lyr)
-    tvec = stp.pdma_solve(lhs, rhs)
-    upd = stp.update_temperature(snl, frac_h2osfc, tvec, t_soisno)
-
-    pc1 = stp.phase_change_h2osfc(
-        snl, dtime, frac_sno, frac_h2osfc, dhsdT, props.c_h2osfc,
-        fact[:, c.NLEVSNO - 1], upd.t_h2osfc, h2osfc, h2osno, int_snow,
-        snow_depth, h2osoi_ice[:, c.NLEVSNO - 1],
-        upd.t_soisno[:, c.NLEVSNO - 1])
-    ice_a = h2osoi_ice.clone()
-    ice_a[:, c.NLEVSNO - 1] = pc1.h2osoi_ice_sl1
-    t_a = upd.t_soisno.clone()
-    t_a[:, c.NLEVSNO - 1] = pc1.t_soisno_sl1
-    pc2 = stp.phase_change_soisno(
-        land, snl, dtime, dhsdT, frac_h2osfc, frac_sno_eff, fact, p.watsat,
-        p.sucsat, p.bsw, dz, pc1.h2osno, pc1.snow_depth, ice_a, h2osoi_liq,
-        t_a)
-    t_soisno = pc2.t_soisno
-    h2osoi_ice, h2osoi_liq = pc2.h2osoi_ice, pc2.h2osoi_liq
-    h2osno, snow_depth = pc2.h2osno, pc2.snow_depth
-    h2osfc, int_snow = pc1.h2osfc, pc1.int_snow
-    t_h2osfc = pc1.t_h2osfc
-    t_grnd = stp.update_t_grnd(snl, frac_h2osfc, frac_sno_eff, t_h2osfc,
-                               t_soisno)
+    st = stp.soil_temperature_block(
+        land, dtime, snl, frac_veg_nosno, frac_sno_eff, frac_sno,
+        frac_h2osfc, h2osfc, h2osno, int_snow, snow_depth, t_grnd,
+        s.t_h2osfc, tot.sabg_snow, tot.sabg_soil, sfo.sabg_lyr, cf_cf.dlrad,
+        gp.emg, forc_lwrad, gp.htvp, cf_cf.eflx_sh_soil, cf_cf.qflx_ev_soil,
+        cf_cf.eflx_sh_h2osfc, cf_cf.qflx_ev_h2osfc, cf_cf.eflx_sh_snow,
+        cf_cf.qflx_ev_snow, cf_cf.cgrnd, t_soisno, h2osoi_liq, h2osoi_ice,
+        dz, z, zi, props.tk, props.cv, props.dz_h2osfc, props.c_h2osfc,
+        props.tk_h2osfc, p.watsat, p.sucsat, p.bsw)
+    sabg_chk, fact = st.sabg_chk, st.fact
+    t_soisno = st.t_soisno
+    h2osoi_ice, h2osoi_liq = st.h2osoi_ice, st.h2osoi_liq
+    h2osno, snow_depth = st.h2osno, st.snow_depth
+    h2osfc, int_snow = st.h2osfc, st.int_snow
+    t_h2osfc, t_grnd = st.t_h2osfc, st.t_grnd
 
     # ---- snow_hydrology ----
     snl_sw, fse_sw = snl, frac_sno_eff  # inputs snow_water acts with
@@ -593,10 +561,10 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
         land, dtime, do_capsnow, snl, frac_sno_eff, frac_sno, h2osno,
         snow_depth, int_snow, s.qflx_sub_snow, s.qflx_evap_grnd,
         s.qflx_dew_snow, s.qflx_dew_grnd, gf.qflx_rain_grnd,
-        pc2.qflx_snomelt, pc2.qflx_snow_melt, h2osoi_liq, h2osoi_ice,
-        t_soisno, dz, z, zi, s.mss, aero_in, p.n_melt, pc2.imelt,
+        st.qflx_snomelt, st.qflx_snow_melt, h2osoi_liq, h2osoi_ice,
+        t_soisno, dz, z, zi, s.mss, aero_in, p.n_melt, st.imelt,
         sfo.swe_old, sfo.frac_iceold, sfo.snw_rds, gf.qflx_snwcp_ice,
-        gf.qflx_snow_grnd, pc2.qflx_snofrz_lyr, p.snowage_tau,
+        gf.qflx_snow_grnd, st.qflx_snofrz_lyr, p.snowage_tau,
         p.snowage_kappa, p.snowage_drdt0,
         elm_correct_snow_aging=elm_correct_snow_aging)
     mss2, cnc, snw_rds = sb.mss, sb.cnc, sb.snw_rds
@@ -633,9 +601,9 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
         tssbef_soitop, frac_h2osfc, t_h2osfc_bef, t_grnd, cf_cf.ulrad,
         gp.emg)
     errsoi = sf.soil_energy_balance(
-        land, snl, sfu.eflx_soil_grnd, pc2.xmf, pc1.xmf_h2osfc,
+        land, snl, sfu.eflx_soil_grnd, st.xmf, st.xmf_h2osfc,
         frac_h2osfc, t_h2osfc, t_h2osfc_bef, dtime,
-        pc1.eflx_h2osfc_to_snow, frac_sno_eff, t_soisno, tssbef, fact)
+        st.eflx_h2osfc_to_snow, frac_sno_eff, t_soisno, tssbef, fact)
 
     # ---- conservation ----
     endwb = ce.column_water_mass_tracked(fl.h2ocan, h2osno, h2osfc,
@@ -647,7 +615,7 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
         snl, sfu.qflx_dew_snow, sfu.qflx_dew_grnd, sfu.qflx_sub_snow,
         sfu.qflx_evap_grnd, qflx_snow_melt, sfu.qflx_snwcp_ice,
         sfu.qflx_snwcp_liq, sb.qflx_sl_top_soil, frac_sno_eff,
-        gf.qflx_rain_grnd, gf.qflx_snow_grnd, pc1.qflx_h2osfc_to_ice,
+        gf.qflx_rain_grnd, gf.qflx_snow_grnd, st.qflx_h2osfc_to_ice,
         h2osno, sfo.h2osno_old, dtime, do_capsnow)
     # the snow balance re-timed to the fluxes snow_water applied: the
     # PREVIOUS step's partition weighted by the pre-hydrology fse_sw, and
@@ -656,7 +624,7 @@ def column_phase(land: c.LandType, params: ModelParams, state: ModelState,
         snl, s.qflx_dew_snow, s.qflx_dew_grnd, s.qflx_sub_snow,
         s.qflx_evap_grnd, qflx_snow_melt, gf.qflx_snwcp_ice,
         gf.qflx_snwcp_liq, sb.qflx_sl_top_soil, fse_sw,
-        gf.qflx_rain_grnd, gf.qflx_snow_grnd, pc1.qflx_h2osfc_to_ice,
+        gf.qflx_rain_grnd, gf.qflx_snow_grnd, st.qflx_h2osfc_to_ice,
         h2osno, sfo.h2osno_old, dtime, do_capsnow)
     # the negative-liquid walk's pack export is a source term
     errh2osno_app = errh2osno_app + torch.where(

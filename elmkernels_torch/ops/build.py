@@ -29,13 +29,15 @@ SOURCES = {"ci_hybrid_solve": "ci_hybrid_solve.cu",
            "pdma_solve": "pdma_solve.cu",
            "canopy_stability": "canopy_stability.cu",
            "snow_hydrology": "snow_hydrology.cu",
-           "snow_snicar": "snow_snicar.cu"}
+           "snow_snicar": "snow_snicar.cu",
+           "soil_temperature": "soil_temperature.cu"}
 # device code a kernel's library links in, compiled with --fmad=true:
 # canopy_pow.cu and snow_math.cu hold pow, snicar_math.cu log10, as
 # PyTorch's kernels, built so, compute them
 CONTRACTED = {"canopy_stability": "canopy_pow.cu",
               "snow_hydrology": "snow_math.cu",
-              "snow_snicar": "snicar_math.cu"}
+              "snow_snicar": "snicar_math.cu",
+              "soil_temperature": "snow_math.cu"}
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 # --fmad=false: no contracted multiply-adds, so each kernel repeats its
 # plain version's arithmetic operation by operation

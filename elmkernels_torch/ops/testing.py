@@ -535,3 +535,140 @@ def snow_columns_interleaved(args: dict) -> dict:
     land = args["land"]
     out["land"] = dataclasses.replace(land, ltype=take(land.ltype))
     return dict(args, **out)
+
+
+def soil_temperature_problem(n: int, seed: int, dtype=torch.float64,
+                             land: str = "column", kind: str = "mixed",
+                             device="cpu") -> dict:
+    """Seeded arguments of ``physics.soil_temperature.
+    soil_temperature_block`` for ``n`` columns (by name), made in float64
+    and cast to ``dtype``.
+
+    Columns hold 0-5 snow layers over 15 soil layers with a mesh built from
+    the thicknesses; temperatures sit on both sides of freezing, in snow
+    and soil, with ice and liquid in every layer (some soil layers with
+    less liquid than the supercooled water they may hold, some with less
+    water in all), and the surface fluxes are large enough that layers
+    melt, freeze and stay.  Standing surface water covers half the columns
+    (``frac_h2osfc`` 0 on the others), cold on most of them, some of it too
+    shallow to freeze only in part; a quarter of the layerless columns
+    carry a thin pack (``h2osno > 0``) over soil that melts it; a tenth of
+    the columns have a ground heat-flux derivative so large (``cgrnd`` far
+    below 0) that the phase change's round-off guard cancels it.  Inactive
+    snow positions hold stale values, which the module carries as the step
+    does.  ``land`` is "column" (an [n] land-type tensor among soil, crop,
+    ice sheet, wetland and urban), "soil" (one soil land type: the
+    supercooled water everywhere) or "ice" (one ice-sheet type: none).
+    ``kind`` "july" gives no column snow layers and soil above freezing but
+    for a tenth of the columns (a summer noon's global grid), "spring"
+    1-5 snow layers on every column over frozen soil (a high-latitude
+    spring's snowpack)."""
+    rng = np.random.default_rng(seed)
+    u = rng.uniform
+    ns, nt, ng = c.NLEVSNO, c.NLEVTOT, c.NLEVGRND
+    snl = {"mixed": lambda: rng.integers(0, ns + 1, n),
+           "july": lambda: np.zeros(n, np.int64),
+           "spring": lambda: rng.integers(1, ns + 1, n)}[kind]()
+    top = ns - snl
+    pos = np.arange(nt)[None, :]
+    act = (pos >= top[:, None]) & (pos < ns)
+    soil = pos >= ns
+    dz = np.where(act, u(0.01, 0.15, (n, nt)), 0.0)
+    dz = np.where(soil, u(0.015, 0.06, (n, nt)) * 1.45 ** (pos - ns), dz)
+    stale = ~act & ~soil & (u(0, 1, (n, nt)) < 0.3)
+    dz = np.where(stale, u(0.01, 0.1, (n, nt)), dz)
+    zi = np.zeros((n, nt + 1))
+    zi[:, ns + 1:] = np.cumsum(dz[:, ns:], axis=1)
+    for i in range(ns - 1, -1, -1):
+        zi[:, i] = np.where(act[:, i], zi[:, i + 1] - dz[:, i], 0.0)
+    z = np.where(act | soil, 0.5 * (zi[:, :-1] + zi[:, 1:]), 0.0)
+    z = np.where(stale, u(-0.5, 0.0, (n, nt)), z)
+    tfrz = c.TFRZ
+    cold = u(0, 1, n) < 0.5
+    t = np.where(cold[:, None], u(tfrz - 12.0, tfrz + 0.5, (n, nt)),
+                 u(tfrz - 2.0, tfrz + 8.0, (n, nt)))
+    if kind == "july":
+        t = np.where(soil & (u(0, 1, n) < 0.9)[:, None],
+                     u(tfrz + 2.0, tfrz + 25.0, (n, nt)), t)
+    elif kind == "spring":
+        t = np.where(soil, u(tfrz - 10.0, tfrz - 0.5, (n, nt)), t)
+    t = np.where(act, np.minimum(t, tfrz + 0.3), t)
+    t = np.where(act | soil | stale, t, 0.0)
+    ice = np.where(act, u(0.5, 40.0, (n, nt)), u(0.0, 60.0, (n, nt)))
+    liq = np.where(act, np.where(u(0, 1, (n, nt)) < 0.5, 0.0,
+                                 u(0.0, 4.0, (n, nt))),
+                   u(0.0, 80.0, (n, nt)))
+    # soil water below the supercooled amount, and soil nearly dry
+    dry = soil & (u(0, 1, (n, nt)) < 0.15)
+    liq = np.where(dry, u(0.0, 0.5, (n, nt)), liq)
+    ice = np.where(soil & (u(0, 1, (n, nt)) < 0.05), u(0.0, 0.05, (n, nt)),
+                   ice)
+    ice = np.where(act | soil | stale, ice, 0.0)
+    liq = np.where(act | soil | stale, liq, 0.0)
+    tk = np.where(act | soil, u(0.05, 2.5, (n, nt)), 0.0)
+    cv = np.where(act, u(2e3, 6e4, (n, nt)),
+                  np.where(soil, u(5e4, 4e5, (n, nt)), 0.0))
+    cv = np.where(act | soil, cv, np.where(stale, 1e4, 0.0))
+    fse = np.where(snl > 0, u(0.3, 1.0, n), np.where(
+        u(0, 1, n) < 0.5, 0.0, u(0.0, 0.6, n)))
+    frac_sno = np.where(u(0, 1, n) < 0.5, fse, u(0.0, 1.0, n))
+    h2osno = np.sum(np.where(act, ice + liq, 0.0), axis=1)
+    thin = (snl == 0) & (u(0, 1, n) < 0.25)
+    h2osno = np.where(thin, u(0.01, 5.0, n), h2osno)
+    # the thin packs lie on soil that melts them
+    t[:, ns] = np.where(thin, u(tfrz + 0.5, tfrz + 6.0, n), t[:, ns])
+    snow_depth = np.where(snl > 0, np.sum(np.where(act, dz, 0.0), 1),
+                          h2osno / 250.0)
+    int_snow = np.maximum(h2osno, 0.0) * u(1.0, 2.0, n)
+    wet = u(0, 1, n) < 0.5
+    fh = np.where(wet, u(0.02, 0.6, n), 0.0)
+    h2osfc = np.where(wet, np.where(u(0, 1, n) < 0.4, u(0.0, 0.3, n),
+                                    u(0.3, 60.0, n)), 0.0)
+    t_h2osfc = np.where(u(0, 1, n) < 0.7, u(tfrz - 8.0, tfrz, n),
+                        u(tfrz, tfrz + 6.0, n))
+    dz_h2osfc = np.where(wet, 1e-3 * h2osfc / np.maximum(fh, 1e-3), 0.0)
+    c_h2osfc = np.where(wet, c.CPWAT * h2osfc, 0.0)
+    tk_h2osfc = np.where(wet, u(0.4, 0.7, n), 0.0)
+    emg = u(0.95, 0.99, n)
+    htvp = np.where(u(0, 1, n) < 0.5, c.HVAP, c.HSUB)
+    cgrnd = np.where(u(0, 1, n) < 0.1, u(-400.0, -150.0, n),
+                     u(0.0, 60.0, n))
+
+    def flux(lo, hi):
+        return u(lo, hi, n)
+    watsat = u(0.3, 0.55, (n, ng))
+    sucsat = u(10.0, 600.0, (n, ng))
+    bsw = u(2.5, 12.0, (n, ng))
+    if land == "column":
+        types = np.array([c.ISTSOIL, c.ISTCROP, c.ISTICE, c.ISTWET,
+                          c.ISTURB_MIN])
+        ltype = torch.tensor(types[rng.integers(0, types.size, n)],
+                             dtype=torch.int64, device=device)
+    else:
+        ltype = {"soil": c.ISTSOIL, "ice": c.ISTICE}[land]
+
+    def f(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=dtype,
+                            device=device)
+    return dict(
+        land=c.LandType(ltype=ltype), dtime=1800.0,
+        snl=torch.tensor(snl, dtype=torch.int64, device=device),
+        frac_veg_nosno=torch.tensor(u(0, 1, n) < 0.5, dtype=torch.int64,
+                                    device=device),
+        frac_sno_eff=f(fse), frac_sno=f(frac_sno), frac_h2osfc=f(fh),
+        h2osfc=f(h2osfc), h2osno=f(h2osno), int_snow=f(int_snow),
+        snow_depth=f(snow_depth), t_grnd=f(u(tfrz - 15.0, tfrz + 15.0, n)),
+        t_h2osfc=f(t_h2osfc), sabg_snow=f(flux(0.0, 500.0)),
+        sabg_soil=f(flux(0.0, 600.0)),
+        sabg_lyr=f(u(0.0, 120.0, (n, ns + 1))), dlrad=f(flux(150.0, 350.0)),
+        emg=f(emg), forc_lwrad=f(flux(180.0, 420.0)), htvp=f(htvp),
+        eflx_sh_soil=f(flux(-80.0, 200.0)),
+        qflx_ev_soil=f(flux(-2e-5, 1.5e-4)),
+        eflx_sh_h2osfc=f(flux(-80.0, 200.0)),
+        qflx_ev_h2osfc=f(flux(-2e-5, 1.5e-4)),
+        eflx_sh_snow=f(flux(-80.0, 200.0)),
+        qflx_ev_snow=f(flux(-2e-5, 1.5e-4)), cgrnd=f(cgrnd),
+        t_soisno=f(t), h2osoi_liq=f(liq), h2osoi_ice=f(ice), dz=f(dz),
+        z=f(z), zi=f(zi), tk=f(tk), cv=f(cv), dz_h2osfc=f(dz_h2osfc),
+        c_h2osfc=f(c_h2osfc), tk_h2osfc=f(tk_h2osfc), watsat=f(watsat),
+        sucsat=f(sucsat), bsw=f(bsw))

@@ -12,6 +12,11 @@ are identity rows (diag 1, rhs 0), so one recurrence from row 0 reproduces
 the reference's variable-start solve.  :func:`pdma_solve` runs the
 ``pdma_solve`` CUDA kernel (one thread per column) for tensors on the
 card and :func:`pdma_solve_plain` for tensors on the CPU.
+
+:func:`soil_temperature_block` is the whole module as the step runs it
+after ``soil_thermal.thermal_properties``: K7 (``ops.soil_temperature``,
+one CUDA kernel) on the card, :func:`soil_temperature_block_plain` (the
+chain of the functions below) otherwise.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from elmkernels_torch import constants as c
+from elmkernels_torch.ops import tangents
 from elmkernels_torch.physics.math_utils import (levels, rdiv, safe_div,
                                                  take_layer)
 
@@ -600,3 +606,134 @@ def phase_change_soisno(land: c.LandType, snl, dtime, dhsdT, frac_h2osfc,
         qflx_snomelt=qflx_snomelt, eflx_snomelt=eflx_snomelt, imelt=imelt,
         qflx_snofrz_lyr=qflx_snofrz_lyr, h2osoi_ice=ice_new,
         h2osoi_liq=liq_new, t_soisno=t_soisno)
+
+
+class SoilTemperatureOut(NamedTuple):
+    """What the step reads of the module after the solve and the phase
+    changes: the absorbed-solar check, dhsdT and fact; the phase changes'
+    fluxes; the new temperatures, water and snow."""
+    sabg_chk: torch.Tensor
+    dhsdT: torch.Tensor
+    fact: torch.Tensor               # [ncol, NLEVTOT]
+    t_soisno: torch.Tensor           # [ncol, NLEVTOT]
+    h2osoi_ice: torch.Tensor         # [ncol, NLEVTOT]
+    h2osoi_liq: torch.Tensor         # [ncol, NLEVTOT]
+    t_h2osfc: torch.Tensor
+    t_grnd: torch.Tensor
+    h2osfc: torch.Tensor
+    int_snow: torch.Tensor
+    h2osno: torch.Tensor
+    snow_depth: torch.Tensor
+    xmf_h2osfc: torch.Tensor
+    qflx_h2osfc_to_ice: torch.Tensor
+    eflx_h2osfc_to_snow: torch.Tensor
+    xmf: torch.Tensor
+    qflx_snomelt: torch.Tensor
+    qflx_snow_melt: torch.Tensor
+    imelt: torch.Tensor              # [ncol, NLEVTOT] int64
+    qflx_snofrz_lyr: torch.Tensor    # [ncol, NLEVSNO]
+
+
+def soil_temperature_block(land: c.LandType, dtime, snl, frac_veg_nosno,
+                           frac_sno_eff, frac_sno, frac_h2osfc, h2osfc,
+                           h2osno, int_snow, snow_depth, t_grnd, t_h2osfc,
+                           sabg_snow, sabg_soil, sabg_lyr, dlrad, emg,
+                           forc_lwrad, htvp, eflx_sh_soil, qflx_ev_soil,
+                           eflx_sh_h2osfc, qflx_ev_h2osfc, eflx_sh_snow,
+                           qflx_ev_snow, cgrnd, t_soisno, h2osoi_liq,
+                           h2osoi_ice, dz, z, zi, tk, cv, dz_h2osfc,
+                           c_h2osfc, tk_h2osfc, watsat, sucsat,
+                           bsw) -> SoilTemperatureOut:
+    """The soil temperature module of the step, from the surface heat
+    fluxes to the ground temperature (the JAX package's ``driver/step.py``
+    588-637 after ``thermal_properties``): K7
+    (``ops.soil_temperature.soil_temperature``) for CUDA tensors of which
+    none carries a tangent, :func:`soil_temperature_block_plain`
+    otherwise.  A failed build or launch of K7 raises."""
+    args = dict(locals())
+    if uses_kernel(args):
+        from elmkernels_torch.ops.soil_temperature import soil_temperature
+        return soil_temperature(**args)
+    return soil_temperature_block_plain(**args)
+
+
+def uses_kernel(args: dict) -> bool:
+    """Whether a call of :func:`soil_temperature_block` with these
+    arguments (by name) runs K7: its tensors are on the card and none of
+    them is differentiated (``torch.func.jvp``, forward AD or autograd)."""
+    return (_on_card(args["t_soisno"])
+            and not any(tangents.carries_tangent(t)
+                        for t in args.values()
+                        if isinstance(t, torch.Tensor)))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def soil_temperature_block_plain(land: c.LandType, dtime, snl,
+                                 frac_veg_nosno, frac_sno_eff, frac_sno,
+                                 frac_h2osfc, h2osfc, h2osno, int_snow,
+                                 snow_depth, t_grnd, t_h2osfc, sabg_snow,
+                                 sabg_soil, sabg_lyr, dlrad, emg, forc_lwrad,
+                                 htvp, eflx_sh_soil, qflx_ev_soil,
+                                 eflx_sh_h2osfc, qflx_ev_h2osfc,
+                                 eflx_sh_snow, qflx_ev_snow, cgrnd, t_soisno,
+                                 h2osoi_liq, h2osoi_ice, dz, z, zi, tk, cv,
+                                 dz_h2osfc, c_h2osfc, tk_h2osfc, watsat,
+                                 sucsat, bsw) -> SoilTemperatureOut:
+    """The module as the chain of its functions, in the step's order:
+    the surface heat fluxes and dhsdT, the diffusive flux and the matrix
+    factor, the system and its solve (:func:`pdma_solve`: K4 through
+    ``ops.pdma.PdmaSolve`` on the card, whose tangent rule the sensitivity
+    path runs), the new temperatures, the two phase changes and the ground
+    temperature."""
+    nsno = c.NLEVSNO
+    snotop = nsno - snl
+    sabg_lyr_top = take_layer(sabg_lyr, snotop)
+    t_top_sno = take_layer(t_soisno, snotop)
+    sabg_chk = check_absorbed_solar(frac_sno_eff, sabg_snow, sabg_soil)
+    hs_soil = calc_surface_heat_flux(
+        frac_veg_nosno, dlrad, emg, forc_lwrad, htvp, sabg_soil,
+        t_soisno[:, nsno], eflx_sh_soil, qflx_ev_soil)
+    hs_h2osfc = calc_surface_heat_flux(
+        frac_veg_nosno, dlrad, emg, forc_lwrad, htvp, sabg_soil, t_h2osfc,
+        eflx_sh_h2osfc, qflx_ev_h2osfc)
+    hs_top_snow = calc_surface_heat_flux(
+        frac_veg_nosno, dlrad, emg, forc_lwrad, htvp, sabg_lyr_top,
+        t_top_sno, eflx_sh_snow, qflx_ev_snow)
+    dhsdT = calc_dhsdT(cgrnd, emg, t_grnd)
+
+    fn = calc_diffusive_heat_flux(snl, tk, t_soisno, z)
+    fact = calc_heat_flux_matrix_factor(snl, dtime, cv, dz, z, zi)
+    lhs, rhs = _assemble_system(
+        snl, dtime, dhsdT, frac_sno_eff, frac_h2osfc, dz_h2osfc, c_h2osfc,
+        tk_h2osfc, z, fact, tk, hs_top_snow, hs_soil, hs_h2osfc, t_soisno,
+        t_h2osfc, fn, sabg_lyr)
+    tvec = pdma_solve(lhs, rhs)
+    upd = update_temperature(snl, frac_h2osfc, tvec, t_soisno)
+
+    pc1 = phase_change_h2osfc(
+        snl, dtime, frac_sno, frac_h2osfc, dhsdT, c_h2osfc,
+        fact[:, nsno - 1], upd.t_h2osfc, h2osfc, h2osno, int_snow,
+        snow_depth, h2osoi_ice[:, nsno - 1], upd.t_soisno[:, nsno - 1])
+    ice_a = h2osoi_ice.clone()
+    ice_a[:, nsno - 1] = pc1.h2osoi_ice_sl1
+    t_a = upd.t_soisno.clone()
+    t_a[:, nsno - 1] = pc1.t_soisno_sl1
+    pc2 = phase_change_soisno(
+        land, snl, dtime, dhsdT, frac_h2osfc, frac_sno_eff, fact, watsat,
+        sucsat, bsw, dz, pc1.h2osno, pc1.snow_depth, ice_a, h2osoi_liq,
+        t_a)
+    t_grnd = update_t_grnd(snl, frac_h2osfc, frac_sno_eff, pc1.t_h2osfc,
+                           pc2.t_soisno)
+    return SoilTemperatureOut(
+        sabg_chk=sabg_chk, dhsdT=dhsdT, fact=fact, t_soisno=pc2.t_soisno,
+        h2osoi_ice=pc2.h2osoi_ice, h2osoi_liq=pc2.h2osoi_liq,
+        t_h2osfc=pc1.t_h2osfc, t_grnd=t_grnd, h2osfc=pc1.h2osfc,
+        int_snow=pc1.int_snow, h2osno=pc2.h2osno,
+        snow_depth=pc2.snow_depth, xmf_h2osfc=pc1.xmf_h2osfc,
+        qflx_h2osfc_to_ice=pc1.qflx_h2osfc_to_ice,
+        eflx_h2osfc_to_snow=pc1.eflx_h2osfc_to_snow, xmf=pc2.xmf,
+        qflx_snomelt=pc2.qflx_snomelt, qflx_snow_melt=pc2.qflx_snow_melt,
+        imelt=pc2.imelt, qflx_snofrz_lyr=pc2.qflx_snofrz_lyr)

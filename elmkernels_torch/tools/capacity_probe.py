@@ -43,11 +43,12 @@ import torch
 
 
 def _launches() -> dict:
-    from elmkernels_torch.ops import canopy, ci_solver, pdma, snicar, snow
+    from elmkernels_torch.ops import (canopy, ci_solver, pdma, snicar, snow,
+                                      soil_temperature)
     return {k.__name__: k.launches for k in (
         canopy.canopy_stability, ci_solver.ci_hybrid_solve,
         pdma.pdma_solve, pdma.pdma_solve_f32, snow.snow_hydrology,
-        snicar.snicar)}
+        snicar.snicar, soil_temperature.soil_temperature)}
 
 
 def probe(ncol: int, nsteps: int, device=None) -> dict:

@@ -3,7 +3,7 @@
     python -m elmkernels_torch.tools.profile_step [--ncol 262144] [--steps 4]
         [--loop {run,series,windows}] [--window 4]
         [--grid {uniform,global,landunits}] [--packed] [--eager]
-        [--out profile.json]
+        [--split physics.soil_temperature] [--out profile.json]
 
 Builds a model with the production flags from synthetic input files
 (written under ``build/``): ``--grid uniform`` is ``Model(ncol)``, one PFT
@@ -65,7 +65,8 @@ one JSON line, and writes it to ``--out`` when given:
   work takes the module around it; the profiled window's time of each
   device operation name (under replay, the graph's) is then shared among
   the modules as that name's time was in the eager step
-  (``eager_step_read`` says what that step gave);
+  (``eager_step_read`` says what that step gave); ``--split MODULE`` gives
+  each function of that module apart (``MODULE.function``);
 - ``graph``: the captures (seconds, graph pool bytes) and replays;
 - ``copies_h2d_outside_window_copy_per_step``: host-to-device copies that
   did not start inside the window's copy (``series``: the steps' own);
@@ -107,7 +108,8 @@ _PORT_MODULES = {"canopy_kernel": "ops.canopy (K2)",
                  "ci_hybrid_kernel": "ops.ci_solver (K1)",
                  "pdma_kernel": "ops.pdma (K4)",
                  "snow_kernel": "ops.snow (K5)",
-                 "snicar_kernel": "ops.snicar (K3)"}
+                 "snicar_kernel": "ops.snicar (K3)",
+                 "soil_temperature_kernel": "ops.soil_temperature (K7)"}
 _PORT_KERNELS = tuple(_PORT_MODULES)
 
 
@@ -149,9 +151,11 @@ def _overlap_us(a, b, merged, starts) -> float:
     return total
 
 
-def _module_ranges():
+def _module_ranges(split: str | None = None):
     """Wrap every function of the port's physics and ops modules in a
-    profiler range named after its module; returns the undo."""
+    profiler range named after its module, and each function of the module
+    ``split`` (as ``physics.soil_temperature``) after itself too; returns
+    the undo."""
     import importlib
     import inspect
     import pkgutil
@@ -168,7 +172,8 @@ def _module_ranges():
                 # it stays as it is, its work the caller's
                 if (inspect.isfunction(fn) and fn.__module__ == mod.__name__
                         and not hasattr(fn, "launches")):
-                    setattr(mod, attr, _ranged(fn, name))
+                    setattr(mod, attr, _ranged(
+                        fn, f"{name}.{attr}" if name[7:] == split else name))
                     undo.append((mod, attr, fn))
 
     def restore():
@@ -305,6 +310,10 @@ def main(argv=None) -> int:
     ap.add_argument("--eager", action="store_true",
                     help="run the loops op by op (disable_graphs()), not "
                          "replayed from the captured step")
+    ap.add_argument("--split", metavar="MODULE",
+                    help="give each function of this module's device time "
+                         "apart in device_ms_by_module, as "
+                         "physics.soil_temperature")
     ap.add_argument("--out")
     args = ap.parse_args(argv)
 
@@ -419,7 +428,7 @@ def main(argv=None) -> int:
 
     # one more step, eager, with the port's modules in ranges: which module
     # issued each of the step's device operations, in order
-    restore = _module_ranges()
+    restore = _module_ranges(args.split)
     advance = step_mod.advance
     step_mod.advance = _ranged(advance, "step_body")
     try:

@@ -434,6 +434,32 @@ def test_the_snow_block_captures_routed_to_k5(grid, stand_in, monkeypatch):
     _assert_state_equal(eager.state, m.state)
 
 
+
+def test_the_soil_temperature_module_captures_routed_to_k7(grid, stand_in,
+                                                            monkeypatch):
+    """The step's soil temperature module routed as on a card
+    (``soil_temperature_block`` to ``ops.soil_temperature.
+    soil_temperature``; here a stand-in that counts a launch and runs the
+    plain chain, not exempted from the strict capture): the capture
+    passes, each replay adds K7's launch, once a step, and the state equals
+    the eager loop's on the plain chain bit for bit."""
+    from elmkernels_torch.ops import soil_temperature as k7
+
+    def stand_in_k7(**args):
+        stand_in_k7.launches += 1
+        return soil_temperature.soil_temperature_block_plain(**args)
+    stand_in_k7.launches = 0
+    eager = torch_model(grid)
+    with graphs.disable_graphs():
+        eager.run_scan(_date(), 4)
+    monkeypatch.setattr(soil_temperature, "_on_card", lambda t: True)
+    monkeypatch.setattr(k7, "soil_temperature", stand_in_k7)
+    m = torch_model(grid)
+    m.run_scan(_date(), 4)
+    assert len(m._graphs.captures) == 1 and m._graphs.replays == 3
+    assert stand_in_k7.launches == 4
+    _assert_state_equal(eager.state, m.state)
+
 def test_snicar_captures_routed_to_k3(grid, stand_in, monkeypatch):
     """The step's SNICAR sweep routed as on a card (``snicar_ad_rt_both``
     to ``ops.snicar.snicar``; here a stand-in that counts a launch and runs

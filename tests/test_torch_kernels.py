@@ -448,6 +448,77 @@ def test_snow_dispatch_on_card(card):
             args, h2osno=args["h2osno"].clone().requires_grad_()))
 
 
+
+# ---- K7, the soil temperature module -----------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [N, 4001, 65, 63, 1])
+@pytest.mark.parametrize("land,kind", [("column", "mixed"),
+                                       ("soil", "july"), ("soil", "spring"),
+                                       ("ice", "mixed")])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_soil_temperature_kernel_matches_plain(card, dtype, land, kind, n):
+    """K7 against the plain chain at atol 0: every output, NaNs in the same
+    places; a second launch on the same inputs equal to the first bit for
+    bit; a launch captured in a CUDA graph and replayed on new inputs
+    equal to an eager one on them.  Widths around K7's 64-column blocks;
+    per-column and 0-d land masks; July-like, spring-like and mixed
+    problems."""
+    from elmkernels_torch.ops import soil_temperature as k7
+    args = testing.soil_temperature_problem(n, 19, dtype, land, kind,
+                                            device=card)
+    got = k7.soil_temperature(**args)._asdict()
+    again = k7.soil_temperature(**args)._asdict()
+    want = tst.soil_temperature_block_plain(**args)._asdict()
+    for f in want:
+        assert got[f].dtype == want[f].dtype, f
+        assert _same(got[f], want[f]), f
+        assert _same(got[f], again[f]), f
+    other = testing.soil_temperature_problem(n, 20, dtype, land, kind,
+                                             device=card)
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(card)
+    side.wait_stream(torch.cuda.current_stream(card))
+    with torch.cuda.stream(side):
+        k7.soil_temperature(**args)
+    torch.cuda.current_stream(card).wait_stream(side)
+    launches = k7.soil_temperature.launches
+    with torch.cuda.graph(graph):
+        captured = k7.soil_temperature(**args)
+    assert k7.soil_temperature.launches == launches + 1
+    for k, v in args.items():
+        if isinstance(v, torch.Tensor) and v.dim():
+            v.copy_(other[k])
+    graph.replay()
+    torch.cuda.synchronize(card)
+    want = tst.soil_temperature_block_plain(**args)._asdict()
+    for f, v in captured._asdict().items():
+        assert _same(v, want[f]), f
+
+
+@pytest.mark.cuda
+def test_soil_temperature_dispatch_on_card(card):
+    """On the card ``soil_temperature_block`` launches K7 once and K4 not
+    at all; under ``torch.func.jvp`` it runs the plain chain (K4 through
+    ``PdmaSolve``), and a differentiated tensor handed to K7's wrapper
+    raises."""
+    from elmkernels_torch.ops import pdma
+    from elmkernels_torch.ops import soil_temperature as k7
+    args = testing.soil_temperature_problem(1024, 17, device=card)
+    n7, n4 = k7.soil_temperature.launches, pdma.pdma_solve.launches
+    tst.soil_temperature_block(**args)
+    assert k7.soil_temperature.launches == n7 + 1
+    assert pdma.pdma_solve.launches == n4
+    torch.func.jvp(
+        lambda t: tst.soil_temperature_block(**dict(args, t_grnd=t)).t_grnd,
+        (args["t_grnd"],), (torch.ones_like(args["t_grnd"]),))
+    assert k7.soil_temperature.launches == n7 + 1
+    assert pdma.pdma_solve.launches > n4
+    with pytest.raises(RuntimeError, match="soil_temperature_block"):
+        k7.soil_temperature(**dict(
+            args, t_grnd=args["t_grnd"].clone().requires_grad_()))
+
 # ---- K3, SNICAR's adding-doubling sweep --------------------------------------
 
 _K3_TYPES = [(torch.float64, torch.float64, torch.float64),

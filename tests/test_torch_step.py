@@ -139,6 +139,32 @@ def test_snow_layer_case_through_k5(files, tmp_path, monkeypatch):
     assert len(calls) == 10 and max(calls) > 0
 
 
+
+def test_snow_layer_case_through_k7(files, tmp_path, monkeypatch):
+    """The snow-layer case with the step's soil temperature module run by
+    K7 (``csrc/soil_temperature.cu``) built for the host, as
+    ``test_torch_soil_temperature_kernel.py`` builds it, in place of the
+    plain chain: routed as a card routes it (``soil_temperature_block`` to
+    ``ops.soil_temperature.soil_temperature``), once a step, 10 steps in
+    lockstep with the JAX step at 1e-10."""
+    from elmkernels_torch.ops import soil_temperature as k7
+    from elmkernels_torch.physics import soil_temperature as tst
+    from test_torch_soil_temperature_kernel import build_host_lib, host_module
+    lib = build_host_lib(tmp_path)
+    calls = []
+
+    def kernel(**args):
+        calls.append(int(args["snl"].max()))
+        return host_module(lib, args)
+    monkeypatch.setattr(tst, "_on_card", lambda t: True)
+    monkeypatch.setattr(k7, "soil_temperature", kernel)
+    jm = tp.jax_model(files, 2, **EXACT)
+    jm.run(JDate.from_ymd(1985, 1, 1), 700)
+    tm = tp.torch_model(files, 2, **EXACT)
+    tp.carry_model(jm, tm)
+    _lockstep(jm, tm, 1, 1, 10, tp.RTOL, exact_atol, start_steps=700)
+    assert len(calls) == 10 and max(calls) > 0
+
 def test_port_winter_drive_contracts(files):
     """The port's own 100-step winter drive (production flags) meets the
     JAX package's test_driver contracts."""
